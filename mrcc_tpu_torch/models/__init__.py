@@ -1,0 +1,7 @@
+"""Sparse U-Net models (port of ``mrcc_tpu/models``, inference path)."""
+
+from .minkunet import MinkUNetBase, make_minkunet
+from .robotnet import RobotNetEncode, RobotNetSegmentation
+
+__all__ = ["MinkUNetBase", "RobotNetEncode", "RobotNetSegmentation",
+           "make_minkunet"]

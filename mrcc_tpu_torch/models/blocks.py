@@ -1,0 +1,42 @@
+"""Sparse residual block (port of ``mrcc_tpu/models/blocks.py``).
+
+conv k3 -> BN -> ReLU -> conv k3 -> BN -> (+ residual, through a 1x1 conv
++ BN when the width changes) -> ReLU.  Submodule names follow the reference
+state dict: ``conv1``, ``norm1``, ``conv2``, ``norm2``, ``downsample.0/1``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..sparse.nn import SparseBatchNorm, SparseConv1x1, SparseConvK3
+
+
+class SparseBasicBlock(nn.Module):
+    """BasicBlock (expansion 1)."""
+
+    expansion = 1
+
+    def __init__(self, inplanes: int, planes: int):
+        super().__init__()
+        self.conv1 = SparseConvK3(inplanes, planes)
+        self.norm1 = SparseBatchNorm(planes)
+        self.conv2 = SparseConvK3(planes, planes)
+        self.norm2 = SparseBatchNorm(planes)
+        self.downsample = None
+        if inplanes != planes:
+            self.downsample = nn.ModuleList([SparseConv1x1(inplanes, planes),
+                                             SparseBatchNorm(planes)])
+
+    def forward(self, feats, level):
+        out = torch.relu(self.norm1(self.conv1(feats, level), level.valid))
+        out = self.norm2(self.conv2(out, level), level.valid)
+        residual = feats
+        if self.downsample is not None:
+            conv, norm = self.downsample
+            residual = norm(conv(feats, level.valid), level.valid)
+        return torch.relu(out + residual)
+
+
+BLOCKS = {"basic": SparseBasicBlock}

@@ -1,0 +1,78 @@
+"""Functional sparse convolutions and pools over a level hierarchy (port of
+``mrcc_tpu/sparse/conv.py``).
+
+Weight layout ``[K, Cin, Cout]`` with K = 27 (k=3 s=1), 8 (k=2 s=2) or 1.
+Convs compute in the feature dtype with f32 accumulation; the bias is added
+outside the kernel in the feature dtype and padding rows are zeroed, as in
+``_with_bias``.  k=3 convs always run the self-keyed kernel on the card, at
+any N: the TPU's VMEM gate has no meaning there.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.conv import gather_gemm_down, gather_gemm_sk, gather_gemm_up
+
+
+def _with_bias(out, bias, valid):
+    if bias is None:
+        return out
+    return torch.where(valid[..., None], out + bias.to(out.dtype), 0.0)
+
+
+def conv_k3(feats, weights, level, bias=None):
+    """k=3 s=1 submanifold conv on one level (K2)."""
+    out = gather_gemm_sk(feats, weights.to(feats.dtype), level.key,
+                         level.kbits)
+    return _with_bias(out, bias, level.valid)
+
+
+def conv_down(feats, weights, fine_level, coarse_level, bias=None):
+    """k=2 s=2 conv: fine level -> coarse level over the 8-child map (K3)."""
+    out = gather_gemm_down(feats, weights.to(feats.dtype),
+                           coarse_level.child_idx, coarse_level.child_hit)
+    return _with_bias(out, bias, coarse_level.valid)
+
+
+def conv_transpose_up(feats, weights, coarse_level, fine_level, bias=None):
+    """k=2 s=2 transpose conv: coarse -> cached fine level (K3 up):
+    ``out[c] = feats[parent(c)] @ W[octant(c)]`` for valid children whose
+    parent made the coarse capacity."""
+    row_ok = fine_level.valid & fine_level.parent_ok
+    out = gather_gemm_up(feats, weights.to(feats.dtype), fine_level.parent_idx,
+                         row_ok, fine_level.octant)
+    return _with_bias(out, bias, fine_level.valid)
+
+
+def conv1x1(feats, weights, valid, bias=None):
+    """Pointwise conv: one matmul (f32 accumulation), cast to feats dtype."""
+    w = (weights[0] if weights.dim() == 3 else weights).to(feats.dtype)
+    out = torch.matmul(feats, w)
+    if bias is not None:
+        out = out + bias.to(feats.dtype)
+    return torch.where(valid[..., None], out, 0.0)
+
+
+def global_max_pool(feats, valid):
+    """Per-item masked max over voxels: [B, N, C] -> [B, C] (0 if empty)."""
+    m = torch.where(valid[..., None], feats,
+                    torch.full((), float("-inf"), dtype=feats.dtype,
+                               device=feats.device)).amax(dim=1)
+    return torch.where(torch.isfinite(m), m, 0.0)
+
+
+def global_avg_pool(feats, valid):
+    """Per-item masked mean over voxels: [B, N, C] -> [B, C].
+
+    Sums accumulate in f32 and round to the feature dtype, as ``jnp.sum``
+    does for bf16."""
+    v = valid[..., None].to(feats.dtype)
+    s = (feats * v).float().sum(dim=1).to(feats.dtype)
+    n = torch.clamp_min(v.float().sum(dim=1), 1.0).to(feats.dtype)
+    return s / n
+
+
+def cat(feats_a, feats_b, valid):
+    """Channel concat of two feature sets on the same coords."""
+    return torch.where(valid[..., None], torch.cat([feats_a, feats_b], -1), 0.0)

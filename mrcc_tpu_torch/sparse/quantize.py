@@ -1,0 +1,113 @@
+"""Voxel quantization: points -> sparse voxels (port of
+``mrcc_tpu/sparse/quantize.py``).
+
+``floor(points / quantization_size)`` integer coords (the division is an f32
+division, as in JAX: a reciprocal multiply moves boundary points), packed
+30-bit keys, one stable key sort per item, segment reductions over the
+sorted runs.  Features are averaged per voxel; the inverse point -> voxel
+map lets per-voxel outputs be sliced back onto the points.  Points outside
+the 1024^3 window, masked points and runs beyond the capacity go to the
+dump row ``capacity``, which is dropped.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .sorting import argsort_keys
+from .types import (COORD_OFFSET, COORD_RANGE, KEY_PAD, SparseVoxels,
+                    pack_key, unpack_key)
+
+
+def run_ids(skey):
+    """0-based run index of each entry of sorted keys ``[B, N]``."""
+    first = torch.ones_like(skey, dtype=torch.int32)
+    first[:, 1:] = (skey[:, 1:] != skey[:, :-1]).to(torch.int32)
+    return torch.cumsum(first, dim=1, dtype=torch.int32) - 1
+
+
+def segment_ids(seg, capacity):
+    """Flatten per-item segment ids ``[B, N]`` in ``[0, capacity]`` to
+    ``[B * (capacity + 1)]`` slots (slot ``capacity`` of each item = dump)."""
+    b = seg.shape[0]
+    base = torch.arange(b, device=seg.device, dtype=torch.int64)[:, None]
+    return (seg.to(torch.int64) + base * (capacity + 1)).reshape(-1)
+
+
+def segment_sum(values, flat, b, capacity):
+    """Sum ``values [B, N, ...]`` into ``[B, capacity, ...]`` (dump dropped)."""
+    tail = values.shape[2:]
+    out = torch.zeros((b * (capacity + 1),) + tail, dtype=values.dtype,
+                      device=values.device)
+    out.index_add_(0, flat, values.reshape((-1,) + tail))
+    return out.reshape((b, capacity + 1) + tail)[:, :capacity]
+
+
+def segment_min(values, flat, b, capacity):
+    """Min of ``values [B, N]`` into ``[B, capacity]``; empty segments 0."""
+    out = torch.zeros(b * (capacity + 1), dtype=values.dtype,
+                      device=values.device)
+    out.scatter_reduce_(0, flat, values.reshape(-1), reduce="amin",
+                        include_self=False)
+    return out.reshape(b, capacity + 1)[:, :capacity]
+
+
+def f32_div(x, s: float):
+    """``x / s`` as a true f32 division by a device tensor (a Python scalar
+    divisor becomes a reciprocal multiply on the card)."""
+    return x / torch.full((), s, dtype=x.dtype, device=x.device)
+
+
+def voxelize(points, feats, mask, quantization_size, capacity):
+    """Batched voxelization.
+
+    Args:
+      points: [B, P, 3] f32 points (metres).
+      feats:  [B, P, C] per-point features.
+      mask:   [B, P] validity of input points.
+      quantization_size: voxel edge length.
+      capacity: per-item voxel capacity N.
+
+    Returns ``(SparseVoxels, point_to_voxel [B, P] int32)``; points without
+    a voxel map to ``capacity``.
+    """
+    b, p, c = feats.shape
+    coords = torch.floor(f32_div(points, quantization_size)).to(torch.int32)
+    off = coords + COORD_OFFSET
+    in_range = ((off >= 0) & (off < COORD_RANGE)).all(dim=-1)
+    ok = in_range & mask
+    key = torch.where(ok, pack_key(off), KEY_PAD)
+    skey, order = argsort_keys(key)
+    sfeats = feats.gather(1, order.long()[..., None].expand(b, p, c))
+
+    run_id = run_ids(skey)
+    vid = torch.where((skey < KEY_PAD) & (run_id < capacity), run_id, capacity)
+    flat = segment_ids(vid, capacity)
+    cnt = segment_sum(torch.ones((b, p), dtype=feats.dtype,
+                                 device=feats.device), flat, b, capacity)
+    fsum = segment_sum(sfeats, flat, b, capacity)
+    vvalid = cnt > 0
+    fmean = fsum / torch.clamp_min(cnt, 1.0)[..., None]
+
+    ukey = segment_min(skey, flat, b, capacity)
+    ukey = torch.where(vvalid, ukey, KEY_PAD)
+    uoff = torch.where(vvalid[..., None], unpack_key(ukey), 0)
+
+    # point -> voxel in original point order (order is a permutation)
+    pv = torch.zeros((b, p), dtype=torch.int32, device=points.device)
+    pv.scatter_(1, order.long(), vid)
+    voxels = SparseVoxels(
+        off=uoff, key=ukey,
+        feats=torch.where(vvalid[..., None], fmean, 0.0),
+        valid=vvalid, count=vvalid.sum(dim=1, dtype=torch.int32))
+    return voxels, pv
+
+
+def slice_to_points(voxel_values, point_to_voxel, fill_value=0.0):
+    """Map per-voxel values ``[B, N, C]`` back onto points via
+    ``point_to_voxel [B, P]`` (== N: no voxel -> ``fill_value``)."""
+    b, _, c = voxel_values.shape
+    padded = torch.cat([voxel_values,
+                        voxel_values.new_full((b, 1, c), fill_value)], dim=1)
+    idx = point_to_voxel.long()[..., None].expand(-1, -1, c)
+    return padded.gather(1, idx)
