@@ -21,13 +21,15 @@ import typing
 
 import torch
 
+from ..device import resolve_device
 from ..geometry.preprocess import center_at_origin, normalize_colors
 from ..interop import load_jax_variables
 from ..models import RobotNetEncode, RobotNetSegmentation
 from ..solve import (default_template, icp_refine, key_point_predictions,
                      largest_cluster_mask, pose_from_key_points,
                      predict_translation)
-from ..sparse import build_hierarchy, slice_to_points, voxelize
+from ..sparse import (build_hierarchy, hierarchy_caps, slice_to_points,
+                      voxelize)
 from ..sparse.nn import init_parameters
 
 
@@ -98,17 +100,7 @@ def _hierarchy_caps(cap, override=None):
         if len(override) != 4:
             raise ValueError(f"hierarchy caps {override}: need 4")
         return tuple(override)
-    return (cap, max(cap // 2, 64), max(cap // 4, 64), max(cap // 8, 64))
-
-
-def _resolve_device(device) -> torch.device:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "InferenceEngine runs on a CUDA card and none is available; "
-                "pass device='cpu' to run the plain PyTorch path")
-        return torch.device("cuda")
-    return torch.device(device)
+    return hierarchy_caps(cap)
 
 
 def _take(x, order):
@@ -123,7 +115,7 @@ class InferenceEngine:
     def __init__(self, config: InferenceConfig = None, device=None, seed=0):
         self.cfg = config or InferenceConfig()
         cfg = self.cfg
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.compute_dtype)
         self.template = torch.as_tensor(
             default_template(cfg.icp_template_points), device=self.device)
@@ -275,7 +267,7 @@ def measure_seg_caps(points, rgb, mask, scale=200.0, headroom=1.1,
     capacity, return per-level capacities from the largest item's counts,
     times ``headroom``, rounded up to 256 (the rule of the JAX package's
     ``bench.py::measure_seg_caps``)."""
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     pts = torch.as_tensor(points, dtype=torch.float32, device=dev)
     feats = torch.as_tensor(rgb, dtype=torch.float32, device=dev)
     m = torch.as_tensor(mask, dtype=torch.bool, device=dev)

@@ -1,0 +1,102 @@
+// Weight gradients of the k=2 s=2 down conv and its transpose (K3's
+// backward).
+//
+// Replaces: mrcc_tpu/ops/conv_pallas.py::_dw_call and its wrapper
+// dw_gather_gemm, over the down (8-child) map and the broadcast-k up map.
+//
+//   down: dW[k] = sum_{b,p} child_hit[k, b, p] * feats[b, child_idx[k, b, p]]^T (x) g[b, p]
+//   up:   dW[k] = sum_{b,c} row_ok[b, c] * [octant[b, c] == k]
+//                 * feats[b, parent_idx[b, c]]^T (x) g[b, c]
+//
+// feats is the conv's input level (fine for down, coarse for up), g its
+// output cotangent masked by the output level's validity.  row_ok is
+// valid & parent_ok: children of parents that overflowed the coarse
+// capacity alias slot capacity - 1 and contribute nothing.
+//
+// Bound on the card: each hit row costs 2 * Cin * Cout FLOPs against one
+// gathered feature row and one g row; the wide up convs of the decoder
+// (256/384 channels) are bound by operations, the narrow down convs by
+// bytes.  Design: dw_gemm.cuh (per-CTA (k, dW block, row slice), hits
+// compacted in row order, f32 FMA, slices summed in fixed order).
+
+#include "dw_gemm.cuh"
+
+namespace {
+
+using namespace mrcc;
+
+constexpr int K2 = 8;
+
+struct DownSource {
+  const int* child_idx;
+  const uint8_t* child_hit;
+  int batch;
+  int n_out;
+
+  __device__ __forceinline__ int operator()(int k, int b, int p) const {
+    const size_t o = (static_cast<size_t>(k) * batch + b) * n_out + p;
+    return child_hit[o] ? child_idx[o] : -1;
+  }
+};
+
+struct UpSource {
+  const int* parent_idx;
+  const uint8_t* row_ok;
+  const int* octant;
+  int n_out;
+
+  __device__ __forceinline__ int operator()(int k, int b, int c) const {
+    const size_t at = static_cast<size_t>(b) * n_out + c;
+    return (row_ok[at] && octant[at] == k) ? parent_idx[at] : -1;
+  }
+};
+
+}  // namespace
+
+// down: feats [B, n_in, cin] (fine), g [B, n_out, cout] (coarse),
+// child_idx [8, B, n_out] int32, child_hit [8, B, n_out] bool,
+// part [slices, 8, cin, cout] f32 (unused when slices == 1),
+// out [8, cin, cout] f32.  Returns cudaGetLastError().
+extern "C" int mrcc_dw_down_f32(const void* feats, const void* g,
+                                const int* child_idx, const uint8_t* child_hit,
+                                float* part, float* out, int batch, int n_in,
+                                int n_out, int cin, int cout, int slices,
+                                cudaStream_t stream) {
+  return mrcc::dw_launch<float>(
+      DownSource{child_idx, child_hit, batch, n_out}, feats, g, part, out,
+      batch, n_in, n_out, K2, cin, cout, slices, stream);
+}
+
+extern "C" int mrcc_dw_down_bf16(const void* feats, const void* g,
+                                 const int* child_idx, const uint8_t* child_hit,
+                                 float* part, float* out, int batch, int n_in,
+                                 int n_out, int cin, int cout, int slices,
+                                 cudaStream_t stream) {
+  return mrcc::dw_launch<__nv_bfloat16>(
+      DownSource{child_idx, child_hit, batch, n_out}, feats, g, part, out,
+      batch, n_in, n_out, K2, cin, cout, slices, stream);
+}
+
+// up: feats [B, n_in, cin] (coarse), g [B, n_out, cout] (fine),
+// parent_idx/octant [B, n_out] int32, row_ok [B, n_out] bool,
+// part [slices, 8, cin, cout] f32 (unused when slices == 1),
+// out [8, cin, cout] f32.  Returns cudaGetLastError().
+extern "C" int mrcc_dw_up_f32(const void* feats, const void* g,
+                              const int* parent_idx, const uint8_t* row_ok,
+                              const int* octant, float* part, float* out,
+                              int batch, int n_in, int n_out, int cin, int cout,
+                              int slices, cudaStream_t stream) {
+  return mrcc::dw_launch<float>(
+      UpSource{parent_idx, row_ok, octant, n_out}, feats, g, part, out, batch,
+      n_in, n_out, K2, cin, cout, slices, stream);
+}
+
+extern "C" int mrcc_dw_up_bf16(const void* feats, const void* g,
+                               const int* parent_idx, const uint8_t* row_ok,
+                               const int* octant, float* part, float* out,
+                               int batch, int n_in, int n_out, int cin,
+                               int cout, int slices, cudaStream_t stream) {
+  return mrcc::dw_launch<__nv_bfloat16>(
+      UpSource{parent_idx, row_ok, octant, n_out}, feats, g, part, out, batch,
+      n_in, n_out, K2, cin, cout, slices, stream);
+}

@@ -2,7 +2,7 @@
 // and its transpose).
 //
 // Replaces: mrcc_tpu/ops/conv_pallas.py::_gather_gemm_call in the two modes
-// the inference path runs: the 8-child down map, and the broadcast-k up map
+// the port runs: the 8-child down map, and the broadcast-k up map
 // (bcast_k).
 //
 //   down: out[b, p] = sum_{k<8} child_hit[k, b, p] * feats[b, child_idx[k, b, p]] @ W[k]

@@ -31,13 +31,6 @@ using namespace mrcc;
 constexpr int K3 = 27;
 constexpr int KC = 16;
 
-__device__ __forceinline__ int k3_delta(int k) {
-  const int dx = k / 9 - 1;
-  const int dy = (k / 3) % 3 - 1;
-  const int dz = k % 3 - 1;
-  return dx * (1 << 20) + dy * (1 << 10) + dz;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 conv_sk_kernel(const T* __restrict__ feats, const T* __restrict__ w,
@@ -62,18 +55,7 @@ conv_sk_kernel(const T* __restrict__ feats, const T* __restrict__ w,
     const int row = m0 + r;
     int j = -1;
     if (row < n && ((brow[row] >> k) & 1)) {
-      if (k == 13) {
-        j = row;
-      } else {
-        const int q = krow[row] + k3_delta(k);
-        int lo = 0;
-        int hi = n;
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (__ldg(krow + mid) < q) lo = mid + 1; else hi = mid;
-        }
-        if (lo < n && __ldg(krow + lo) == q) j = lo;
-      }
+      j = k == 13 ? row : find_key(krow, n, krow[row] + k3_delta(k));
     }
     nbr[k][r] = j;
     if (j >= 0) any_hit[k] = 1;

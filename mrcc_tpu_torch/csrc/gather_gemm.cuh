@@ -1,6 +1,7 @@
 // Shared tile machinery of the gather-GEMM convolutions (conv_sk.cu,
-// conv_map.cu): a CTA owns TM output rows x TN output columns; 256 threads
-// in a 16 x 16 grid each accumulate 4 x 4 outputs in f32 registers.  Input
+// conv_map.cu; the key search also serves conv_dw_sk.cu): a CTA owns TM
+// output rows x TN output columns; 256 threads in a 16 x 16 grid each
+// accumulate 4 x 4 outputs in f32 registers.  Input
 // rows are gathered through a per-CTA row list in shared memory (-1 = zero
 // row), converted to f32 on load, and multiplied by a shared-memory slice
 // of the weights with FMA.  Rows i of a thread are ty + 16 * i and columns
@@ -17,6 +18,28 @@ namespace mrcc {
 constexpr int TM = 64;
 constexpr int TN = 64;
 constexpr int THREADS = 256;
+
+// Packed key delta of K3_OFFSETS[k] (x slowest, z fastest; k = 13 is the
+// identity, and delta(26 - k) == -delta(k)).
+__device__ __forceinline__ int k3_delta(int k) {
+  const int dx = k / 9 - 1;
+  const int dy = (k / 3) % 3 - 1;
+  const int dz = k % 3 - 1;
+  return dx * (1 << 20) + dy * (1 << 10) + dz;
+}
+
+// Row of the sorted key row krow[0, n) equal to q, or -1 (binary search;
+// the row is L2-resident at the main path's sizes).
+__device__ __forceinline__ int find_key(const int* __restrict__ krow, int n,
+                                        int q) {
+  int lo = 0;
+  int hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(krow + mid) < q) lo = mid + 1; else hi = mid;
+  }
+  return (lo < n && __ldg(krow + lo) == q) ? lo : -1;
+}
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T v);

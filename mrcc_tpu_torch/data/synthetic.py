@@ -192,20 +192,26 @@ def generate_sample(seed=0, n_ee=4096, n_arm=6000, n_bg=14000,
     }
 
 
-def build_batch(batch, capacity, seed=0):
+def build_batch(batch, capacity, seed=0, with_labels=False):
     """``(points, rgb, mask)`` numpy arrays ``[B, capacity, ...]`` of scenes
     whose real point count scales with the capacity (the rule of the JAX
-    package's ``bench.py::build_inputs``)."""
+    package's ``bench.py::build_inputs``).  ``with_labels`` adds the
+    per-point class labels ``[B, capacity] int32`` (background 0, arm 1,
+    EE 2; padding rows -100, the ignore label) as a fourth value."""
     n_ee = max(capacity // 8, 512)
     n_arm = max(capacity * 3 // 16, 1024)
     n_bg = max(capacity * 7 // 16, 2048)
     pts = np.zeros((batch, capacity, 3), np.float32)
     rgb = np.zeros((batch, capacity, 3), np.float32)
     mask = np.zeros((batch, capacity), bool)
+    labels = np.full((batch, capacity), -100, np.int32)
     for i in range(batch):
         s = generate_sample(seed=seed + i, n_ee=n_ee, n_arm=n_arm, n_bg=n_bg)
         n = min(len(s["points"]), capacity)
         pts[i, :n] = s["points"][:n]
         rgb[i, :n] = s["rgb"][:n]
         mask[i, :n] = True
+        labels[i, :n] = s["labels"][:n]
+    if with_labels:
+        return pts, rgb, mask, labels
     return pts, rgb, mask

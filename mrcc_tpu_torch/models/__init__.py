@@ -1,4 +1,5 @@
-"""Sparse U-Net models (port of ``mrcc_tpu/models``, inference path)."""
+"""Sparse U-Net models (port of ``mrcc_tpu/models``: MinkUNet and the
+RobotNet segmentation / encoder heads)."""
 
 from .minkunet import MinkUNetBase, make_minkunet
 from .robotnet import RobotNetEncode, RobotNetSegmentation

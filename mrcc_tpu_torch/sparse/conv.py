@@ -5,14 +5,19 @@ Weight layout ``[K, Cin, Cout]`` with K = 27 (k=3 s=1), 8 (k=2 s=2) or 1.
 Convs compute in the feature dtype with f32 accumulation; the bias is added
 outside the kernel in the feature dtype and padding rows are zeroed, as in
 ``_with_bias``.  k=3 convs always run the self-keyed kernel on the card, at
-any N: the TPU's VMEM gate has no meaning there.
+any N: the TPU's VMEM gate has no meaning there.  The k3, down and up convs
+are differentiable through the autograd Functions of ``ops/conv.py``, whose
+backward passes run the same kernels over the reverse maps and the dW
+kernels; where autograd records nothing (inference under ``no_grad``) they
+call the forward wrappers directly.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.conv import gather_gemm_down, gather_gemm_sk, gather_gemm_up
+from ..ops.conv import (DownConvFn, SkConvFn, UpConvFn, gather_gemm_down,
+                        gather_gemm_sk, gather_gemm_up)
 
 
 def _with_bias(out, bias, valid):
@@ -21,17 +26,31 @@ def _with_bias(out, bias, valid):
     return torch.where(valid[..., None], out + bias.to(out.dtype), 0.0)
 
 
+def _recorded(feats, weights):
+    return torch.is_grad_enabled() and (feats.requires_grad
+                                        or weights.requires_grad)
+
+
 def conv_k3(feats, weights, level, bias=None):
     """k=3 s=1 submanifold conv on one level (K2)."""
-    out = gather_gemm_sk(feats, weights.to(feats.dtype), level.key,
-                         level.kbits)
+    w = weights.to(feats.dtype)
+    if _recorded(feats, w):
+        out = SkConvFn.apply(feats, w, level.key, level.kbits, level.valid)
+    else:
+        out = gather_gemm_sk(feats, w, level.key, level.kbits)
     return _with_bias(out, bias, level.valid)
 
 
 def conv_down(feats, weights, fine_level, coarse_level, bias=None):
     """k=2 s=2 conv: fine level -> coarse level over the 8-child map (K3)."""
-    out = gather_gemm_down(feats, weights.to(feats.dtype),
-                           coarse_level.child_idx, coarse_level.child_hit)
+    w = weights.to(feats.dtype)
+    maps = (coarse_level.child_idx, coarse_level.child_hit)
+    if _recorded(feats, w):
+        out = DownConvFn.apply(feats, w, *maps, coarse_level.valid,
+                               fine_level.parent_idx, fine_level.row_ok,
+                               fine_level.octant)
+    else:
+        out = gather_gemm_down(feats, w, *maps)
     return _with_bias(out, bias, coarse_level.valid)
 
 
@@ -39,9 +58,13 @@ def conv_transpose_up(feats, weights, coarse_level, fine_level, bias=None):
     """k=2 s=2 transpose conv: coarse -> cached fine level (K3 up):
     ``out[c] = feats[parent(c)] @ W[octant(c)]`` for valid children whose
     parent made the coarse capacity."""
-    row_ok = fine_level.valid & fine_level.parent_ok
-    out = gather_gemm_up(feats, weights.to(feats.dtype), fine_level.parent_idx,
-                         row_ok, fine_level.octant)
+    w = weights.to(feats.dtype)
+    maps = (fine_level.parent_idx, fine_level.row_ok, fine_level.octant)
+    if _recorded(feats, w):
+        out = UpConvFn.apply(feats, w, *maps, fine_level.valid,
+                             coarse_level.child_idx, coarse_level.child_hit)
+    else:
+        out = gather_gemm_up(feats, w, *maps)
     return _with_bias(out, bias, fine_level.valid)
 
 

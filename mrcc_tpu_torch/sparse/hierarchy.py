@@ -1,5 +1,6 @@
 """Coordinate hierarchy for sparse U-Nets (port of
-``mrcc_tpu/sparse/hierarchy.py``, the self-keyed inference path).
+``mrcc_tpu/sparse/hierarchy.py``, the self-keyed path of inference and
+training).
 
 Per stride level: the unique voxel set (sorted packed keys), parent links
 into the next-coarser level (``parent_idx``, ``parent_ok``, ``octant``) for
@@ -65,6 +66,8 @@ class Level:
     off/key/valid/count: the voxel set ([B, N, 3], [B, N], [B, N], [B]).
     parent_idx: [B, N] slot of the parent in the next-coarser level.
     parent_ok:  [B, N] whether that parent made the coarser capacity.
+    row_ok:     [B, N] ``valid & parent_ok``: the rows the up map and its
+      dW read, and the data-cotangent mask of the down conv.
     octant:     [B, N] which of the 8 children of its parent this voxel is.
     child_idx/child_hit: [8, B, N] on the COARSER level: per voxel and
       octant, the index of its child in the finer level.
@@ -77,6 +80,7 @@ class Level:
     count: torch.Tensor
     parent_idx: Optional[torch.Tensor] = None
     parent_ok: Optional[torch.Tensor] = None
+    row_ok: Optional[torch.Tensor] = None
     octant: Optional[torch.Tensor] = None
     child_idx: Optional[torch.Tensor] = None
     child_hit: Optional[torch.Tensor] = None
@@ -136,6 +140,13 @@ def downsample(off, valid, capacity):
     return coarse, parent_idx, parent_ok, octant
 
 
+def hierarchy_caps(voxel_capacity: int) -> Tuple[int, ...]:
+    """Default level 1..4 capacities of a depth-4 hierarchy: the level-0
+    capacity, then halving, floor 64 (``trainer.py:200-202``)."""
+    return (voxel_capacity, max(voxel_capacity // 2, 64),
+            max(voxel_capacity // 4, 64), max(voxel_capacity // 8, 64))
+
+
 def build_hierarchy(voxels: SparseVoxels, depth: int,
                     capacities: Optional[Tuple[int, ...]] = None,
                     build_k3: bool = True) -> Tuple[Level, ...]:
@@ -157,7 +168,8 @@ def build_hierarchy(voxels: SparseVoxels, depth: int,
         coarse, parent_idx, parent_ok, octant = downsample(cur.off, cur.valid,
                                                            cap)
         cur = dataclasses.replace(
-            cur, parent_idx=parent_idx, parent_ok=parent_ok, octant=octant,
+            cur, parent_idx=parent_idx, parent_ok=parent_ok,
+            row_ok=cur.valid & parent_ok, octant=octant,
             kbits=k3_bits(cur.off, cur.valid) if build_k3 else None)
         levels.append(cur)
         cur = coarse

@@ -1,5 +1,5 @@
 """``nn.Module`` layers over the sparse core (port of
-``mrcc_tpu/sparse/nn.py``, inference path).
+``mrcc_tpu/sparse/nn.py``).
 
 Parameter names follow the reference's state dict (MinkowskiEngine
 layers): convolutions hold ``kernel [K, Cin, Cout]`` (and ``bias``),
@@ -92,8 +92,16 @@ class _BatchNormState(nn.Module):
 
 
 class SparseBatchNorm(nn.Module):
-    """Masked BatchNorm, inference form: running statistics, f32 math, cast
-    back to the feature dtype, padding rows zeroed (eps 1e-5)."""
+    """Masked BatchNorm over the valid voxels of the whole batch, f32 math,
+    cast back to the feature dtype, padding rows zeroed (eps 1e-5).
+
+    ``self.training`` picks the statistics, as ``train=`` does in JAX: in
+    train mode the batch mean and biased variance normalise, and the running
+    statistics move by momentum 0.1 towards the mean and the *unbiased*
+    variance ``var * n / max(n - 1, 1)`` (torch BN semantics); in eval mode
+    the running statistics normalise."""
+
+    momentum = 0.1
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -109,8 +117,20 @@ class SparseBatchNorm(nn.Module):
 
     def forward(self, feats, valid):
         bn = self.bn
-        out = ((feats.float() - bn.running_mean)
-               * torch.rsqrt(bn.running_var + self.eps) * bn.weight + bn.bias)
+        f32 = feats.float()
+        if self.training:
+            v = valid[..., None].float()
+            n = torch.clamp_min(v.sum(), 1.0)
+            mean = (f32 * v).sum(dim=(0, 1)) / n
+            var = (((f32 - mean) ** 2) * v).sum(dim=(0, 1)) / n
+            with torch.no_grad():
+                m = self.momentum
+                unbiased = var * n / torch.clamp_min(n - 1.0, 1.0)
+                bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
+                bn.running_var.copy_((1 - m) * bn.running_var + m * unbiased)
+        else:
+            mean, var = bn.running_mean, bn.running_var
+        out = (f32 - mean) * torch.rsqrt(var + self.eps) * bn.weight + bn.bias
         return torch.where(valid[..., None], out.to(feats.dtype), 0.0)
 
 

@@ -4,7 +4,8 @@
 ``floor(points / quantization_size)`` integer coords (the division is an f32
 division, as in JAX: a reciprocal multiply moves boundary points), packed
 30-bit keys, one stable key sort per item, segment reductions over the
-sorted runs.  Features are averaged per voxel; the inverse point -> voxel
+sorted runs.  Features are averaged per voxel, labels merge to their
+common value or ``ignore_label`` on conflict; the inverse point -> voxel
 map lets per-voxel outputs be sliced back onto the points.  Points outside
 the 1024^3 window, masked points and runs beyond the capacity go to the
 dump row ``capacity``, which is dropped.
@@ -43,13 +44,22 @@ def segment_sum(values, flat, b, capacity):
     return out.reshape((b, capacity + 1) + tail)[:, :capacity]
 
 
-def segment_min(values, flat, b, capacity):
-    """Min of ``values [B, N]`` into ``[B, capacity]``; empty segments 0."""
+def _segment_reduce(values, flat, b, capacity, reduce):
     out = torch.zeros(b * (capacity + 1), dtype=values.dtype,
                       device=values.device)
-    out.scatter_reduce_(0, flat, values.reshape(-1), reduce="amin",
+    out.scatter_reduce_(0, flat, values.reshape(-1), reduce=reduce,
                         include_self=False)
     return out.reshape(b, capacity + 1)[:, :capacity]
+
+
+def segment_min(values, flat, b, capacity):
+    """Min of ``values [B, N]`` into ``[B, capacity]``; empty segments 0."""
+    return _segment_reduce(values, flat, b, capacity, "amin")
+
+
+def segment_max(values, flat, b, capacity):
+    """Max of ``values [B, N]`` into ``[B, capacity]``; empty segments 0."""
+    return _segment_reduce(values, flat, b, capacity, "amax")
 
 
 def f32_div(x, s: float):
@@ -58,7 +68,8 @@ def f32_div(x, s: float):
     return x / torch.full((), s, dtype=x.dtype, device=x.device)
 
 
-def voxelize(points, feats, mask, quantization_size, capacity):
+def voxelize(points, feats, mask, quantization_size, capacity,
+             labels=None, ignore_label=-100):
     """Batched voxelization.
 
     Args:
@@ -67,9 +78,13 @@ def voxelize(points, feats, mask, quantization_size, capacity):
       mask:   [B, P] validity of input points.
       quantization_size: voxel edge length.
       capacity: per-item voxel capacity N.
+      labels: optional [B, P] per-point labels (cast to int32).
+      ignore_label: the label of a voxel whose points disagree, and of
+        empty voxels.
 
-    Returns ``(SparseVoxels, point_to_voxel [B, P] int32)``; points without
-    a voxel map to ``capacity``.
+    Returns ``(SparseVoxels, point_to_voxel [B, P] int32)``, and the voxel
+    labels ``[B, N] int32`` as a third value when ``labels`` is given;
+    points without a voxel map to ``capacity``.
     """
     b, p, c = feats.shape
     coords = torch.floor(f32_div(points, quantization_size)).to(torch.int32)
@@ -100,7 +115,13 @@ def voxelize(points, feats, mask, quantization_size, capacity):
         off=uoff, key=ukey,
         feats=torch.where(vvalid[..., None], fmean, 0.0),
         valid=vvalid, count=vvalid.sum(dim=1, dtype=torch.int32))
-    return voxels, pv
+    if labels is None:
+        return voxels, pv
+    slab = labels.gather(1, order.long()).to(torch.int32)
+    lmin = segment_min(slab, flat, b, capacity)
+    lmax = segment_max(slab, flat, b, capacity)
+    ulab = torch.where(vvalid & (lmin == lmax), lmin, ignore_label)
+    return voxels, pv, ulab.to(torch.int32)
 
 
 def slice_to_points(voxel_values, point_to_voxel, fill_value=0.0):

@@ -7,6 +7,11 @@ only).  Cases: a cloud touching offset coords 0 and 1023 (border keys alias
 across the packed fields), levels whose capacity overflows (parent_ok
 false), Cin = 3, and a scattered cloud whose neighbours lie far apart in
 key order.
+
+Gradients: ``dfeats`` and ``dW`` of the port's autograd Functions (the
+custom-VJP formulas over the reverse maps and the dW twins) against
+``jax.grad`` of the JAX functions under ``sparse_impl("xla")``, and against
+autograd through the plain forward twins, at the same tolerance.
 """
 
 from functools import partial
@@ -20,6 +25,7 @@ import torch
 from mrcc_tpu.sparse import build_hierarchy as jax_build_hierarchy
 from mrcc_tpu.sparse import conv as JC
 from mrcc_tpu.sparse import voxelize as jax_voxelize
+from mrcc_tpu.sparse.impl import sparse_impl
 from mrcc_tpu_torch.ops.conv import (gather_gemm_down, gather_gemm_down_plain,
                                      gather_gemm_sk, gather_gemm_sk_plain,
                                      gather_gemm_up, gather_gemm_up_plain)
@@ -153,3 +159,66 @@ def test_conv_transpose_up_matches_jax(case):
                                    atol=0)
     if case["name"] == "overflow":
         assert not bool(lv[0].parent_ok[lv[0].valid].all())
+
+
+# ------------------------------------------------------------ gradients
+
+def _conv_pair(kind, case, l):
+    """(JAX fn(f, w), port fn(f, w), plain twin fn(f, w), feats, weights,
+    cotangent) of one conv on level l."""
+    lv_j, lv, cin, cout = case["lv_j"], case["lv"], case["cin"], case["cout"]
+    rng = case["rng"]
+    if kind == "k3":
+        taps, src, dst = 27, l, l
+        jfn = lambda f, w: JC.conv_k3(f, w, lv_j[l])  # noqa: E731
+        pfn = lambda f, w: C.conv_k3(f, w, lv[l])  # noqa: E731
+        plain = lambda f, w: gather_gemm_sk_plain(  # noqa: E731
+            f, w, lv[l].key, lv[l].kbits)
+    elif kind == "down":
+        taps, src, dst = 8, l, l + 1
+        jfn = lambda f, w: JC.conv_down(f, w, lv_j[l], lv_j[l + 1])  # noqa
+        pfn = lambda f, w: C.conv_down(f, w, lv[l], lv[l + 1])  # noqa: E731
+        plain = lambda f, w: gather_gemm_down_plain(  # noqa: E731
+            f, w, lv[l + 1].child_idx, lv[l + 1].child_hit)
+    else:
+        taps, src, dst = 8, l + 1, l
+        jfn = lambda f, w: JC.conv_transpose_up(  # noqa: E731
+            f, w, lv_j[l + 1], lv_j[l])
+        pfn = lambda f, w: C.conv_transpose_up(  # noqa: E731
+            f, w, lv[l + 1], lv[l])
+        plain = lambda f, w: gather_gemm_up_plain(  # noqa: E731
+            f, w, lv[l].parent_idx, lv[l].valid & lv[l].parent_ok,
+            lv[l].octant)
+    f = case["feats"](lv[src], cin)
+    w = (rng.normal(size=(taps, cin, cout)) / 3).astype(np.float32)
+    ct = rng.normal(size=lv[dst].valid.shape + (cout,)).astype(np.float32)
+    return jfn, pfn, plain, f, w, ct
+
+
+def _port_grads(fn, f, w, ct):
+    f, w = _t(f).requires_grad_(), _t(w).requires_grad_()
+    (fn(f, w) * _t(ct)).sum().backward()
+    return f.grad, w.grad
+
+
+@pytest.mark.parametrize("kind", ["k3", "down", "up"])
+def test_conv_grads_match_jax(case, kind):
+    for l in (0, 3):
+        jfn, pfn, _, f, w, ct = _conv_pair(kind, case, l)
+        with sparse_impl("xla"):
+            want = jax.jit(jax.grad(
+                lambda f, w: jnp.sum(jfn(f, w) * ct), argnums=(0, 1)))(
+                    jnp.asarray(f), jnp.asarray(w))
+        got = _port_grads(pfn, f, w, ct)
+        for g, wj, name in zip(got, want, ("dfeats", "dW")):
+            assert _rel(g, wj) <= TOL, (kind, l, name, _rel(g, wj))
+
+
+@pytest.mark.parametrize("kind", ["k3", "down", "up"])
+def test_conv_backward_matches_autograd_of_the_plain_twin(case, kind):
+    """The VJP formulas are the exact transpose of the forward twins."""
+    _, pfn, plain, f, w, ct = _conv_pair(kind, case, 1)
+    got = _port_grads(pfn, f, w, ct)
+    want = _port_grads(plain, f, w, ct)
+    for g, wt in zip(got, want):
+        assert _rel(g, wt.numpy()) <= TOL

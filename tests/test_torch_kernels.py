@@ -6,8 +6,11 @@ there on its own:
 
     python -m pytest tests/test_torch_kernels.py -m gpu --noconftest
 
-Tolerances: the sort is exact; f32 convs agree with the plain twin to
-relative norm 1e-5 (summation order), bf16 convs with the f32 twin to 2e-2.
+Tolerances: the sort is exact; f32 convs and dW kernels agree with the
+plain twin to relative norm 1e-5 (summation order), bf16 ones with the f32
+twin to 2e-2.  The dW kernels are deterministic (no float atomics): two
+launches give the same bits.  The autograd Functions' backward on the card
+agrees with autograd through the plain forward twins to 1e-5.
 """
 
 import pytest
@@ -114,3 +117,96 @@ def test_conv_rejects(cuda, levels):
         conv.gather_gemm_sk(f.float(), torch.zeros((27, 8, 8),
                                                    device=cuda).bfloat16(),
                             lv.key, lv.kbits)
+
+
+@pytest.fixture(scope="module")
+def big_levels(cuda):
+    """A level 0 of 40000 rows (two ~49k-point scenes at 5 mm)."""
+    pts, rgb, mask = build_batch(2, 65536, seed=5)
+    vox, _ = voxelize(torch.as_tensor(pts, device=cuda),
+                      torch.as_tensor(rgb, device=cuda),
+                      torch.as_tensor(mask, device=cuda), 1 / 200.0, 40000)
+    return build_hierarchy(vox, 4, capacities=(32768, 16384, 8192, 4096))
+
+
+def _check_dw(fn, plain, counter, f, g, maps):
+    want = plain(f, g, *maps)
+    before = counter.launches
+    got = fn(f, g, *maps)
+    assert counter.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert _rel(got, want) <= 1e-5
+    assert torch.equal(fn(f, g, *maps), got)  # deterministic
+    got16 = fn(f.bfloat16(), g.bfloat16(), *maps)
+    assert got16.dtype == torch.float32 and _rel(got16, want) <= 2e-2
+
+
+def _dw_cases(lv_all, l, cin, cout):
+    fine, coarse = lv_all[l], lv_all[l + 1]
+    row_ok = fine.valid & fine.parent_ok
+    return {
+        "sk": (conv.dw_sk, conv.dw_sk_plain, conv.DW_SK, _feats(fine, cin),
+               _feats(fine, cout), (fine.key, fine.kbits)),
+        "down": (conv.dw_down, conv.dw_down_plain, conv.DW_DOWN,
+                 _feats(fine, cin), _feats(coarse, cout),
+                 (coarse.child_idx, coarse.child_hit)),
+        "up": (conv.dw_up, conv.dw_up_plain, conv.DW_UP, _feats(coarse, cin),
+               _feats(fine, cout), (fine.parent_idx, row_ok, fine.octant)),
+    }
+
+
+@pytest.mark.parametrize("kind", ["sk", "down", "up"])
+@pytest.mark.parametrize("cin,cout", [(3, 32), (20, 90), (130, 70)])
+@pytest.mark.parametrize("l", [0, 2])
+def test_dw_kernels(cuda, levels, kind, l, cin, cout):
+    _check_dw(*_dw_cases(levels, l, cin, cout)[kind])
+
+
+@pytest.mark.parametrize("kind", ["sk", "down", "up"])
+def test_dw_kernels_at_40000_rows(cuda, big_levels, kind):
+    assert big_levels[0].key.shape[1] == 40000
+    _check_dw(*_dw_cases(big_levels, 0, 130, 70)[kind])
+
+
+def test_dw_rejects(cuda, levels):
+    lv = levels[0]
+    f = _feats(lv, 8)
+    with pytest.raises(ValueError):
+        conv.dw_sk(f.double(), f.double(), lv.key, lv.kbits)
+    with pytest.raises(ValueError):
+        conv.dw_sk(f, f.bfloat16(), lv.key, lv.kbits)
+
+
+@pytest.mark.parametrize("kind", ["k3", "down", "up"])
+def test_conv_function_backward(cuda, levels, kind):
+    """The Functions' backward (kernels) vs autograd of the plain twins."""
+    from mrcc_tpu_torch.sparse import conv as C
+
+    fine, coarse = levels[1], levels[2]
+    cin, cout = 48, 40
+    if kind == "k3":
+        taps, src, dst = 27, fine, fine
+        fn = lambda f, w: C.conv_k3(f, w, fine)  # noqa: E731
+        plain = lambda f, w: conv.gather_gemm_sk_plain(  # noqa: E731
+            f, w, fine.key, fine.kbits)
+    elif kind == "down":
+        taps, src, dst = 8, fine, coarse
+        fn = lambda f, w: C.conv_down(f, w, fine, coarse)  # noqa: E731
+        plain = lambda f, w: conv.gather_gemm_down_plain(  # noqa: E731
+            f, w, coarse.child_idx, coarse.child_hit)
+    else:
+        taps, src, dst = 8, coarse, fine
+        fn = lambda f, w: C.conv_transpose_up(f, w, coarse, fine)  # noqa
+        plain = lambda f, w: conv.gather_gemm_up_plain(  # noqa: E731
+            f, w, fine.parent_idx, fine.valid & fine.parent_ok, fine.octant)
+    f0 = _feats(src, cin)
+    w0 = torch.randn((taps, cin, cout), device=cuda) / 5
+    ct = _feats(dst, cout)
+    grads = []
+    for run in (fn, plain):
+        f = f0.clone().requires_grad_()
+        w = w0.clone().requires_grad_()
+        (run(f, w) * ct).sum().backward()
+        grads.append((f.grad, w.grad))
+    for got, want in zip(*grads):
+        assert _rel(got, want) <= 1e-5

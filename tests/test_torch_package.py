@@ -101,6 +101,17 @@ def test_build_batch_pads_scenes():
     assert not pts[0, n[0]:].any()
 
 
+def test_build_batch_labels():
+    pts, rgb, mask, labels = build_batch(2, 4096, seed=1, with_labels=True)
+    assert labels.shape == (2, 4096) and labels.dtype == np.int32
+    assert set(np.unique(labels[mask])) == {0, 1, 2}
+    assert (labels[~mask] == -100).all()
+    n = int(mask[0].sum())
+    want = jax_generate_sample(seed=1, n_ee=512, n_arm=1024, n_bg=2048)
+    np.testing.assert_array_equal(labels[0, :n], want["labels"][:n])
+    np.testing.assert_array_equal(pts, build_batch(2, 4096, seed=1)[0])
+
+
 @pytest.mark.parametrize("n", [256, 1024])
 def test_icp_template_matches_jax_package(n):
     np.testing.assert_array_equal(default_template(n),

@@ -132,6 +132,29 @@ def test_build_hierarchy_matches_jax(caps):
         assert not bool(lv[0].parent_ok[lv[0].valid].all())
 
 
+@pytest.mark.parametrize("caps", [(1024, 512, 256, 128), (256, 64, 64, 64)])
+def test_row_ok_is_the_child_map_reversed(caps):
+    """``row_ok == valid & parent_ok``, and it holds exactly where the
+    coarse child map points back at the row, each hit of the map once
+    (ROADMAP C8: the down/up backward rests on this)."""
+    pts, rgb, mask = _cloud(4)
+    vox, _ = voxelize(_t(pts), _t(rgb), _t(mask), Q, 1200)
+    lv = build_hierarchy(vox, 4, capacities=caps)
+    for fine, coarse in zip(lv[:-1], lv[1:]):
+        assert torch.equal(fine.row_ok, fine.valid & fine.parent_ok)
+        b, n = fine.key.shape
+        oct_l, par_l = fine.octant.long(), fine.parent_idx.long()
+        items = torch.arange(b)[:, None].expand(b, n)
+        hit = coarse.child_hit[oct_l, items, par_l]
+        back = coarse.child_idx[oct_l, items, par_l]
+        rows = torch.arange(n, dtype=back.dtype).expand(b, n)
+        assert torch.equal(hit & (back == rows), fine.row_ok)
+        assert torch.equal(coarse.child_hit.sum(dim=(0, 2)),
+                           fine.row_ok.sum(dim=1))
+    if caps[0] == 256:
+        assert not bool(lv[0].row_ok[lv[0].valid].all())
+
+
 @pytest.mark.parametrize("which", ["cloud", "border"])
 def test_k3_bits_match_sk_bits(which):
     pts, rgb, mask = _cloud(6) if which == "cloud" else _border_cloud()
