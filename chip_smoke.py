@@ -4,21 +4,28 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper card:
 
     python3 chip_smoke.py
 
-Two main paths run: inference (``InferenceEngine.predict_batch_arrays``)
-and segmentation training (``make_segmentation_train_step``).  Phases,
-each printing one line (any failure exits non-zero before the last line):
+Three main paths run: bf16 inference (``InferenceEngine.predict_batch_arrays``),
+segmentation training (``make_segmentation_train_step``) and int8 inference
+(``conv_impl="pallas-int8"``: ``calibrate_q8``, then
+``predict_batch_arrays``).  Phases, each printing one line (any failure
+exits non-zero before the last line):
 
 1. device: name, count, ``nvidia-smi`` name and power limit;
 2. build: compile the kernels of ``mrcc_tpu_torch/csrc`` (one nvcc per
    source, all started together), with ptxas register / smem lines;
 3. kernels vs their plain PyTorch twins at the main paths' shapes (exact
    for the sort; relative norm 2e-2 for bf16 against the f32 twin, 1e-5 for
-   f32), timed with CUDA events: the forward kernels at the inference
-   shapes in bf16, the dW kernels at the training shapes in f32; then the
-   backward of each autograd conv Function on the card against autograd
-   through the plain twins on the card (f32, 1e-5);
+   f32; the int8 convs within 1 bf16 ulp of their plain twins and 3e-2 of
+   the unquantised f32 plain conv), timed with CUDA events: the forward
+   kernels at the inference shapes in bf16, the int8 ones at the int8
+   path's shapes (the seg net's, one split into channel groups), the dW
+   kernels at the training shapes in f32; then the backward of each
+   autograd conv Function on the card against autograd through the plain
+   twins on the card (f32, 1e-5);
 4. the inference slice on the card vs on the CPU: one engine pair with the
-   same weights, f32, small size (integer outputs exact, poses 1e-3);
+   same weights, f32, small size (integer outputs exact, poses 1e-3); and
+   an int8 pair with the same weights and the same calibrated scales (seg
+   labels equal on >= 99.5 % of points);
 5. one train step on the card vs on the CPU: minkunet14A, B=2, f32, same
    weights and batch (loss 1e-5, gradients 1e-4 and the update 1e-3 in
    relative norm, BN statistics 1e-5);
@@ -34,7 +41,12 @@ each printing one line (any failure exits non-zero before the last line):
    set to 0 before and read after -> steps/s and clouds/s (median,
    quartiles), one step synchronised at the prepare / forward / backward /
    optimizer boundaries, one step under torch.profiler, peak memory, and
-   sanity checks (finite losses; the loss on the fixed batch falls).
+   sanity checks (finite losses; the loss on the fixed batch falls);
+8. the int8 inference path at phase 6's full width: ``calibrate_q8`` on the
+   batch, then as phase 6 (12 batches timed, stages, profiler, launches
+   per batch of every counter), with the int8 kernels launched, the bf16
+   conv kernels only by the rotation stage, no plain twin called, and the
+   share of seg labels equal to phase 6's bf16 engine on the same batch.
 
 f32 phases run with TF32 off (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` False).  The last lines are the card's
@@ -42,6 +54,7 @@ f32 phases run with TF32 off (``torch.backends.cuda.matmul.allow_tf32`` and
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import copy
 import json
 import subprocess
@@ -53,8 +66,10 @@ import torch
 
 # peak rates of one H100 SXM (NVIDIA data sheet, dense): bytes/s and op/s
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 TOL_BF16, TOL_F32 = 2e-2, 1e-5
+TOL_Q8 = 3e-2      # int8 conv vs the unquantised f32 conv (bench.py's bound)
+SEG_AGREE = 0.995  # int8 card vs CPU: share of equal seg labels
 TRAIN_CAPACITY = 16384  # voxel capacity of the full-width train step
 
 # each kernel's source, and the TPU kernel (file:line) each record replaces
@@ -66,10 +81,15 @@ SOURCES = {
     "dw_sk": "mrcc_tpu_torch/csrc/conv_dw_sk.cu",
     "dw_down": "mrcc_tpu_torch/csrc/conv_dw_map.cu",
     "dw_up": "mrcc_tpu_torch/csrc/conv_dw_map.cu",
+    "conv_sk_q8": "mrcc_tpu_torch/csrc/conv_sk_q8.cu",
+    "conv_down_q8": "mrcc_tpu_torch/csrc/conv_map_q8.cu",
+    "conv_up_q8": "mrcc_tpu_torch/csrc/conv_map_q8.cu",
 }
 K2_TPU = "mrcc_tpu/ops/conv_pallas.py:767"    # _gather_gemm_call_sk
 K3_TPU = "mrcc_tpu/ops/conv_pallas.py:120"    # _gather_gemm_call
 HBM_TPU = "mrcc_tpu/ops/conv_pallas.py:1495"  # _gather_gemm_call_hbm
+SK_Q8_TPU = "mrcc_tpu/ops/conv_pallas.py:845"    # _gather_gemm_call_sk_q8
+MAP_Q8_TPU = "mrcc_tpu/ops/conv_pallas.py:1235"  # _gather_gemm_call_q8
 DW_TPU = {"dw_sk": "mrcc_tpu/ops/conv_pallas.py:1076",   # _dw_call_sk
           "dw_down": "mrcc_tpu/ops/conv_pallas.py:1691",  # _dw_call
           "dw_up": "mrcc_tpu/ops/conv_pallas.py:1691"}
@@ -107,6 +127,16 @@ def rel_err(got, want):
     return float((got - want).norm() / want.norm().clamp_min(1e-12))
 
 
+def ulps(got, want):
+    """Largest |got - want| in ulps of the output type (bf16: 8 significant
+    bits, f32: 24) at the larger magnitude."""
+    bits = 8 if got.dtype == torch.bfloat16 else 24
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - (bits - 1))
+    return float(((g - w).abs() / ulp).max())
+
+
 def bound_ms(nbytes, ops, kind):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS[kind]
@@ -117,11 +147,11 @@ def bound_ms(nbytes, ops, kind):
 # ------------------------------------------------------------- phases
 
 def phase_build():
-    from mrcc_tpu_torch.ops import conv, sort
+    from mrcc_tpu_torch.ops import conv, conv_q8, sort
     from mrcc_tpu_torch.ops.build import build_all
 
     t0 = time.perf_counter()
-    infos = build_all([sort.LIB, *conv.LIBRARIES])
+    infos = build_all([sort.LIB, *conv.LIBRARIES, *conv_q8.LIBRARIES])
     log("build", seconds=round(time.perf_counter() - t0, 3),
         sources={i.name: {"seconds": round(i.seconds, 3),
                           "ptxas": i.resource_lines()} for i in infos})
@@ -168,7 +198,7 @@ def train_levels(batch, device):
 def phase_kernels(levels, tlevels, device):
     """Each kernel vs its plain twin at the main paths' shapes: ``levels``
     of the inference path, ``tlevels`` of the training path."""
-    from mrcc_tpu_torch.ops import conv, sort
+    from mrcc_tpu_torch.ops import conv, conv_q8, sort
 
     gen = torch.Generator(device="cpu").manual_seed(7)
     records = []
@@ -279,6 +309,75 @@ def phase_kernels(levels, tlevels, device):
               [feats(coarse, 256), weights(8, 256, 256), fine.parent_idx,
                fine.row_ok, fine.octant], _up_work(fine), 8)
 
+    def q8_case(name, kernel, replaces, mode, fn, plain, unquantised, f, w,
+                maps, n_table, work):
+        """An int8 conv on bf16 features: within 1 bf16 ulp of its plain
+        twin, within TOL_Q8 of the unquantised f32 plain conv.  ``ms`` is
+        the wrapper (quantisation and kernel, what the path pays);
+        ``quantise_ms`` its elementwise PyTorch part alone."""
+        want = plain(f, w, *maps)
+        got = fn(f, w, *maps)
+        err = {"ulps_vs_plain": ulps(got, want),
+               "rel_vs_f32": rel_err(got, unquantised(f.float(), w, *maps))}
+        if err["ulps_vs_plain"] > 1 or err["rel_vs_f32"] > TOL_Q8:
+            raise AssertionError(f"{name}: {err} over (1 ulp, {TOL_Q8})")
+        k, cin, cout = w.shape
+        octant = mode == "up"
+        groups = conv_q8.q8_channel_groups(mode, n_table, cin)
+
+        def quantise():
+            prep = conv_q8._quantize(mode, f, w, n_table, None, octant)
+            return conv_q8._kernel_operands(*prep[1:], prep[0])
+
+        # int8 rows the hits gather, int8 weights, f32 scales, the bf16
+        # output (padding rows included) and the map entries of valid rows
+        nbytes = (work["read"] * cin + k * cin * cout
+                  + 4 * len(groups) * (8 if octant else 1) * cout
+                  + 2 * want.numel() + work["map_bytes"])
+        bms, by = bound_ms(nbytes, 2 * work["hits"] * cin * cout, "int8")
+        records.append(dict(
+            name=name, kernel=kernel, path="int8", route="cuda",
+            source=SOURCES[kernel], replaces=replaces,
+            max_abs_err=float((got.float() - want.float()).abs().max()),
+            rel_err=err, tolerance={"ulps": 1, "rel_vs_f32": TOL_Q8},
+            dtype="bf16 -> int8", groups=len(groups), work=work,
+            ms=cuda_ms(lambda: fn(f, w, *maps)),
+            quantise_ms=cuda_ms(quantise),
+            plain_ms=cuda_ms(lambda: plain(f, w, *maps)), library_ms=None,
+            bound_ms=bms, bound_by=by))
+
+    # the int8 path's shapes: the seg net's stem, level-0 decoder and
+    # level-3 decoder k3 convs (384 channels: three groups), its first down
+    # conv and the 4 -> 3 up conv; a down conv over a 16384-row table at
+    # 384 channels, which splits 256 + 128 (a 5 MiB table budget group)
+    for li, cin, cout in ((0, 3, 32), (0, 128, 96), (3, 384, 256)):
+        lv = levels[li]
+        b, n = lv.key.shape
+        q8_case(f"conv_sk_q8[{b}x{n} {cin}->{cout}]", "conv_sk_q8", SK_Q8_TPU,
+                "k3", conv_q8.gather_gemm_sk_q8,
+                conv_q8.gather_gemm_sk_q8_plain, conv.gather_gemm_sk_plain,
+                feats(lv, cin).bfloat16(), weights(27, cin, cout),
+                (lv.key, lv.kbits), n, _sk_work(lv))
+    for lvs, cin, cout in ((levels, 32, 32), (tlevels, 384, 256)):
+        fine, coarse = lvs[0], lvs[1]
+        b, nf = fine.key.shape
+        nc = coarse.key.shape[1]
+        q8_case(f"conv_down_q8[{b}x{nf}->{nc} {cin}->{cout}]",
+                "conv_down_q8", MAP_Q8_TPU, "down",
+                conv_q8.gather_gemm_down_q8,
+                conv_q8.gather_gemm_down_q8_plain,
+                conv.gather_gemm_down_plain, feats(fine, cin).bfloat16(),
+                weights(8, cin, cout), (coarse.child_idx, coarse.child_hit),
+                nf, _down_work(coarse))
+    fine, coarse = levels[3], levels[4]
+    b, nf = fine.key.shape
+    nc = coarse.key.shape[1]
+    q8_case(f"conv_up_q8[{b}x{nc}->{nf} 256->256]", "conv_up_q8", MAP_Q8_TPU,
+            "up", conv_q8.gather_gemm_up_q8, conv_q8.gather_gemm_up_q8_plain,
+            conv.gather_gemm_up_plain, feats(coarse, 256).bfloat16(),
+            weights(8, 256, 256), (fine.parent_idx, fine.row_ok, fine.octant),
+            nc, _up_work(fine))
+
     def dw_case(name, kernel, fn, plain, f, g, maps, work):
         want = plain(f, g, *maps)
         got32 = fn(f, g, *maps)
@@ -325,9 +424,9 @@ def phase_kernels(levels, tlevels, device):
                 conv.dw_up_plain, feats(coarse, cin), feats(fine, cout),
                 (fine.parent_idx, fine.row_ok, fine.octant), _up_work(fine))
     log("kernels", cases=[{k: r.get(k) for k in (
-        "name", "path", "replaces", "ms", "plain_ms", "library_ms",
-        "bound_ms", "bound_by", "work", "max_abs_err", "rel_err",
-        "tolerance")}
+        "name", "path", "replaces", "ms", "quantise_ms", "plain_ms",
+        "library_ms", "bound_ms", "bound_by", "work", "groups",
+        "max_abs_err", "rel_err", "tolerance")}
         for r in records])
     return records
 
@@ -474,12 +573,54 @@ def phase_card_vs_cpu():
     log("card_vs_cpu", ee_count=want["ee_count"].tolist(), max_err=report)
 
 
-def phase_main_path(inputs, caps, counters, iters=12):
-    """The bench configuration at full width; returns per-kernel launches."""
-    from mrcc_tpu_torch.app import InferenceConfig, InferenceEngine
+def phase_int8_card_vs_cpu():
+    """Same weights and calibrated scales, bf16 / int8, small size: card
+    engine vs CPU engine."""
+    from mrcc_tpu_torch.app import (InferenceConfig, InferenceEngine,
+                                    measure_seg_caps)
+    from mrcc_tpu_torch.data.synthetic import build_batch
 
-    pts, rgb, mask = inputs
+    pts, rgb, mask = build_batch(2, 2048, seed=11)
+    caps = measure_seg_caps(pts, rgb, mask, device="cpu")
     cfg = InferenceConfig(
+        point_capacity=2048, seg_voxel_capacity=caps[0],
+        seg_hierarchy_caps=caps[1:], ee_point_capacity=1024,
+        ee_voxel_capacity=1024, kp_voxel_capacity=512,
+        ee_hierarchy_caps=(512, 256, 128, 64),
+        kp_hierarchy_caps=(384, 256, 128, 128), icp_iterations=15,
+        icp_template_points=512, seg_backbone="minkunet18",
+        rot_backbone="minkunet18", kp_backbone="minkunet18",
+        compute_dtype="bfloat16", conv_impl="pallas-int8")
+    cpu = InferenceEngine(cfg, device="cpu", seed=3).calibrate_q8(pts, rgb,
+                                                                   mask)
+    gpu = InferenceEngine(cfg, device="cuda", seed=5)
+    for stage, model in gpu.models().items():
+        model.load_state_dict(cpu.models()[stage].state_dict())
+    want = cpu.predict_batch_arrays(pts, rgb, mask)
+    got = {k: v.cpu() for k, v in
+           gpu.predict_batch_arrays(pts, rgb, mask).items()}
+    m = torch.as_tensor(mask)
+    agree = float((got["segmentation"] == want["segmentation"])[m]
+                  .float().mean())
+    report = {"seg_agree": agree, "tolerance": {"seg_agree": SEG_AGREE},
+              "ee_count": [want["ee_count"].tolist(),
+                           got["ee_count"].tolist()],
+              "kp_found_equal": bool(torch.equal(got["kp_found"],
+                                                 want["kp_found"]))}
+    for k in ("ee_pose", "kp_pose"):
+        report[k + "_max_abs_diff"] = float((got[k] - want[k]).abs().max())
+    finite = all(bool(torch.isfinite(got[k]).all())
+                 for k in ("ee_pose", "kp_pose"))
+    if agree < SEG_AGREE or not finite:
+        raise AssertionError(f"int8 card vs CPU: {report}")
+    log("int8_card_vs_cpu", **report)
+
+
+def bench_config(pts, caps, **kw):
+    """The JAX bench configuration (``bench.py:276-314``) at full width."""
+    from mrcc_tpu_torch.app import InferenceConfig
+
+    return InferenceConfig(
         point_capacity=pts.shape[1], seg_voxel_capacity=caps[0],
         seg_hierarchy_caps=caps[1:], ee_point_capacity=2048,
         ee_voxel_capacity=2048, kp_voxel_capacity=1024,
@@ -487,8 +628,42 @@ def phase_main_path(inputs, caps, counters, iters=12):
         kp_hierarchy_caps=(768, 640, 384, 128), icp_iterations=15,
         icp_template_points=1024, seg_backbone="minkunet18",
         rot_backbone="minkunet", kp_backbone="minkunet18",
-        compute_dtype="bfloat16")
-    engine = InferenceEngine(cfg, seed=0)
+        compute_dtype="bfloat16", **kw)
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Count calls of every plain twin of ``ops`` (the wrappers look them up
+    by module attribute, so a counting stand-in sees each one)."""
+    from mrcc_tpu_torch.ops import conv, conv_q8, sort
+
+    calls, saved = {}, []
+    for mod in (sort, conv, conv_q8):
+        for name in dir(mod):
+            if not name.endswith("_plain"):
+                continue
+            fn = getattr(mod, name)
+
+            def counted(*a, _fn=fn, _name=name, **kw):
+                calls[_name] = calls.get(_name, 0) + 1
+                return _fn(*a, **kw)
+
+            saved.append((mod, name, fn))
+            setattr(mod, name, counted)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def phase_main_path(inputs, caps, counters, iters=12):
+    """The bench configuration at full width; returns per-kernel launches
+    and the batch's seg labels."""
+    from mrcc_tpu_torch.app import InferenceEngine
+
+    pts, rgb, mask = inputs
+    engine = InferenceEngine(bench_config(pts, caps), seed=0)
     dev = engine.device
     p = torch.as_tensor(pts, device=dev)
     c = torch.as_tensor(rgb, device=dev)
@@ -504,7 +679,72 @@ def phase_main_path(inputs, caps, counters, iters=12):
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel never ran on the main path: "
                              f"{launches}")
+    report = _inference_report(engine, (p, c, m), out, iters)
+    log("main_path", batch=int(pts.shape[0]), points=int(pts.shape[1]),
+        seg_caps=list(caps), launches=launches, **report)
+    return launches, out["segmentation"]
 
+
+def phase_int8_main_path(inputs, caps, counters, bf16_seg, iters=12):
+    """The bench configuration at full width in int8: calibrate on the
+    batch, then drive it; returns per-kernel launches of one batch."""
+    from mrcc_tpu_torch.app import InferenceEngine
+    from mrcc_tpu_torch.ops import conv, conv_q8
+
+    pts, rgb, mask = inputs
+    engine = InferenceEngine(bench_config(pts, caps, conv_impl="pallas-int8"),
+                             seed=0)  # phase 6's weights
+    dev = engine.device
+    p = torch.as_tensor(pts, device=dev)
+    c = torch.as_tensor(rgb, device=dev)
+    m = torch.as_tensor(mask, device=dev)
+    t = time.perf_counter()
+    engine.calibrate_q8(p, c, m)
+    torch.cuda.synchronize()
+    calibrate_ms = 1e3 * (time.perf_counter() - t)
+    engine.predict_batch_arrays(p, c, m)  # warm-up
+    torch.cuda.synchronize()
+
+    for ctr in counters:
+        ctr.launches = 0
+    with plain_calls() as plain:
+        out = engine.predict_batch_arrays(p, c, m)
+        torch.cuda.synchronize()
+    launches = {ctr.name: ctr.launches for ctr in counters}
+    q8 = (conv_q8.SK_Q8, conv_q8.DOWN_Q8, conv_q8.UP_Q8)
+    bf16 = (conv.SK, conv.DOWN, conv.UP)
+    # the bf16 conv kernels run in the rotation stage and nowhere else
+    for ctr in counters:
+        ctr.launches = 0
+    seg = engine.seg_stage(p, c, m)
+    engine.kp_stage(*seg[2:5])
+    seg_kp = {ctr.name: ctr.launches for ctr in q8 + bf16}
+    for ctr in counters:
+        ctr.launches = 0
+    engine.pose_stage(*seg[2:5])
+    rot = {ctr.name: ctr.launches for ctr in q8 + bf16}
+    torch.cuda.synchronize()
+    if (min(launches[ctr.name] for ctr in q8) <= 0 or plain
+            or any(seg_kp[ctr.name] for ctr in bf16)
+            or any(rot[ctr.name] for ctr in q8)
+            or any(launches[ctr.name] != rot[ctr.name] for ctr in bf16)):
+        raise AssertionError(f"int8 path routing: launches {launches}, seg + "
+                             f"kp {seg_kp}, rotation {rot}, plain {plain}")
+    report = _inference_report(engine, (p, c, m), out, iters)
+    agree = float((out["segmentation"] == bf16_seg)[m].float().mean())
+    log("int8_main_path", batch=int(pts.shape[0]), points=int(pts.shape[1]),
+        seg_caps=list(caps), calibrate_ms=calibrate_ms,
+        seg_labels_equal_to_bf16=agree, launches=launches,
+        launches_seg_kp=seg_kp, launches_rotation=rot,
+        plain_twin_calls=plain, **report)
+    return launches
+
+
+def _inference_report(engine, inputs, out, iters):
+    """Clouds/s over ``iters`` batches timed one by one, one batch
+    synchronised at each stage boundary, one under torch.profiler, and the
+    sanity checks of ``out``."""
+    p, c, m = inputs
     batch_s = []
     for _ in range(iters):
         t0 = time.perf_counter()
@@ -540,7 +780,9 @@ def phase_main_path(inputs, caps, counters, iters=12):
     top = dict(sorted(device_ms.items(), key=lambda kv: -kv[1])[:12])
     ported = {k: sum(v for n, v in device_ms.items() if k in n)
               for k in ("sort_chunk", "sort_global_stage", "conv_sk_kernel",
-                        "conv_down_kernel", "conv_up_kernel")}
+                        "conv_down_kernel", "conv_up_kernel",
+                        "conv_sk_q8_kernel", "conv_down_q8_kernel",
+                        "conv_up_q8_kernel")}
 
     poses = torch.cat([out["ee_pose"], out["kp_pose"]])
     qnorm = poses[:, 3:].norm(dim=-1)
@@ -553,17 +795,15 @@ def phase_main_path(inputs, caps, counters, iters=12):
     if not (checks["finite_poses"] and checks["unit_quaternions"]
             and not any(checks["seg_overflow"])):
         raise AssertionError(f"main path sanity failed: {checks}")
-    log("main_path", batch=int(pts.shape[0]), points=int(pts.shape[1]),
-        seg_caps=list(caps), batches=iters,
-        clouds_per_s_median=pts.shape[0] / med,
-        clouds_per_s_q1_q3=[pts.shape[0] / q3, pts.shape[0] / q1],
-        card=smi_line(), batch_ms_median=batch_ms,
-        batch_ms_all=[1e3 * s for s in batch_s],
+    b = p.shape[0]
+    return dict(
+        batches=iters, clouds_per_s_median=b / med,
+        clouds_per_s_q1_q3=[b / q3, b / q1], card=smi_line(),
+        batch_ms_median=batch_ms, batch_ms_all=[1e3 * s for s in batch_s],
         stage_ms={k: 1e3 * v for k, v in stages.items()},
         device_busy_ms=busy, device_idle_share=1 - busy / batch_ms,
-        ported_kernel_device_ms=ported, top_device_ms=top, launches=launches,
+        ported_kernel_device_ms=ported, top_device_ms=top,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **checks)
-    return launches
 
 
 def profile_device_ms(fn):
@@ -742,7 +982,7 @@ def main():
         count=torch.cuda.device_count(), smi=card,
         torch=torch.__version__, cuda=torch.version.cuda)
 
-    from mrcc_tpu_torch.ops import conv, sort
+    from mrcc_tpu_torch.ops import conv, conv_q8, sort
 
     phase_build()
     dev = torch.device("cuda")
@@ -752,12 +992,18 @@ def main():
     phase_backward(tlevels, dev)
     del tlevels
     phase_card_vs_cpu()
+    phase_int8_card_vs_cpu()
     phase_train_card_vs_cpu()
     counters = [sort.SORT, conv.SK, conv.DOWN, conv.UP]
-    launches = {"inference": phase_main_path(inputs, caps, counters)}
+    launches, bf16_seg = phase_main_path(inputs, caps, counters)
+    launches = {"inference": launches}
     torch.cuda.empty_cache()
     launches["training"] = phase_train(
         counters + [conv.DW_SK, conv.DW_DOWN, conv.DW_UP])
+    torch.cuda.empty_cache()
+    launches["int8"] = phase_int8_main_path(
+        inputs, caps, counters + [conv_q8.SK_Q8, conv_q8.DOWN_Q8,
+                                  conv_q8.UP_Q8], bf16_seg)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_by_path")

@@ -12,6 +12,13 @@ on a CUDA device runs the hand-written kernels (``ops/``).
 The engine runs on the card: ``device=None`` means ``"cuda"`` and raises
 when no card is present.  Pass ``device="cpu"`` explicitly for the plain
 twins.
+
+int8 inference (``conv_impl="pallas-int8"``): the segmentation and
+keypoint nets run their k3, down and transpose convs through the int8
+kernels (``ops/conv_q8.py``), the rotation net stays on the bf16 kernels
+unless ``rot_conv_impl`` asks for int8 too.  ``calibrate_q8`` records each
+conv's activation absmax once; without it every int8 conv quantises with
+the dynamic absmax of its input.
 """
 
 from __future__ import annotations
@@ -25,12 +32,17 @@ from ..device import resolve_device
 from ..geometry.preprocess import center_at_origin, normalize_colors
 from ..interop import load_jax_variables
 from ..models import RobotNetEncode, RobotNetSegmentation
+from ..ops.conv_q8 import Q8_MAX_ROWS
 from ..solve import (default_template, icp_refine, key_point_predictions,
                      largest_cluster_mask, pose_from_key_points,
                      predict_translation)
 from ..sparse import (build_hierarchy, hierarchy_caps, slice_to_points,
                       voxelize)
-from ..sparse.nn import init_parameters
+from ..sparse.nn import init_parameters, q8_calibration, set_q8
+
+# The JAX engine's conv_impl values: every one but "pallas-int8" means the
+# port's one route (the hand-written kernels on the card).
+CONV_IMPLS = ("auto", "pallas", "xla", "pallas-int8")
 
 
 @dataclasses.dataclass
@@ -67,6 +79,10 @@ class InferenceConfig:
     rot_flip_disambiguation: bool = False
     translation_z_percentile: typing.Optional[float] = None
     compute_dtype: str = "bfloat16"  # conv-path compute (f32 accumulation)
+    # "pallas-int8": int8 seg / kp convs; rotation follows rot_conv_impl
+    # (None: bf16 under int8, the JAX engine's demotion)
+    conv_impl: str = "auto"
+    rot_conv_impl: typing.Optional[str] = None
     icp_enabled: bool = True
     icp_iterations: int = 30
     icp_template_points: int = 2048
@@ -86,6 +102,38 @@ class InferenceConfig:
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise NotImplementedError(
                 f"compute_dtype {self.compute_dtype!r}: float32 or bfloat16")
+        for impl in (self.conv_impl, self.rot_conv_impl):
+            if impl is not None and impl not in CONV_IMPLS:
+                raise ValueError(f"conv impl {impl!r}: one of {CONV_IMPLS}")
+        stages = {"seg": (self.seg_voxel_capacity, self.seg_hierarchy_caps),
+                  "kp": (self.kp_voxel_capacity, self.kp_hierarchy_caps),
+                  "rot": (self.ee_voxel_capacity, self.ee_hierarchy_caps)}
+        for stage in q8_stages(self):
+            if self.compute_dtype != "bfloat16":
+                raise NotImplementedError(
+                    "int8 convs with compute_dtype float32: the JAX engine "
+                    "keeps k3 tables there and runs them through the rank "
+                    "kernel, which is not ported yet")
+            cap, override = stages[stage]
+            for n in (cap,) + _hierarchy_caps(cap, override):
+                if n % 128:
+                    raise NotImplementedError(
+                        f"int8 {stage} level of {n} rows: not a multiple of "
+                        "128, where the JAX engine runs some convs as bf16 "
+                        "XLA; not ported")
+                if n > Q8_MAX_ROWS:
+                    raise NotImplementedError(
+                        f"int8 {stage} level of {n} rows: over "
+                        f"{Q8_MAX_ROWS}, the JAX engine runs k3 tables "
+                        "(rank kernel, k3-table int8 mode); not ported yet")
+
+
+def q8_stages(cfg: InferenceConfig):
+    """The stages whose k3 / down / transpose convs run in int8."""
+    seg_kp = cfg.conv_impl == "pallas-int8"
+    rot = cfg.rot_conv_impl == "pallas-int8"
+    return tuple(s for s, on in (("seg", seg_kp), ("rot", rot),
+                                 ("kp", seg_kp)) if on)
 
 
 def cluster_capacity(cfg: InferenceConfig) -> int:
@@ -130,6 +178,9 @@ class InferenceEngine:
         for i, model in enumerate(self.models().values()):
             init_parameters(model, seed * 3 + i)
             model.to(self.device).eval()
+        on = q8_stages(cfg)
+        for stage, model in zip(("seg", "rot", "kp"), self.models().values()):
+            set_q8(model, stage in on)
 
     def models(self):
         return {"segmentation": self.seg_model, "rotation": self.rot_model,
@@ -140,6 +191,23 @@ class InferenceEngine:
         "key_points"}`` stage variables as numpy dicts), strictly."""
         for stage, model in self.models().items():
             load_jax_variables(model, params[stage])
+        return self
+
+    @torch.no_grad()
+    def calibrate_q8(self, points, rgb, mask):
+        """Record every sparse conv's activation absmax (all three stages,
+        rotation included, as the JAX engine's ``calibrate_q8``) from one
+        representative batch; the int8 convs then quantise with it.  A
+        second call widens the running maximum."""
+        points = self._tensor(points, torch.float32)
+        rgb = self._tensor(rgb, torch.float32)
+        mask = self._tensor(mask, torch.bool)
+        with q8_calibration(self.seg_model):
+            ee = self.seg_stage(points, rgb, mask)[2:5]
+        with q8_calibration(self.rot_model):
+            self.pose_stage(*ee)
+        with q8_calibration(self.kp_model):
+            self.kp_stage(*ee)
         return self
 
     def _tensor(self, x, dtype):

@@ -9,7 +9,9 @@ translated path.
 - conv kernels keep ``[K, Cin, Cout]``;
 - dense ``kernel [in, out]`` becomes ``nn.Linear.weight [out, in]``;
 - BN ``scale/bias`` (params) and ``mean/var`` (batch_stats) become
-  ``bn.weight/bn.bias/bn.running_mean/bn.running_var``.
+  ``bn.weight/bn.bias/bn.running_mean/bn.running_var``;
+- the int8 calibration (``q8_stats`` collection, ``.../act_absmax``)
+  becomes the convs' ``act_absmax`` buffers.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from .sparse.nn import q8_convs
 
 _RULES = [
     (re.compile(r"^module\."), ""),
@@ -50,8 +54,9 @@ def translate_key(key: str) -> Tuple[str, tuple]:
     if m:
         coll, leaf = _BN_FIELDS[m.group(2)]
         coll_path = (coll, tuple(m.group(1).split(".")) + (leaf,))
-    elif key.endswith(".kernel"):
-        coll_path = ("params", tuple(key.split(".")))
+    elif key.rsplit(".", 1)[-1] in ("kernel", "act_absmax"):
+        coll = "q8_stats" if key.endswith("act_absmax") else "params"
+        coll_path = (coll, tuple(key.split(".")))
     else:
         m = re.match(r"^(.*)\.(weight|bias)$", key)
         if m:
@@ -75,12 +80,25 @@ def _flatten(tree, prefix=()) -> Dict[tuple, np.ndarray]:
     return out
 
 
+def _q8_buffers(module: nn.Module, flat) -> None:
+    """Give each int8-capable conv an ``act_absmax`` buffer when the JAX
+    variables hold a ``q8_stats`` collection, and none when they do not
+    (the strict check below then covers the calibration too)."""
+    calibrated = any(c == "q8_stats" for c, _ in flat)
+    for _, conv in q8_convs(module):
+        conv.act_absmax = (torch.zeros(conv.kernel.shape[1],
+                                       device=conv.kernel.device)
+                           if calibrated else None)
+
+
 def load_jax_variables(module: nn.Module, variables) -> nn.Module:
-    """Load a JAX stage's variables (``{"params": ..., "batch_stats": ...}``
-    as nested numpy dicts) into ``module``, strictly both ways: every port
-    parameter and buffer is assigned, and every JAX leaf is used."""
-    flat = {(c, p): v for c in ("params", "batch_stats")
+    """Load a JAX stage's variables (``{"params": ..., "batch_stats": ...,
+    "q8_stats": ...}`` as nested numpy dicts; ``q8_stats`` only once
+    calibrated) into ``module``, strictly both ways: every port parameter
+    and buffer is assigned, and every JAX leaf is used."""
+    flat = {(c, p): v for c in ("params", "batch_stats", "q8_stats")
             for p, v in _flatten(dict(variables.get(c, {}))).items()}
+    _q8_buffers(module, flat)
     used = set()
     errors = []
     state = module.state_dict()

@@ -9,7 +9,9 @@ any N: the TPU's VMEM gate has no meaning there.  The k3, down and up convs
 are differentiable through the autograd Functions of ``ops/conv.py``, whose
 backward passes run the same kernels over the reverse maps and the dW
 kernels; where autograd records nothing (inference under ``no_grad``) they
-call the forward wrappers directly.
+call the forward wrappers directly.  ``q8=True`` routes the three to the
+int8 wrappers of ``ops/conv_q8.py`` (inference only), quantising with the
+calibrated ``act_absmax`` when one is given, else the dynamic absmax.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import torch
 
 from ..ops.conv import (DownConvFn, SkConvFn, UpConvFn, gather_gemm_down,
                         gather_gemm_sk, gather_gemm_up)
+from ..ops.conv_q8 import (gather_gemm_down_q8, gather_gemm_sk_q8,
+                           gather_gemm_up_q8)
 
 
 def _with_bias(out, bias, valid):
@@ -31,8 +35,12 @@ def _recorded(feats, weights):
                                         or weights.requires_grad)
 
 
-def conv_k3(feats, weights, level, bias=None):
-    """k=3 s=1 submanifold conv on one level (K2)."""
+def conv_k3(feats, weights, level, bias=None, q8=False, act_absmax=None):
+    """k=3 s=1 submanifold conv on one level (K2; B6 with ``q8``)."""
+    if q8:
+        out = gather_gemm_sk_q8(feats, weights, level.key, level.kbits,
+                                act_absmax)
+        return _with_bias(out, bias, level.valid)
     w = weights.to(feats.dtype)
     if _recorded(feats, w):
         out = SkConvFn.apply(feats, w, level.key, level.kbits, level.valid)
@@ -41,10 +49,15 @@ def conv_k3(feats, weights, level, bias=None):
     return _with_bias(out, bias, level.valid)
 
 
-def conv_down(feats, weights, fine_level, coarse_level, bias=None):
-    """k=2 s=2 conv: fine level -> coarse level over the 8-child map (K3)."""
-    w = weights.to(feats.dtype)
+def conv_down(feats, weights, fine_level, coarse_level, bias=None,
+              q8=False, act_absmax=None):
+    """k=2 s=2 conv: fine level -> coarse level over the 8-child map (K3;
+    B7 with ``q8``)."""
     maps = (coarse_level.child_idx, coarse_level.child_hit)
+    if q8:
+        out = gather_gemm_down_q8(feats, weights, *maps, act_absmax)
+        return _with_bias(out, bias, coarse_level.valid)
+    w = weights.to(feats.dtype)
     if _recorded(feats, w):
         out = DownConvFn.apply(feats, w, *maps, coarse_level.valid,
                                fine_level.parent_idx, fine_level.row_ok,
@@ -54,12 +67,16 @@ def conv_down(feats, weights, fine_level, coarse_level, bias=None):
     return _with_bias(out, bias, coarse_level.valid)
 
 
-def conv_transpose_up(feats, weights, coarse_level, fine_level, bias=None):
-    """k=2 s=2 transpose conv: coarse -> cached fine level (K3 up):
-    ``out[c] = feats[parent(c)] @ W[octant(c)]`` for valid children whose
-    parent made the coarse capacity."""
-    w = weights.to(feats.dtype)
+def conv_transpose_up(feats, weights, coarse_level, fine_level, bias=None,
+                      q8=False, act_absmax=None):
+    """k=2 s=2 transpose conv: coarse -> cached fine level (K3 up; B7 with
+    ``q8``): ``out[c] = feats[parent(c)] @ W[octant(c)]`` for valid children
+    whose parent made the coarse capacity."""
     maps = (fine_level.parent_idx, fine_level.row_ok, fine_level.octant)
+    if q8:
+        out = gather_gemm_up_q8(feats, weights, *maps, act_absmax)
+        return _with_bias(out, bias, fine_level.valid)
+    w = weights.to(feats.dtype)
     if _recorded(feats, w):
         out = UpConvFn.apply(feats, w, *maps, fine_level.valid,
                              coarse_level.child_idx, coarse_level.child_hit)

@@ -6,10 +6,17 @@ layers): convolutions hold ``kernel [K, Cin, Cout]`` (and ``bias``),
 batch norms nest ``bn.{weight, bias, running_mean, running_var}``, linear
 layers nest ``linear.{weight, bias}``.  Levels from
 ``sparse.hierarchy.build_hierarchy`` travel beside the features.
+
+The k3, down and transpose convs can run in int8 (``q8``, set by the
+engine per stage) and carry the calibrated activation absmax of the JAX
+package's ``q8_stats`` collection (``mrcc_tpu/sparse/nn.py::
+_q8_calibration``) as the buffer ``act_absmax``: absent (``None``, so
+``state_dict()`` omits it) until a calibration pass records it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -44,13 +51,45 @@ class _KernelConv(nn.Module):
                 self.bias.zero_()
 
 
-class SparseConvK3(_KernelConv):
+class _QuantConv(_KernelConv):
+    """A conv with an int8 route.  ``q8``: quantise (the engine sets it).
+    ``calibrating``: record the running max of ``|x|`` over all but the
+    channel axis into ``act_absmax`` while the conv itself quantises with
+    the dynamic absmax, as a JAX apply with ``mutable=["q8_stats"]`` does."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 bias: bool = False):
+        super().__init__(in_channels, out_channels, bias)
+        self.q8 = False
+        self.calibrating = False
+        self.register_buffer("act_absmax", None)
+
+    def _q8_args(self, feats):
+        if not self.calibrating:
+            return dict(q8=self.q8, act_absmax=self.act_absmax)
+        with torch.no_grad():
+            cur = feats.float().abs().amax(dim=tuple(range(feats.dim() - 1)))
+            self.act_absmax = (cur if self.act_absmax is None
+                               else torch.maximum(self.act_absmax, cur))
+        return dict(q8=self.q8, act_absmax=None)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        # a calibrated state dict gives an uncalibrated module its buffer
+        saved = state_dict.get(prefix + "act_absmax")
+        if saved is not None and self.act_absmax is None:
+            self.act_absmax = torch.empty_like(saved,
+                                               device=self.kernel.device)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+
+class SparseConvK3(_QuantConv):
     """k=3 s=1 sparse conv on one level."""
 
     taps = 27
 
     def forward(self, feats, level):
-        return C.conv_k3(feats, self.kernel, level, bias=self.bias)
+        return C.conv_k3(feats, self.kernel, level, bias=self.bias,
+                         **self._q8_args(feats))
 
 
 class SparseConv1x1(_KernelConv):
@@ -60,24 +99,52 @@ class SparseConv1x1(_KernelConv):
         return C.conv1x1(feats, self.kernel, valid, bias=self.bias)
 
 
-class SparseConvDown(_KernelConv):
+class SparseConvDown(_QuantConv):
     """k=2 s=2 strided sparse conv: fine level -> coarse level."""
 
     taps = 8
 
     def forward(self, feats, fine_level, coarse_level):
         return C.conv_down(feats, self.kernel, fine_level, coarse_level,
-                           bias=self.bias)
+                           bias=self.bias, **self._q8_args(feats))
 
 
-class SparseConvTranspose(_KernelConv):
+class SparseConvTranspose(_QuantConv):
     """k=2 s=2 transpose conv: coarse level -> cached fine level."""
 
     taps = 8
 
     def forward(self, feats, coarse_level, fine_level):
         return C.conv_transpose_up(feats, self.kernel, coarse_level,
-                                   fine_level, bias=self.bias)
+                                   fine_level, bias=self.bias,
+                                   **self._q8_args(feats))
+
+
+def q8_convs(module: nn.Module):
+    """``(name, conv)`` of every conv of ``module`` with an int8 route."""
+    return [(n, m) for n, m in module.named_modules()
+            if isinstance(m, _QuantConv)]
+
+
+def set_q8(module: nn.Module, on: bool) -> nn.Module:
+    """Route every k3 / down / transpose conv of ``module`` to int8 or not."""
+    for _, m in q8_convs(module):
+        m.q8 = on
+    return module
+
+
+@contextlib.contextmanager
+def q8_calibration(module: nn.Module):
+    """Calibration mode for every int8-capable conv of ``module``: each
+    records its input absmax (and keeps the maximum over passes)."""
+    convs = [m for _, m in q8_convs(module)]
+    for m in convs:
+        m.calibrating = True
+    try:
+        yield module
+    finally:
+        for m in convs:
+            m.calibrating = False
 
 
 class _BatchNormState(nn.Module):

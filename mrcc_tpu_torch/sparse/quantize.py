@@ -36,12 +36,29 @@ def segment_ids(seg, capacity):
 
 
 def segment_sum(values, flat, b, capacity):
-    """Sum ``values [B, N, ...]`` into ``[B, capacity, ...]`` (dump dropped)."""
+    """Sum ``values [B, N, ...]`` into ``[B, capacity, ...]`` (dump dropped).
+
+    Deterministic on both devices: on the card ``index_add_`` adds with
+    float atomics in an order that changes from run to run, so the card
+    takes ``index_put_(accumulate=True)``, which sorts the indices and sums
+    each segment in order, one thread per segment; there every dump entry
+    gets a slot of its own, or the padding rows would make one long serial
+    segment.  On the CPU ``index_add_`` is sequential."""
     tail = values.shape[2:]
-    out = torch.zeros((b * (capacity + 1),) + tail, dtype=values.dtype,
+    rows = b * (capacity + 1)
+    values = values.reshape((-1,) + tail)
+    if not values.is_cuda:
+        out = torch.zeros((rows,) + tail, dtype=values.dtype,
+                          device=values.device)
+        out.index_add_(0, flat, values)
+        return out.reshape((b, capacity + 1) + tail)[:, :capacity]
+    n = flat.shape[0]
+    own = rows + torch.arange(n, device=flat.device)
+    flat = torch.where(flat % (capacity + 1) == capacity, own, flat)
+    out = torch.zeros((rows + n,) + tail, dtype=values.dtype,
                       device=values.device)
-    out.index_add_(0, flat, values.reshape((-1,) + tail))
-    return out.reshape((b, capacity + 1) + tail)[:, :capacity]
+    out.index_put_((flat,), values, accumulate=True)
+    return out[:rows].reshape((b, capacity + 1) + tail)[:, :capacity]
 
 
 def _segment_reduce(values, flat, b, capacity, reduce):

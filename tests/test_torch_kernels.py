@@ -8,7 +8,9 @@ there on its own:
 
 Tolerances: the sort is exact; f32 convs and dW kernels agree with the
 plain twin to relative norm 1e-5 (summation order), bf16 ones with the f32
-twin to 2e-2.  The dW kernels are deterministic (no float atomics): two
+twin to 2e-2; the int8 convs agree with their plain twins to 1 ulp of the
+output type elementwise (their int32 sums are exact) and with the f32
+plain conv to 3e-2.  The dW kernels are deterministic (no float atomics): two
 launches give the same bits.  The autograd Functions' backward on the card
 agrees with autograd through the plain forward twins to 1e-5.
 """
@@ -17,7 +19,7 @@ import pytest
 import torch
 
 from mrcc_tpu_torch.data.synthetic import build_batch
-from mrcc_tpu_torch.ops import conv, sort
+from mrcc_tpu_torch.ops import conv, conv_q8, sort
 from mrcc_tpu_torch.sparse import KEY_PAD, build_hierarchy, voxelize
 
 pytestmark = pytest.mark.gpu
@@ -210,3 +212,88 @@ def test_conv_function_backward(cuda, levels, kind):
         grads.append((f.grad, w.grad))
     for got, want in zip(*grads):
         assert _rel(got, want) <= 1e-5
+
+
+# ---------------------------------------------------------------- int8
+
+
+def _ulps(got, want):
+    """Largest |got - want| in ulps of the output type at the larger
+    magnitude (bf16: 8 significant bits, f32: 24)."""
+    bits = 8 if got.dtype == torch.bfloat16 else 24
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - (bits - 1))
+    return float(((g - w).abs() / ulp).max())
+
+
+def _check_q8(fn, plain, counter, unquantised, f, w, maps):
+    want = plain(f, w, *maps)
+    before = counter.launches
+    got = fn(f, w, *maps)
+    assert counter.launches == before + 1
+    assert got.dtype == f.dtype and got.shape == want.shape
+    assert _ulps(got, want) <= 1.0
+    assert _rel(got, unquantised(f.float(), w, *maps)) <= 3e-2
+    amax = f.float().abs().amax(dim=(0, 1))  # calibrated == dynamic
+    assert torch.equal(fn(f, w, *maps, act_absmax=amax), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("cin,cout", [(3, 32), (48, 64), (256, 40),
+                                      (416, 96)])
+def test_conv_sk_q8(cuda, levels, cin, cout, dtype):
+    """Cin 3 is the stem; 256 and 416 split into 128-channel groups."""
+    lv = levels[0]
+    assert len(conv_q8.q8_channel_groups("k3", lv.key.shape[1], cin)) == \
+        -(-cin // 128)
+    _check_q8(conv_q8.gather_gemm_sk_q8, conv_q8.gather_gemm_sk_q8_plain,
+              conv_q8.SK_Q8, conv.gather_gemm_sk_plain, _feats(lv, cin, dtype),
+              torch.randn((27, cin, cout), device=cuda) / 9,
+              (lv.key, lv.kbits))
+
+
+@pytest.mark.parametrize("cin,cout", [(32, 32), (20, 90), (896, 40)])
+@pytest.mark.parametrize("l", [0, 2])
+def test_conv_down_up_q8(cuda, levels, l, cin, cout):
+    """896 channels split 768 + 128 (the int8 k-lane cap)."""
+    fine, coarse = levels[l], levels[l + 1]
+    w = torch.randn((8, cin, cout), device=cuda) / 3
+    _check_q8(conv_q8.gather_gemm_down_q8, conv_q8.gather_gemm_down_q8_plain,
+              conv_q8.DOWN_Q8, conv.gather_gemm_down_plain,
+              _feats(fine, cin, torch.bfloat16), w,
+              (coarse.child_idx, coarse.child_hit))
+    # octants with weights of different scale keep their own scales
+    w = w * torch.arange(1, 9, device=cuda)[:, None, None]
+    _check_q8(conv_q8.gather_gemm_up_q8, conv_q8.gather_gemm_up_q8_plain,
+              conv_q8.UP_Q8, conv.gather_gemm_up_plain,
+              _feats(coarse, cin, torch.bfloat16), w,
+              (fine.parent_idx, fine.row_ok, fine.octant))
+
+
+def test_conv_down_q8_table_split(cuda, big_levels):
+    """A 40000-row table over the 5 MiB budget at 384 channels: three
+    128-channel groups."""
+    fine, coarse = big_levels[0], big_levels[1]
+    assert conv_q8.q8_channel_groups("down", fine.key.shape[1], 384) == (
+        (0, 128), (128, 256), (256, 384))
+    _check_q8(conv_q8.gather_gemm_down_q8, conv_q8.gather_gemm_down_q8_plain,
+              conv_q8.DOWN_Q8, conv.gather_gemm_down_plain,
+              _feats(fine, 384, torch.bfloat16),
+              torch.randn((8, 384, 64), device=cuda) / 9,
+              (coarse.child_idx, coarse.child_hit))
+
+
+def test_conv_q8_rejects(cuda, levels):
+    lv = levels[0]
+    w = torch.zeros((27, 8, 8), device=cuda)
+    with pytest.raises(ValueError):
+        conv_q8.gather_gemm_sk_q8(_feats(lv, 8, torch.float16), w, lv.key,
+                                  lv.kbits)
+    with pytest.raises(ValueError):
+        conv_q8.gather_gemm_sk_q8(_feats(lv, 8, torch.bfloat16),
+                                  w.bfloat16(), lv.key, lv.kbits)
+    with pytest.raises(ValueError):
+        conv_q8.gather_gemm_down_q8(_feats(lv, 8, torch.float64),
+                                    w[:8].double(), levels[1].child_idx,
+                                    levels[1].child_hit)
