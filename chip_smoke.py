@@ -4,11 +4,14 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper card:
 
     python3 chip_smoke.py
 
-Three main paths run: bf16 inference (``InferenceEngine.predict_batch_arrays``),
-segmentation training (``make_segmentation_train_step``) and int8 inference
+The main paths: bf16 inference (``InferenceEngine.predict_batch_arrays``),
+segmentation training (``make_segmentation_train_step``), int8 inference
 (``conv_impl="pallas-int8"``: ``calibrate_q8``, then
-``predict_batch_arrays``).  Phases, each printing one line (any failure
-exits non-zero before the last line):
+``predict_batch_arrays``), production-scale inference in bf16 and int8
+(B = 2 clouds of 131072 points, whose large levels take the k3-table
+route: rank-kernel tables and the k3-table convs), and
+``icp_refine(use_pallas=True)`` (the nearest-neighbour kernel).  Phases,
+each printing one line (any failure exits non-zero before the last line):
 
 1. device: name, count, ``nvidia-smi`` name and power limit;
 2. build: compile the kernels of ``mrcc_tpu_torch/csrc`` (one nvcc per
@@ -19,13 +22,19 @@ exits non-zero before the last line):
    the unquantised f32 plain conv), timed with CUDA events: the forward
    kernels at the inference shapes in bf16, the int8 ones at the int8
    path's shapes (the seg net's, one split into channel groups), the dW
-   kernels at the training shapes in f32; then the backward of each
-   autograd conv Function on the card against autograd through the plain
-   twins on the card (f32, 1e-5);
+   kernels at the training shapes in f32, the rank kernel (exact) and the
+   k3-table convs at the production levels' shapes, the int8 one also at a
+   two-group resident shape, the nearest-neighbour kernel (d2 1e-5, indices
+   equal but for near-ties: the two smallest d2 within 1e-6 of |a|^2);
+   then the backward of each autograd conv Function on the card against
+   autograd through the plain twins on the card (f32, 1e-5);
 4. the inference slice on the card vs on the CPU: one engine pair with the
-   same weights, f32, small size (integer outputs exact, poses 1e-3); and
-   an int8 pair with the same weights and the same calibrated scales (seg
-   labels equal on >= 99.5 % of points);
+   same weights, f32 (the k3-table route on every level), small size
+   (integer outputs exact, poses 1e-3); int8 pairs with the same weights
+   and the same calibrated scales, self-keyed and with
+   ``k3_self_keyed=False`` (seg labels equal on >= 99.5 % of points); and
+   on the card, bf16 with ``k3_self_keyed=False`` against the self-keyed
+   route, same weights (seg labels >= 99.5 %, bit-equality reported);
 5. one train step on the card vs on the CPU: minkunet14A, B=2, f32, same
    weights and batch (loss 1e-5, gradients 1e-4 and the update 1e-3 in
    relative norm, BN statistics 1e-5);
@@ -46,7 +55,16 @@ exits non-zero before the last line):
    batch, then as phase 6 (12 batches timed, stages, profiler, launches
    per batch of every counter), with the int8 kernels launched, the bf16
    conv kernels only by the rotation stage, no plain twin called, and the
-   share of seg labels equal to phase 6's bf16 engine on the same batch.
+   share of seg labels equal to phase 6's bf16 engine on the same batch;
+9. production-scale inference (``bench.py``'s big profile: B = 2 clouds of
+   131072 points, capacities from the occupancy probe, EE crops of 8192):
+   bf16, then int8 after ``calibrate_q8``, each timed as phase 6, with the
+   rank kernel and the k3-table convs launched on exactly the levels
+   ``uses_k3_tables`` names and the self-keyed kernels on the others, no
+   plain twin called; the two k3 routes side by side on seg level 0 (rank
+   build + table convs against the self-keyed kernels, same convs); and
+   ``icp_refine(use_pallas=True)`` on the batch's EE crop against the
+   default ICP.
 
 f32 phases run with TF32 off (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` False).  The last lines are the card's
@@ -56,6 +74,7 @@ f32 phases run with TF32 off (``torch.backends.cuda.matmul.allow_tf32`` and
 
 import contextlib
 import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -84,12 +103,19 @@ SOURCES = {
     "conv_sk_q8": "mrcc_tpu_torch/csrc/conv_sk_q8.cu",
     "conv_down_q8": "mrcc_tpu_torch/csrc/conv_map_q8.cu",
     "conv_up_q8": "mrcc_tpu_torch/csrc/conv_map_q8.cu",
+    "rank": "mrcc_tpu_torch/csrc/rank.cu",
+    "conv_k3map": "mrcc_tpu_torch/csrc/conv_map.cu",
+    "conv_k3map_q8": "mrcc_tpu_torch/csrc/conv_map_q8.cu",
+    "nn_search": "mrcc_tpu_torch/csrc/nn_search.cu",
 }
 K2_TPU = "mrcc_tpu/ops/conv_pallas.py:767"    # _gather_gemm_call_sk
 K3_TPU = "mrcc_tpu/ops/conv_pallas.py:120"    # _gather_gemm_call
 HBM_TPU = "mrcc_tpu/ops/conv_pallas.py:1495"  # _gather_gemm_call_hbm
 SK_Q8_TPU = "mrcc_tpu/ops/conv_pallas.py:845"    # _gather_gemm_call_sk_q8
 MAP_Q8_TPU = "mrcc_tpu/ops/conv_pallas.py:1235"  # _gather_gemm_call_q8
+RANK_TPU = "mrcc_tpu/ops/rank_pallas.py:89"     # _rank_call
+NN_TPU = "mrcc_tpu/ops/nn_pallas.py:42"         # nn_search_pallas
+PROD_POINTS = 131072  # bench.py's production profile (BENCH_POINTS)
 DW_TPU = {"dw_sk": "mrcc_tpu/ops/conv_pallas.py:1076",   # _dw_call_sk
           "dw_down": "mrcc_tpu/ops/conv_pallas.py:1691",  # _dw_call
           "dw_up": "mrcc_tpu/ops/conv_pallas.py:1691"}
@@ -147,22 +173,25 @@ def bound_ms(nbytes, ops, kind):
 # ------------------------------------------------------------- phases
 
 def phase_build():
-    from mrcc_tpu_torch.ops import conv, conv_q8, sort
+    from mrcc_tpu_torch.ops import conv, conv_q8, nn, rank, sort
     from mrcc_tpu_torch.ops.build import build_all
 
     t0 = time.perf_counter()
-    infos = build_all([sort.LIB, *conv.LIBRARIES, *conv_q8.LIBRARIES])
+    infos = build_all([sort.LIB, *conv.LIBRARIES, *conv_q8.LIBRARIES,
+                       rank.LIB, nn.LIB])
     log("build", seconds=round(time.perf_counter() - t0, 3),
         sources={i.name: {"seconds": round(i.seconds, 3),
                           "ptxas": i.resource_lines()} for i in infos})
 
 
-def bench_levels(device, batch=8, points=16384, seed=0):
-    """Inputs and the seg hierarchy of the main path (bench capacities)."""
+def bench_levels(device, batch=8, points=16384, seed=0, tables=False):
+    """Inputs and the seg hierarchy of a bench profile (capacities from the
+    occupancy probe); ``tables``: neighbour tables on the levels the bf16
+    engine's route gives them."""
     from mrcc_tpu_torch.app import measure_seg_caps
     from mrcc_tpu_torch.data.synthetic import build_batch
     from mrcc_tpu_torch.geometry import center_at_origin
-    from mrcc_tpu_torch.sparse import build_hierarchy, voxelize
+    from mrcc_tpu_torch.sparse import build_hierarchy, uses_k3_tables, voxelize
 
     pts, rgb, mask = build_batch(batch, points, seed=seed)
     caps = measure_seg_caps(pts, rgb, mask, device=device)
@@ -171,7 +200,8 @@ def bench_levels(device, batch=8, points=16384, seed=0):
     c, _ = center_at_origin(p, mask=m)
     vox, _ = voxelize(c, torch.as_tensor(rgb, device=device), m, 1 / 200.0,
                       caps[0])
-    levels = build_hierarchy(vox, 4, capacities=caps[1:])
+    levels = build_hierarchy(vox, 4, capacities=caps[1:], k3_tables=(
+        tuple(uses_k3_tables(n) for n in caps) if tables else None))
     return (pts, rgb, mask), caps, levels
 
 
@@ -195,10 +225,13 @@ def train_levels(batch, device):
     return build_hierarchy(vox, 4, capacities=hierarchy_caps(TRAIN_CAPACITY))
 
 
-def phase_kernels(levels, tlevels, device):
+def phase_kernels(levels, tlevels, plevels, device):
     """Each kernel vs its plain twin at the main paths' shapes: ``levels``
-    of the inference path, ``tlevels`` of the training path."""
-    from mrcc_tpu_torch.ops import conv, conv_q8, sort
+    of the inference path, ``tlevels`` of the training path, ``plevels`` of
+    the production path (tables on its levels 0 and 1)."""
+    from mrcc_tpu_torch.ops import conv, conv_q8, nn, rank, sort
+    from mrcc_tpu_torch.sparse import neighbor_tables
+    from mrcc_tpu_torch.sparse.hierarchy import K3_DELTAS
 
     gen = torch.Generator(device="cpu").manual_seed(7)
     records = []
@@ -310,7 +343,7 @@ def phase_kernels(levels, tlevels, device):
                fine.row_ok, fine.octant], _up_work(fine), 8)
 
     def q8_case(name, kernel, replaces, mode, fn, plain, unquantised, f, w,
-                maps, n_table, work):
+                maps, n_table, work, path="int8"):
         """An int8 conv on bf16 features: within 1 bf16 ulp of its plain
         twin, within TOL_Q8 of the unquantised f32 plain conv.  ``ms`` is
         the wrapper (quantisation and kernel, what the path pays);
@@ -336,7 +369,7 @@ def phase_kernels(levels, tlevels, device):
                   + 2 * want.numel() + work["map_bytes"])
         bms, by = bound_ms(nbytes, 2 * work["hits"] * cin * cout, "int8")
         records.append(dict(
-            name=name, kernel=kernel, path="int8", route="cuda",
+            name=name, kernel=kernel, path=path, route="cuda",
             source=SOURCES[kernel], replaces=replaces,
             max_abs_err=float((got.float() - want.float()).abs().max()),
             rel_err=err, tolerance={"ulps": 1, "rel_vs_f32": TOL_Q8},
@@ -377,6 +410,103 @@ def phase_kernels(levels, tlevels, device):
             conv.gather_gemm_up_plain, feats(coarse, 256).bfloat16(),
             weights(8, 256, 256), (fine.parent_idx, fine.row_ok, fine.octant),
             nc, _up_work(fine))
+
+    # B8: the rank kernel builds the 27 tables of production seg levels 0
+    # and 1; its library yardstick is torch.searchsorted over the same
+    # queries (ranks only, no hits)
+    for li in (0, 1):
+        lv = plevels[li]
+        b, n = lv.key.shape
+        want = rank.rank_lookup_plain(lv.key, lv.key, K3_DELTAS, lv.kbits)
+        got = rank.rank_lookup(lv.key, lv.key, K3_DELTAS, lv.kbits)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"rank [{b}x{n}] differs from its twin")
+        d = torch.tensor(K3_DELTAS, dtype=torch.int32, device=device)
+        q = (lv.key[None] + d[:, None, None]).permute(1, 0, 2).reshape(b, -1)
+        # keys, query bases and bitmaps read once, 27 int32 + bool written;
+        # 9 searches of log2(N) compares and 27 compares a row
+        steps = 9 * max(1, int(np.ceil(np.log2(n)))) + 27
+        records.append(dict(
+            name=f"rank[{b}x{n} k3]", kernel="rank", path="production",
+            route="cuda", source=SOURCES["rank"], replaces=RANK_TPU,
+            max_abs_err=0.0, tolerance="exact", hits=int(want[1].sum()),
+            ms=cuda_ms(lambda: rank.rank_lookup(lv.key, lv.key, K3_DELTAS,
+                                                lv.kbits)),
+            plain_ms=cuda_ms(lambda: rank.rank_lookup_plain(
+                lv.key, lv.key, K3_DELTAS, lv.kbits)),
+            library_ms=cuda_ms(lambda: torch.searchsorted(lv.key, q)),
+            library_call="torch.searchsorted (ranks only)",
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound_ms(12 * b * n + 27 * 5 * b * n, steps * b * n,
+                                "f32")))))
+
+    # the k3-table convs at the production seg levels (bf16 over the TPU's
+    # budget: _gather_gemm_call_hbm there), at a resident shape (the bench
+    # level 0, as k3_self_keyed=False runs it: _gather_gemm_call), and the
+    # int8 one at level 0 (128-channel groups) and at a resident two-group
+    # shape
+    lv_bench = dataclasses.replace(levels[0], **dict(zip(
+        ("nbr_idx", "nbr_hit"), neighbor_tables(levels[0]))))
+    for lv, cin, cout, replaces in ((plevels[0], 3, 32, HBM_TPU),
+                                    (plevels[0], 128, 96, HBM_TPU),
+                                    (plevels[1], 128, 96, HBM_TPU),
+                                    (lv_bench, 128, 96, K3_TPU)):
+        b, n = lv.key.shape
+        conv_case(f"conv_k3map[{b}x{n} {cin}->{cout}]", "conv_k3map",
+                  replaces, conv.gather_gemm_k3_map,
+                  conv.gather_gemm_k3_map_plain,
+                  [feats(lv, cin), weights(27, cin, cout), lv.nbr_idx,
+                   lv.nbr_hit], _table_work(lv), 27, path="production")
+    lv = plevels[0]
+    b, n = lv.key.shape
+    q8_case(f"conv_k3map_q8[{b}x{n} 128->96]", "conv_k3map_q8", HBM_TPU,
+            "k3_table", conv_q8.gather_gemm_k3_map_q8,
+            conv_q8.gather_gemm_k3_map_q8_plain, conv.gather_gemm_k3_map_plain,
+            feats(lv, 128).bfloat16(), weights(27, 128, 96),
+            (lv.nbr_idx, lv.nbr_hit), n, _table_work(lv),
+            path="production_int8")
+    lv = lv_bench
+    b, n = lv.key.shape
+    q8_case(f"conv_k3map_q8[{b}x{n} 384->256]", "conv_k3map_q8", MAP_Q8_TPU,
+            "k3_table", conv_q8.gather_gemm_k3_map_q8,
+            conv_q8.gather_gemm_k3_map_q8_plain, conv.gather_gemm_k3_map_plain,
+            feats(lv, 384).bfloat16(), weights(27, 384, 256),
+            (lv.nbr_idx, lv.nbr_hit), n, _table_work(lv),
+            path="production_int8")
+
+    # B10 at the ICP's shapes: 1024 template points over an EE crop
+    for b, m, n in ((2, 1024, 8192), (8, 1024, 2048)):
+        tmpl = (torch.randn((b, m, 3), generator=gen) * 0.05 + 0.8).to(device)
+        tgt = (torch.randn((b, n, 3), generator=gen) * 0.05 + 0.8).to(device)
+        mask = (torch.rand((b, n), generator=gen) > 0.2).to(device)
+        idx, d2 = nn.nn_search(tmpl, tgt, mask)
+        w_idx, w_d2 = nn.nn_search_plain(tmpl, tgt, mask)
+        # a near-tie: the two smallest d2 of a row within 1e-6 of |a|^2,
+        # the scale of the f32 rounding of |a|^2 - 2ab + |b|^2
+        sqs = (tmpl * tmpl).sum(-1)
+        full = torch.where(mask[:, None], sqs[..., None] - 2 * torch.bmm(
+            tmpl, tgt.transpose(1, 2)) + (tgt * tgt).sum(-1)[:, None],
+            float("inf"))
+        two = full.topk(2, dim=-1, largest=False).values
+        tie = (two[..., 1] - two[..., 0]) <= 1e-6 * sqs
+        differ = idx != w_idx
+        err = float((d2 - w_d2).abs().max())
+        if err > 1e-5 or bool((differ & ~tie).any()):
+            raise AssertionError(f"nn_search [{b}x{m}x{n}]: d2 off by {err}, "
+                                 f"{int((differ & ~tie).sum())} indices "
+                                 "differ away from near-ties")
+        records.append(dict(
+            name=f"nn_search[{b}x{m}x{n}]", kernel="nn_search",
+            path="icp_pallas", route="cuda", source=SOURCES["nn_search"],
+            replaces=NN_TPU, max_abs_err=err,
+            tolerance={"d2": 1e-5, "idx": "equal but near-ties (1e-6 |a|^2)"},
+            near_ties=int(tie.sum()), idx_differ_at_ties=int(differ.sum()),
+            ms=cuda_ms(lambda: nn.nn_search(tmpl, tgt, mask)),
+            plain_ms=cuda_ms(lambda: nn.nn_search_plain(tmpl, tgt, mask)),
+            library_ms=None,
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound_ms(4 * (3 * b * m + 3 * b * n + 2 * b * m)
+                                + b * n, 8 * b * m * n, "f32")))))
 
     def dw_case(name, kernel, fn, plain, f, g, maps, work):
         want = plain(f, g, *maps)
@@ -425,8 +555,9 @@ def phase_kernels(levels, tlevels, device):
                 (fine.parent_idx, fine.row_ok, fine.octant), _up_work(fine))
     log("kernels", cases=[{k: r.get(k) for k in (
         "name", "path", "replaces", "ms", "quantise_ms", "plain_ms",
-        "library_ms", "bound_ms", "bound_by", "work", "groups",
-        "max_abs_err", "rel_err", "tolerance")}
+        "library_ms", "library_call", "bound_ms", "bound_by", "work",
+        "groups", "hits", "near_ties", "idx_differ_at_ties", "max_abs_err",
+        "rel_err", "tolerance")}
         for r in records])
     return records
 
@@ -508,6 +639,19 @@ def _sk_work(level):
             "map_bytes": 8 * int(level.count.sum())}
 
 
+def _table_work(level):
+    """The k3-table conv's work: the table's hits, the distinct rows they
+    gather, the rows with one, and 27 index + hit entries of valid rows."""
+    b, n = level.key.shape
+    hit = level.nbr_hit
+    read = torch.zeros((b, n + 1), dtype=torch.bool, device=hit.device)
+    read.scatter_(1, torch.where(hit, level.nbr_idx, n).permute(1, 0, 2)
+                  .reshape(b, -1).long(), True)
+    return {"hits": int(hit.sum()), "read": int(read[:, :n].sum()),
+            "written": int(hit.any(dim=0).sum()),
+            "map_bytes": 27 * 5 * int(level.count.sum())}
+
+
 def _down_work(coarse):
     """K3 down's work: each hit gathers its own fine row; the child map's
     8 index + hit entries of every valid coarse row."""
@@ -573,11 +717,9 @@ def phase_card_vs_cpu():
     log("card_vs_cpu", ee_count=want["ee_count"].tolist(), max_err=report)
 
 
-def phase_int8_card_vs_cpu():
-    """Same weights and calibrated scales, bf16 / int8, small size: card
-    engine vs CPU engine."""
-    from mrcc_tpu_torch.app import (InferenceConfig, InferenceEngine,
-                                    measure_seg_caps)
+def _small_bf16_config(**kw):
+    """phase 4's small bf16 engine configuration (B = 2, P = 2048)."""
+    from mrcc_tpu_torch.app import InferenceConfig, measure_seg_caps
     from mrcc_tpu_torch.data.synthetic import build_batch
 
     pts, rgb, mask = build_batch(2, 2048, seed=11)
@@ -590,7 +732,47 @@ def phase_int8_card_vs_cpu():
         kp_hierarchy_caps=(384, 256, 128, 128), icp_iterations=15,
         icp_template_points=512, seg_backbone="minkunet18",
         rot_backbone="minkunet18", kp_backbone="minkunet18",
-        compute_dtype="bfloat16", conv_impl="pallas-int8")
+        compute_dtype="bfloat16", **kw)
+    return (pts, rgb, mask), cfg
+
+
+def phase_bf16_routes_on_card():
+    """bf16 on the card, same weights: ``k3_self_keyed=False`` (the
+    k3-table route on every level) against the default route.  The table
+    conv and K2 share their tile arithmetic, so every output is expected
+    bit-equal; the check is seg labels >= 99.5 % equal, finite poses."""
+    from mrcc_tpu_torch.app import InferenceEngine
+
+    (pts, rgb, mask), cfg = _small_bf16_config()
+    sk = InferenceEngine(cfg, device="cuda", seed=3)
+    tables = InferenceEngine(dataclasses.replace(cfg, k3_self_keyed=False),
+                             device="cuda", seed=5)
+    for stage, model in tables.models().items():
+        model.load_state_dict(sk.models()[stage].state_dict())
+    want = sk.predict_batch_arrays(pts, rgb, mask)
+    got = tables.predict_batch_arrays(pts, rgb, mask)
+    m = torch.as_tensor(mask, device="cuda")
+    agree = float((got["segmentation"] == want["segmentation"])[m]
+                  .float().mean())
+    report = {"seg_agree": agree, "tolerance": {"seg_agree": SEG_AGREE},
+              "bit_equal": {k: bool(torch.equal(got[k], want[k]))
+                            for k in want},
+              "k3_tables": tables.k3_tables}
+    finite = all(bool(torch.isfinite(got[k]).all())
+                 for k in ("ee_pose", "kp_pose"))
+    if agree < SEG_AGREE or not finite or not all(tables.k3_tables["seg"]):
+        raise AssertionError(f"bf16 tables vs self-keyed: {report}")
+    log("bf16_tables_vs_self_keyed", **report)
+
+
+def phase_int8_card_vs_cpu(k3_self_keyed=True):
+    """Same weights and calibrated scales, bf16 / int8, small size: card
+    engine vs CPU engine; ``k3_self_keyed=False``: the k3-table route (the
+    resident int8 table plan) on every level."""
+    from mrcc_tpu_torch.app import InferenceEngine
+
+    (pts, rgb, mask), cfg = _small_bf16_config(
+        conv_impl="pallas-int8", k3_self_keyed=k3_self_keyed)
     cpu = InferenceEngine(cfg, device="cpu", seed=3).calibrate_q8(pts, rgb,
                                                                    mask)
     gpu = InferenceEngine(cfg, device="cuda", seed=5)
@@ -613,19 +795,27 @@ def phase_int8_card_vs_cpu():
                  for k in ("ee_pose", "kp_pose"))
     if agree < SEG_AGREE or not finite:
         raise AssertionError(f"int8 card vs CPU: {report}")
-    log("int8_card_vs_cpu", **report)
+    log("int8_card_vs_cpu" if k3_self_keyed else "int8_tables_card_vs_cpu",
+        k3_tables=gpu.k3_tables, **report)
 
 
 def bench_config(pts, caps, **kw):
-    """The JAX bench configuration (``bench.py:276-314``) at full width."""
+    """The JAX bench configuration (``bench.py:276-314``) at full width;
+    with more than 32768 points its production profile (``big``: EE crops
+    of 8192 points and voxels, kp capacity 4096)."""
     from mrcc_tpu_torch.app import InferenceConfig
 
+    big = pts.shape[1] > 32768
     return InferenceConfig(
         point_capacity=pts.shape[1], seg_voxel_capacity=caps[0],
-        seg_hierarchy_caps=caps[1:], ee_point_capacity=2048,
-        ee_voxel_capacity=2048, kp_voxel_capacity=1024,
-        ee_hierarchy_caps=(1024, 384, 128, 128),
-        kp_hierarchy_caps=(768, 640, 384, 128), icp_iterations=15,
+        seg_hierarchy_caps=caps[1:],
+        ee_point_capacity=8192 if big else 2048,
+        ee_voxel_capacity=8192 if big else 2048,
+        kp_voxel_capacity=4096 if big else 1024,
+        ee_hierarchy_caps=(4096, 1536, 512, 128) if big
+        else (1024, 384, 128, 128),
+        kp_hierarchy_caps=(3072, 2560, 1536, 512) if big
+        else (768, 640, 384, 128), icp_iterations=15,
         icp_template_points=1024, seg_backbone="minkunet18",
         rot_backbone="minkunet", kp_backbone="minkunet18",
         compute_dtype="bfloat16", **kw)
@@ -655,6 +845,232 @@ def plain_calls():
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def k3_calls():
+    """Record every k3 conv of a run: ``(level rows, level carries tables,
+    Cin, Cout, the k3 kernel counters it moved)``."""
+    from mrcc_tpu_torch.ops import conv, conv_q8
+    from mrcc_tpu_torch.sparse import conv as C
+
+    ctrs = (conv.SK, conv.K3MAP, conv_q8.SK_Q8, conv_q8.K3MAP_Q8)
+    calls, orig = [], C.conv_k3
+
+    def recorded(feats, weights, level, *a, **kw):
+        before = [c.launches for c in ctrs]
+        out = orig(feats, weights, level, *a, **kw)
+        calls.append((level.key.shape[1], level.nbr_idx is not None,
+                      feats.shape[-1], weights.shape[-1],
+                      tuple(c.name for c, n in zip(ctrs, before)
+                            if c.launches != n)))
+        return out
+
+    C.conv_k3 = recorded
+    try:
+        yield calls
+    finally:
+        C.conv_k3 = orig
+
+
+def check_k3_routes(engine, p, c, m):
+    """Drive the three stages one by one and hold every level's k3 route
+    to ``engine.k3_tables`` (the JAX engine's route): the rank kernel once
+    per table level, each k3 conv of a table level through the k3-table
+    kernel, of the other levels through the self-keyed one, no plain twin.
+    Returns ``{stage: {"table_levels", "rank", "convs"}}`` and the seg
+    level-0 conv shapes."""
+    from mrcc_tpu_torch.ops import rank
+
+    report, seg0 = {}, []
+    stages = (("seg", lambda: engine.seg_stage(p, c, m)),
+              ("rot", lambda: engine.pose_stage(*seg[2:5])),
+              ("kp", lambda: engine.kp_stage(*seg[2:5])))
+    seg = None
+    with plain_calls() as plain:
+        for stage, run in stages:
+            rank.RANK.launches = 0
+            with k3_calls() as calls:
+                out = run()
+                torch.cuda.synchronize()
+            if stage == "seg":
+                seg = out
+            caps = engine.level_caps[stage]
+            route = engine.k3_tables[stage]
+            q8 = stage != "rot" and engine.cfg.conv_impl == "pallas-int8"
+            want_tables = {n for n, t in zip(caps, route) if t}
+            kind = ("conv_k3map_q8", "conv_sk_q8") if q8 else ("conv_k3map",
+                                                              "conv_sk")
+            bad = [cl for cl in calls
+                   if cl[4] != ((kind[0],) if cl[1] else (kind[1],))
+                   or cl[1] != (cl[0] in want_tables)]
+            got_tables = {cl[0] for cl in calls if cl[1]}
+            if (bad or got_tables != want_tables
+                    or rank.RANK.launches != sum(route)):
+                raise AssertionError(
+                    f"{stage}: k3 route {route} over {caps}: tables on "
+                    f"{sorted(got_tables)}, rank launches "
+                    f"{rank.RANK.launches}, wrong convs {bad[:4]}")
+            report[stage] = {
+                "table_levels": [l for l, t in enumerate(route) if t],
+                "rank": rank.RANK.launches,
+                "convs": {k: sum(1 for cl in calls if cl[4] == (k,))
+                          for k in kind}}
+            if stage == "seg":
+                seg0 = [(cl[2], cl[3]) for cl in calls if cl[0] == caps[0]]
+    if plain:
+        raise AssertionError(f"plain twins called: {plain}")
+    return report, seg0
+
+
+def _sk_q8_groups(f, w, level, groups):
+    """B6 on its kernel with the given channel groups (its wrapper takes
+    ``_sk_plan``'s, which has none for levels over 40960 rows)."""
+    from mrcc_tpu_torch.ops import conv_q8
+    from mrcc_tpu_torch.ops.build import ptr, stream_ptr
+
+    q, s_c = conv_q8.quantize_activations(f)
+    wq, m = conv_q8.quantize_weights(w, s_c, groups)
+    q, w32, m, cw, gw, ng = conv_q8._kernel_operands(q, wq, m, groups)
+    b, n, _ = f.shape
+    out = torch.empty((b, n, w.shape[-1]), dtype=f.dtype, device=f.device)
+    conv_q8.SK_Q8_LIB.call("mrcc_conv_sk_q8_bf16", ptr(q), ptr(w32), ptr(m),
+                           ptr(level.key.contiguous()),
+                           ptr(level.kbits.contiguous()), ptr(out), b, n, cw,
+                           w.shape[-1], gw, ng, stream_ptr(f))
+    return out
+
+
+def compare_k3_routes(engine, p, c, m, shapes, q8):
+    """Seg level 0 of the batch: route A (rank build of the 27 tables, then
+    every k3 conv of the level through the table conv) against route B
+    (the same convs through the self-keyed kernel; int8: B6 with the same
+    128-channel groups), timed with CUDA events; dynamic int8 scales on
+    both."""
+    from mrcc_tpu_torch.geometry import center_at_origin, normalize_colors
+    from mrcc_tpu_torch.ops import conv, conv_q8
+    from mrcc_tpu_torch.sparse import neighbor_tables, voxelize
+
+    cfg = engine.cfg
+    rgb = normalize_colors(c, mask=m)
+    svox, _ = voxelize(center_at_origin(p, mask=m)[0], rgb, m,
+                       1.0 / cfg.seg_scale, cfg.seg_voxel_capacity)
+    lv = engine._hierarchy(svox, "seg")[0]
+    b, n = lv.key.shape
+    gen = torch.Generator(device="cpu").manual_seed(13)
+    args = []
+    for cin, cout in shapes:
+        f = torch.randn((b, n, cin), generator=gen).to(p.device)
+        f = torch.where(lv.valid[..., None], f, 0.0).to(torch.bfloat16)
+        w = (torch.randn((27, cin, cout), generator=gen)
+             / np.sqrt(27 * cin)).to(p.device)
+        args.append((f, w if q8 else w.bfloat16()))
+
+    def route_a():
+        idx, hit = neighbor_tables(lv)
+        conv_fn = conv_q8.gather_gemm_k3_map_q8 if q8 else \
+            conv.gather_gemm_k3_map
+        return [conv_fn(f, w, idx, hit) for f, w in args]
+
+    def route_b():
+        if q8:
+            return [_sk_q8_groups(f, w, lv, conv_q8.q8_channel_groups(
+                "k3_table", n, f.shape[-1])) for f, w in args]
+        return [conv.gather_gemm_sk(f, w, lv.key, lv.kbits) for f, w in args]
+
+    agree = max((ulps if q8 else rel_err)(x, y)
+                for x, y in zip(route_a(), route_b()))
+    if agree > (1.0 if q8 else TOL_BF16):
+        raise AssertionError(f"routes A and B disagree on level 0: {agree}")
+    idx, hit = neighbor_tables(lv)
+    return {"level_rows": [b, n], "convs": [list(x) for x in shapes],
+            "route_a_ms": cuda_ms(route_a, iters=5),
+            "rank_ms": cuda_ms(lambda: neighbor_tables(lv), iters=5),
+            "route_b_ms": cuda_ms(route_b, iters=5),
+            "a_vs_b": {"ulps" if q8 else "rel_err": agree},
+            "table_hits": int(hit.sum())}
+
+
+def phase_production(inputs, caps, counters, paths, iters=8):
+    """Production-scale inference (``bench.py``'s big profile), bf16 then
+    int8 after ``calibrate_q8``; returns the launches of one batch of each
+    (``paths``: the two path names) and of ``icp_refine(use_pallas=True)``."""
+    from mrcc_tpu_torch.app import InferenceEngine
+    from mrcc_tpu_torch.ops import nn
+    from mrcc_tpu_torch.solve import icp_refine
+
+    pts, rgb, mask = inputs
+    if caps[0] <= 40960:
+        raise AssertionError(f"production seg level 0 of {caps[0]} rows: "
+                             "not over 40960, the route is not shown")
+    launches = {}
+    for path, impl in zip(paths, ("auto", "pallas-int8")):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        engine = InferenceEngine(bench_config(pts, caps, conv_impl=impl),
+                                 seed=0)
+        dev = engine.device
+        p = torch.as_tensor(pts, device=dev)
+        c = torch.as_tensor(rgb, device=dev)
+        m = torch.as_tensor(mask, device=dev)
+        extra = {}
+        if impl == "pallas-int8":
+            t = time.perf_counter()
+            engine.calibrate_q8(p, c, m)
+            torch.cuda.synchronize()
+            extra["calibrate_ms"] = 1e3 * (time.perf_counter() - t)
+        engine.predict_batch_arrays(p, c, m)  # warm-up
+        torch.cuda.synchronize()
+        for ctr in counters:
+            ctr.launches = 0
+        with plain_calls() as plain:
+            out = engine.predict_batch_arrays(p, c, m)
+            torch.cuda.synchronize()
+        launches[path] = {ctr.name: ctr.launches for ctr in counters}
+        if plain:
+            raise AssertionError(f"{path}: plain twins called: {plain}")
+        routes, seg0 = check_k3_routes(engine, p, c, m)
+        report = _inference_report(engine, (p, c, m), out, iters)
+        ab = compare_k3_routes(engine, p, c, m, seg0,
+                               impl == "pallas-int8")
+        log(path, batch=int(pts.shape[0]), points=int(pts.shape[1]),
+            seg_caps=list(caps), level_caps=engine.level_caps,
+            k3_tables=engine.k3_tables, k3_routes=routes,
+            launches=launches[path], level0_routes=ab, **extra, **report)
+
+    # icp_refine(use_pallas=True) on the last engine's EE crop
+    seg = engine.seg_stage(p, c, m)
+    ee_pose, _ = engine.pose_stage(*seg[2:5])
+    icp = {}
+    for ctr in counters:
+        ctr.launches = 0
+    kern = icp_refine(engine.template, seg[2], seg[4], ee_pose,
+                      iterations=15, use_pallas=True)
+    torch.cuda.synchronize()
+    launches["icp_pallas"] = {ctr.name: ctr.launches for ctr in counters}
+    if launches["icp_pallas"][nn.NN.name] != 15:
+        raise AssertionError(f"icp_refine(use_pallas=True) launched "
+                             f"{launches['icp_pallas']}")
+    plain_icp = icp_refine(engine.template, seg[2], seg[4], ee_pose,
+                           iterations=15)
+    for name, use in (("kernel", True), ("default", False)):
+        icp[name + "_ms"] = cuda_ms(lambda: icp_refine(
+            engine.template, seg[2], seg[4], ee_pose, iterations=15,
+            use_pallas=use), iters=5, warmup=1)
+    poses = torch.cat([kern, plain_icp])
+    qn = poses[:, 3:].norm(dim=-1)
+    dq = torch.minimum((kern[:, 3:] - plain_icp[:, 3:]).abs().amax(-1),
+                       (kern[:, 3:] + plain_icp[:, 3:]).abs().amax(-1))
+    icp.update(pos_diff=float((kern[:, :3] - plain_icp[:, :3]).abs().max()),
+               quat_diff=float(dq.max()),
+               finite=bool(torch.isfinite(poses).all()),
+               unit=bool(((qn - 1).abs() < 1e-3).all()),
+               ee_count=seg[1].tolist())
+    if not (icp["finite"] and icp["unit"]):
+        raise AssertionError(f"icp_refine(use_pallas=True): {icp}")
+    log("icp_pallas", iterations=15, template_points=1024,
+        launches=launches["icp_pallas"], **icp)
+    return launches
 
 
 def phase_main_path(inputs, caps, counters, iters=12):
@@ -782,7 +1198,8 @@ def _inference_report(engine, inputs, out, iters):
               for k in ("sort_chunk", "sort_global_stage", "conv_sk_kernel",
                         "conv_down_kernel", "conv_up_kernel",
                         "conv_sk_q8_kernel", "conv_down_q8_kernel",
-                        "conv_up_q8_kernel")}
+                        "conv_up_q8_kernel", "rank_kernel",
+                        "conv_k3map_kernel", "conv_k3map_q8_kernel")}
 
     poses = torch.cat([out["ee_pose"], out["kp_pose"]])
     qnorm = poses[:, 3:].norm(dim=-1)
@@ -982,17 +1399,21 @@ def main():
         count=torch.cuda.device_count(), smi=card,
         torch=torch.__version__, cuda=torch.version.cuda)
 
-    from mrcc_tpu_torch.ops import conv, conv_q8, sort
+    from mrcc_tpu_torch.ops import conv, conv_q8, nn, rank, sort
 
     phase_build()
     dev = torch.device("cuda")
     inputs, caps, levels = bench_levels(dev)
+    pinputs, pcaps, plevels = bench_levels(dev, batch=2, points=PROD_POINTS,
+                                           tables=True)
     tlevels = train_levels(train_batch(), dev)
-    records = phase_kernels(levels, tlevels, dev)
+    records = phase_kernels(levels, tlevels, plevels, dev)
     phase_backward(tlevels, dev)
-    del tlevels
+    del tlevels, plevels
     phase_card_vs_cpu()
     phase_int8_card_vs_cpu()
+    phase_int8_card_vs_cpu(k3_self_keyed=False)
+    phase_bf16_routes_on_card()
     phase_train_card_vs_cpu()
     counters = [sort.SORT, conv.SK, conv.DOWN, conv.UP]
     launches, bf16_seg = phase_main_path(inputs, caps, counters)
@@ -1004,6 +1425,12 @@ def main():
     launches["int8"] = phase_int8_main_path(
         inputs, caps, counters + [conv_q8.SK_Q8, conv_q8.DOWN_Q8,
                                   conv_q8.UP_Q8], bf16_seg)
+    torch.cuda.empty_cache()
+    launches.update(phase_production(
+        pinputs, pcaps, counters + [
+            conv_q8.SK_Q8, conv_q8.DOWN_Q8, conv_q8.UP_Q8, rank.RANK,
+            conv.K3MAP, conv_q8.K3MAP_Q8, nn.NN],
+        ("production", "production_int8")))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_by_path")
@@ -1011,6 +1438,9 @@ def main():
         r["launches_by_path"] = {path: n.get(r["kernel"])
                                  for path, n in launches.items()}
         r["launches"] = launches[r["path"]][r["kernel"]]
+        if not r["launches"]:
+            raise AssertionError(f"{r['kernel']} never ran on its path "
+                                 f"{r['path']}: {r['launches_by_path']}")
     print(card, flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}),
           flush=True)

@@ -19,6 +19,12 @@ kernels (``ops/conv_q8.py``), the rotation net stays on the bf16 kernels
 unless ``rot_conv_impl`` asks for int8 too.  ``calibrate_q8`` records each
 conv's activation absmax once; without it every int8 conv quantises with
 the dynamic absmax of its input.
+
+The k3 route of every level follows the JAX engine
+(``sparse.hierarchy.uses_k3_tables``): self-keyed convs where it self-keys,
+else rank-kernel neighbour tables and the k3-table conv, which is where
+``k3_self_keyed`` is False, where the compute dtype is f32, and on levels
+over the TPU's table budget (bf16 over 20480 rows, int8 over 40960).
 """
 
 from __future__ import annotations
@@ -32,12 +38,11 @@ from ..device import resolve_device
 from ..geometry.preprocess import center_at_origin, normalize_colors
 from ..interop import load_jax_variables
 from ..models import RobotNetEncode, RobotNetSegmentation
-from ..ops.conv_q8 import Q8_MAX_ROWS
 from ..solve import (default_template, icp_refine, key_point_predictions,
                      largest_cluster_mask, pose_from_key_points,
                      predict_translation)
 from ..sparse import (build_hierarchy, hierarchy_caps, slice_to_points,
-                      voxelize)
+                      uses_k3_tables, voxelize)
 from ..sparse.nn import init_parameters, q8_calibration, set_q8
 
 # The JAX engine's conv_impl values: every one but "pallas-int8" means the
@@ -78,6 +83,9 @@ class InferenceConfig:
     rot_6d: bool = False
     rot_flip_disambiguation: bool = False
     translation_z_percentile: typing.Optional[float] = None
+    # self-keyed k3 convs where the JAX engine self-keys; False: neighbour
+    # tables (rank kernel + k3-table conv) on every level
+    k3_self_keyed: bool = True
     compute_dtype: str = "bfloat16"  # conv-path compute (f32 accumulation)
     # "pallas-int8": int8 seg / kp convs; rotation follows rot_conv_impl
     # (None: bf16 under int8, the JAX engine's demotion)
@@ -112,8 +120,7 @@ class InferenceConfig:
             if self.compute_dtype != "bfloat16":
                 raise NotImplementedError(
                     "int8 convs with compute_dtype float32: the JAX engine "
-                    "keeps k3 tables there and runs them through the rank "
-                    "kernel, which is not ported yet")
+                    "runs them as f32 tables; not ported")
             cap, override = stages[stage]
             for n in (cap,) + _hierarchy_caps(cap, override):
                 if n % 128:
@@ -121,11 +128,6 @@ class InferenceConfig:
                         f"int8 {stage} level of {n} rows: not a multiple of "
                         "128, where the JAX engine runs some convs as bf16 "
                         "XLA; not ported")
-                if n > Q8_MAX_ROWS:
-                    raise NotImplementedError(
-                        f"int8 {stage} level of {n} rows: over "
-                        f"{Q8_MAX_ROWS}, the JAX engine runs k3 tables "
-                        "(rank kernel, k3-table int8 mode); not ported yet")
 
 
 def q8_stages(cfg: InferenceConfig):
@@ -134,6 +136,15 @@ def q8_stages(cfg: InferenceConfig):
     rot = cfg.rot_conv_impl == "pallas-int8"
     return tuple(s for s, on in (("seg", seg_kp), ("rot", rot),
                                  ("kp", seg_kp)) if on)
+
+
+def _k3_route(cfg: InferenceConfig, stage: str, caps):
+    """Per level of ``stage`` (capacities ``caps``, finest first): True
+    where it takes the k3-table route (``uses_k3_tables`` at the stage's
+    impl; an int8 engine's rotation stage is bf16 unless asked)."""
+    impl = "pallas-int8" if stage in q8_stages(cfg) else "pallas"
+    return tuple(uses_k3_tables(n, impl, cfg.compute_dtype,
+                                cfg.k3_self_keyed) for n in caps)
 
 
 def cluster_capacity(cfg: InferenceConfig) -> int:
@@ -181,6 +192,15 @@ class InferenceEngine:
         on = q8_stages(cfg)
         for stage, model in zip(("seg", "rot", "kp"), self.models().values()):
             set_q8(model, stage in on)
+        self.level_caps = {
+            stage: (cap,) + _hierarchy_caps(cap, override)
+            for stage, cap, override in (
+                ("seg", cfg.seg_voxel_capacity, cfg.seg_hierarchy_caps),
+                ("rot", cfg.ee_voxel_capacity, cfg.ee_hierarchy_caps),
+                ("kp", cfg.kp_voxel_capacity, cfg.kp_hierarchy_caps))}
+        # per stage and level: True where the k3 convs run over tables
+        self.k3_tables = {stage: _k3_route(cfg, stage, caps)
+                          for stage, caps in self.level_caps.items()}
 
     def models(self):
         return {"segmentation": self.seg_model, "rotation": self.rot_model,
@@ -210,6 +230,10 @@ class InferenceEngine:
             self.kp_stage(*ee)
         return self
 
+    def _hierarchy(self, vox, stage):
+        return build_hierarchy(vox, 4, capacities=self.level_caps[stage][1:],
+                               k3_tables=self.k3_tables[stage])
+
     def _tensor(self, x, dtype):
         return torch.as_tensor(x, dtype=dtype, device=self.device)
 
@@ -226,8 +250,7 @@ class InferenceEngine:
                    if cfg.seg_center_at_origin else points)
         svox, spv = voxelize(seg_pts, rgb, mask, 1.0 / cfg.seg_scale,
                              cfg.seg_voxel_capacity)
-        levels = build_hierarchy(svox, 4, capacities=_hierarchy_caps(
-            cfg.seg_voxel_capacity, cfg.seg_hierarchy_caps))
+        levels = self._hierarchy(svox, "seg")
         logits = self.seg_model(svox.feats.to(self.dtype), levels).float()
         pt_logits = slice_to_points(logits, spv, fill_value=-1e9)
         seg = torch.argmax(pt_logits, dim=-1).to(torch.int32)
@@ -255,8 +278,7 @@ class InferenceEngine:
                    if cfg.rot_center_at_origin else ee_pts)
         rvox, _ = voxelize(rot_pts, ee_rgb, ee_valid, 1.0 / cfg.rot_scale,
                            cfg.ee_voxel_capacity)
-        levels = build_hierarchy(rvox, 4, capacities=_hierarchy_caps(
-            cfg.ee_voxel_capacity, cfg.ee_hierarchy_caps))
+        levels = self._hierarchy(rvox, "rot")
         rot_out = self.rot_model(rvox.feats.to(self.dtype), levels).float()
         q = rot_out[:, 3:7]
         pos, _ = predict_translation(ee_pts, ee_valid, q)
@@ -273,8 +295,7 @@ class InferenceEngine:
                   if cfg.kp_center_at_origin else ee_pts)
         kvox, kpv = voxelize(kp_pts, ee_rgb, ee_valid, 1.0 / cfg.kp_scale,
                              cfg.kp_voxel_capacity)
-        levels = build_hierarchy(kvox, 4, capacities=_hierarchy_caps(
-            cfg.kp_voxel_capacity, cfg.kp_hierarchy_caps))
+        levels = self._hierarchy(kvox, "kp")
         logits = self.kp_model(kvox.feats.to(self.dtype), levels).float()
         pt_logits = slice_to_points(logits, kpv, fill_value=-1e9)
         kp_idx, kp_found, kp_conf = key_point_predictions(

@@ -5,8 +5,12 @@ self-keyed k=3 s=1 conv that resolves neighbours from the level's sorted
 keys and per-row validity bitmap, with no neighbour tables.
 
 K3 (``csrc/conv_map.cu``) replaces ``conv_pallas._gather_gemm_call`` in its
-k2-down and broadcast-k up modes: convs over the explicit stride-2 maps
-that ``build_hierarchy`` scatters.
+k2-down and broadcast-k up modes, convs over the explicit stride-2 maps
+that ``build_hierarchy`` scatters, and in its k3-table mode
+(:func:`gather_gemm_k3_map`), the k=3 s=1 conv over the rank kernel's
+neighbour tables; reading global memory at any N, it also stands in for
+``conv_pallas._gather_gemm_call_hbm``.  The k3-table conv is inference
+only (the trainer's levels stay self-keyed).
 
 The weight gradients: ``csrc/conv_dw_sk.cu`` (:func:`dw_sk`) replaces
 ``conv_pallas._dw_call_sk`` and ``csrc/conv_dw_map.cu`` (:func:`dw_down`,
@@ -28,10 +32,9 @@ from __future__ import annotations
 
 import torch
 
-from ..sparse.hierarchy import K3_OFFSETS, pack_deltas
+from ..sparse.hierarchy import K3_DELTAS as _K3_DELTAS
 from .build import I, KernelLibrary, LaunchCounter, P, ptr, stream_ptr
 
-_K3_DELTAS = tuple(int(d) for d in pack_deltas(K3_OFFSETS))
 # The k3 data cotangent is the same self-keyed conv with W[26 - k]^T: a hit
 # (i, k) exists iff the hit (i + delta_k, 26 - k) does.
 if any(_K3_DELTAS[26 - k] != -d for k, d in enumerate(_K3_DELTAS)):
@@ -46,6 +49,8 @@ MAP_LIB = KernelLibrary("conv_map", {
     "mrcc_conv_down_bf16": (P, P, P, P, P, I, I, I, I, I, P),
     "mrcc_conv_up_f32": (P, P, P, P, P, P, I, I, I, I, I, P),
     "mrcc_conv_up_bf16": (P, P, P, P, P, P, I, I, I, I, I, P),
+    "mrcc_conv_k3map_f32": (P, P, P, P, P, I, I, I, I, P),
+    "mrcc_conv_k3map_bf16": (P, P, P, P, P, I, I, I, I, P),
 })
 DW_SK_LIB = KernelLibrary("conv_dw_sk", {
     "mrcc_dw_sk_f32": (P, P, P, P, P, P, I, I, I, I, I, P),
@@ -61,6 +66,7 @@ LIBRARIES = (SK_LIB, MAP_LIB, DW_SK_LIB, DW_MAP_LIB)
 SK = LaunchCounter("conv_sk")
 DOWN = LaunchCounter("conv_down")
 UP = LaunchCounter("conv_up")
+K3MAP = LaunchCounter("conv_k3map")
 DW_SK = LaunchCounter("dw_sk")
 DW_DOWN = LaunchCounter("dw_down")
 DW_UP = LaunchCounter("dw_up")
@@ -201,18 +207,23 @@ def gather_gemm_sk(feats, weights, key, kbits):
 
 # ------------------------------------------------------------------- K3
 
-def gather_gemm_down_plain(feats, weights, child_idx, child_hit):
-    """Plain twin of :func:`gather_gemm_down`."""
+def _map_conv(feats, weights, map_idx, map_hit):
+    """``sum_k map_hit[k] * feats[map_idx[k]] @ W[k]`` in f32, cast back."""
     b = feats.shape[0]
-    n_out = child_idx.shape[2]
+    n_out = map_idx.shape[2]
     f = feats.float()
     w = weights.to(feats.dtype).float()
     out = torch.zeros((b, n_out, weights.shape[-1]), dtype=torch.float32,
                       device=feats.device)
     for k in range(weights.shape[0]):
-        g = torch.where(child_hit[k][..., None], _gather(f, child_idx[k]), 0.0)
+        g = torch.where(map_hit[k][..., None], _gather(f, map_idx[k]), 0.0)
         out = out + g @ w[k]
     return out.to(feats.dtype)
+
+
+def gather_gemm_down_plain(feats, weights, child_idx, child_hit):
+    """Plain twin of :func:`gather_gemm_down`."""
+    return _map_conv(feats, weights, child_idx, child_hit)
 
 
 def gather_gemm_down(feats, weights, child_idx, child_hit):
@@ -241,6 +252,41 @@ def gather_gemm_down(feats, weights, child_idx, child_hit):
                  ptr(weights), ptr(child_idx), ptr(child_hit), ptr(out), b,
                  n_in, n_out, cin, cout, stream_ptr(feats))
     DOWN.launches += 1
+    return out
+
+
+def gather_gemm_k3_map_plain(feats, weights, nbr_idx, nbr_hit):
+    """Plain twin of :func:`gather_gemm_k3_map` (the JAX ``"xla"``
+    ``conv_kernel_map``)."""
+    return _map_conv(feats, weights, nbr_idx, nbr_hit)
+
+
+def gather_gemm_k3_map(feats, weights, nbr_idx, nbr_hit):
+    """k=3 s=1 conv over a level's neighbour tables (inference).
+
+    ``out[b, i] = sum_k nbr_hit[k, b, i] * feats[b, nbr_idx[k, b, i]] @ W[k]``
+
+    Args:
+      feats: [B, N, Cin] f32/bf16; weights: [27, Cin, Cout] same dtype.
+      nbr_idx: int32 [27, B, N]; nbr_hit: bool [27, B, N]
+        (``sparse.hierarchy.neighbor_tables``).
+    Returns [B, N, Cout] in the feature dtype (f32 accumulation).
+    """
+    if not _route(feats, weights, nbr_idx, nbr_hit):
+        return gather_gemm_k3_map_plain(feats, weights, nbr_idx, nbr_hit)
+    _check("gather_gemm_k3_map", feats, weights, 27,
+           ((nbr_idx, torch.int32), (nbr_hit, torch.bool)))
+    b, n, _ = feats.shape
+    cout = weights.shape[-1]
+    if nbr_idx.shape != (27, b, n) or nbr_hit.shape != (27, b, n):
+        raise ValueError("gather_gemm_k3_map: tables must be [27, B, N]")
+    feats, weights = feats.contiguous(), weights.contiguous()
+    nbr_idx, nbr_hit = nbr_idx.contiguous(), nbr_hit.contiguous()
+    out = torch.empty((b, n, cout), dtype=feats.dtype, device=feats.device)
+    MAP_LIB.call(f"mrcc_conv_k3map_{_SUFFIX[feats.dtype]}", ptr(feats),
+                 ptr(weights), ptr(nbr_idx), ptr(nbr_hit), ptr(out), b, n,
+                 feats.shape[-1], cout, stream_ptr(feats))
+    K3MAP.launches += 1
     return out
 
 

@@ -3,10 +3,11 @@
 ``csrc/conv_sk_q8.cu`` (:func:`gather_gemm_sk_q8`) replaces
 ``conv_pallas._gather_gemm_call_sk_q8``: the self-keyed k=3 s=1 conv of K2
 in int8.  ``csrc/conv_map_q8.cu`` (:func:`gather_gemm_down_q8`,
-:func:`gather_gemm_up_q8`) replaces ``conv_pallas._gather_gemm_call_q8`` in
-its k2-down and broadcast-k up modes, over K3's maps; it reads global
-memory at any N, so it also stands in for the streamed int8 variant of
-``_gather_gemm_call_hbm``.
+:func:`gather_gemm_up_q8`, :func:`gather_gemm_k3_map_q8`) replaces
+``conv_pallas._gather_gemm_call_q8`` in its k2-down, broadcast-k up and
+k3-table modes, over K3's maps and the rank kernel's neighbour tables; it
+reads global memory at any N, so it also stands in for the streamed int8
+variant of ``_gather_gemm_call_hbm``.
 
 The function is the JAX wrappers' (``gather_gemm_conv_sk_q8``,
 ``gather_gemm_conv_tiled_q8``, ``gather_gemm_conv_streamed(q8=True)``), the
@@ -44,6 +45,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..sparse.hierarchy import TABLE_BUDGET as _TABLE_BUDGET
 from .build import I, KernelLibrary, LaunchCounter, P, ptr, stream_ptr
 from .conv import _K3_DELTAS, _gather, _route, _sk_neighbours
 
@@ -56,16 +58,18 @@ MAP_Q8_LIB = KernelLibrary("conv_map_q8", {
     "mrcc_conv_down_q8_bf16": (P, P, P, P, P, P, I, I, I, I, I, I, I, P),
     "mrcc_conv_up_q8_f32": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, P),
     "mrcc_conv_up_q8_bf16": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, P),
+    "mrcc_conv_k3map_q8_f32": (P, P, P, P, P, P, I, I, I, I, I, I, P),
+    "mrcc_conv_k3map_q8_bf16": (P, P, P, P, P, P, I, I, I, I, I, I, P),
 })
 LIBRARIES = (SK_Q8_LIB, MAP_Q8_LIB)
 SK_Q8 = LaunchCounter("conv_sk_q8")
 DOWN_Q8 = LaunchCounter("conv_down_q8")
 UP_Q8 = LaunchCounter("conv_up_q8")
+K3MAP_Q8 = LaunchCounter("conv_k3map_q8")
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
-# The JAX wrappers' table budget (5 MiB) and int8 k-lane cap (2 * 3456).
-_TABLE_BUDGET = 5 * 1024 * 1024
+# The JAX wrappers' int8 k-lane cap (2 * 3456).
 _KG_LANES_Q8 = 2 * 3456
 # Largest level an int8 table of 128 lanes fits: 40960 rows.
 Q8_MAX_ROWS = _TABLE_BUDGET // 128
@@ -75,41 +79,59 @@ def _lanes(c: int) -> int:
     return max(128, -(-c // 128) * 128)
 
 
+def _split_width(n: int, cin: int, k: int) -> int:
+    """Group width of ``_split_plan(n, cin, k, kp, itemsize=1)`` in its
+    interpret branch, unpacked: the k-lane cap ``6912 // k`` rounded down
+    to 128 (at least 128) where ``k * cin > 6912``, then the table budget:
+    ``(5 MiB // n)`` rounded down to 128 (at least 128) where
+    ``n * round_up(width, 128) > 5 MiB``."""
+    width = cin
+    if k * width > _KG_LANES_Q8:
+        width = min(width, max(128, (_KG_LANES_Q8 // k) // 128 * 128))
+    if n * _lanes(width) > _TABLE_BUDGET:
+        width = min(width, max(128, (_TABLE_BUDGET // n) // 128 * 128))
+    return width
+
+
 def q8_channel_groups(mode: str, n: int, cin: int):
     """Channel groups ``((start, end), ...)`` of one int8 conv.
 
     They define the quantisation groups (each group has its own weight
     scales and its own rounding to the feature dtype), not a tiling: the
     JAX wrappers' plan on the CPU, where no lane padding or packing applies.
+    ``n`` is the rows of the conv's INPUT table.
 
     - ``"k3"`` (``_sk_plan``, pack 1): groups of ``min(round_up(cin, 128),
-      128)`` channels; levels over 40960 rows need lane packing and raise.
-    - ``"down"`` / ``"up"`` (``_split_plan(n, cin, 8, 8, itemsize=1)``, n
-      the rows of the INPUT table): the k-lane cap ``6912 // 8`` rounded
-      down to 128 applies above 864 channels; a table over the 5 MiB budget
-      (``n * round_up(c_g, 128)``) splits into groups of
-      ``(5 MiB // n)`` rounded down to 128, at least 128.  A down conv whose
+      128)`` channels; levels over 40960 rows need lane packing and raise
+      (the route sends them to ``"k3_table"``).
+    - ``"down"`` / ``"up"`` (:func:`_split_width` with k = 8: above 864
+      channels the k-lane cap splits them 768 + ...).  A down conv whose
       128-lane table is over the budget runs the streamed wrapper:
-      128-channel groups.  An up conv there needs lane packing and raises.
+      128-channel groups.  An up conv there runs ``_split_plan``'s
+      lane-packed plan: the smallest pack p of (2, 4) whose packed table
+      fits (``n % (32 p) == 0``, ``(n / p) * 128 <= 5 MiB``) and groups of
+      ``128 / p`` channels; no such p raises.
+    - ``"k3_table"`` (``gather_gemm_conv_tiled_q8`` over a 27-offset
+      table): over the budget (n > 40960) the streamed wrapper's
+      128-channel groups, else :func:`_split_width` with k = 27, whose
+      k-lane cap is 256 channels (384 split 256 + 128).
     """
+    over = n * 128 > _TABLE_BUDGET
     if mode == "k3":
-        if n > Q8_MAX_ROWS:
+        if over:
             raise ValueError(f"int8 k3 conv over {n} rows: levels over "
                              f"{Q8_MAX_ROWS} rows need lane packing")
         width = min(_lanes(cin), 128)
-    elif mode in ("down", "up"):
-        if n * 128 > _TABLE_BUDGET:
-            if mode == "up":
-                raise ValueError(f"int8 up conv over a {n}-row table: "
-                                 "needs lane packing")
-            width = min(_lanes(cin), 128)
-        else:
-            width = cin
-            if 8 * width > _KG_LANES_Q8:
-                width = min(width, max(128, (_KG_LANES_Q8 // 8) // 128 * 128))
-            if n * _lanes(width) > _TABLE_BUDGET:
-                width = min(width, max(128,
-                                       (_TABLE_BUDGET // n) // 128 * 128))
+    elif over and mode == "up":
+        packs = [p for p in (2, 4) if n % (32 * p) == 0 and n // p >= 128
+                 and (n // p) * 128 <= _TABLE_BUDGET]
+        if not packs:
+            raise ValueError(f"int8 up conv over a {n}-row table: no lane "
+                             "pack fits the table budget")
+        width = 128 // packs[0]
+    elif mode in ("down", "up", "k3_table"):
+        width = (min(_lanes(cin), 128) if over
+                 else _split_width(n, cin, 27 if mode == "k3_table" else 8))
     else:
         raise ValueError(f"q8_channel_groups: mode {mode!r}")
     return tuple((a, min(a + width, cin)) for a in range(0, cin, width))
@@ -252,23 +274,30 @@ def gather_gemm_sk_q8(feats, weights, key, kbits, act_absmax=None):
 
 # ------------------------------------------------------------------- B7
 
-def gather_gemm_down_q8_plain(feats, weights, child_idx, child_hit,
-                              act_absmax=None):
-    """Plain twin of :func:`gather_gemm_down_q8`."""
+def _map_conv_q8(mode, feats, weights, map_idx, map_hit, act_absmax):
+    """The int8 conv over a K-offset map (down or k3 table), as the plain
+    twins compute it."""
     b, n_in, _ = feats.shape
-    n_out = child_idx.shape[2]
-    groups, q, wq, m = _quantize("down", feats, weights, n_in, act_absmax)
+    n_out = map_idx.shape[2]
+    groups, q, wq, m = _quantize(mode, feats, weights, n_in, act_absmax)
     qd, wd = q.double(), wq.double()
     parts = []
     for gi, (a, c) in enumerate(groups):
         acc = torch.zeros((b, n_out, wq.shape[-1]), dtype=torch.float64,
                           device=feats.device)
-        for k in range(8):
-            g = torch.where(child_hit[k][..., None],
-                            _gather(qd[..., a:c], child_idx[k]), 0.0)
+        for k in range(wq.shape[0]):
+            g = torch.where(map_hit[k][..., None],
+                            _gather(qd[..., a:c], map_idx[k]), 0.0)
             acc = acc + g @ wd[k, a:c]
         parts.append((acc, m[gi]))
     return _dequant_sum(parts, feats.dtype)
+
+
+def gather_gemm_down_q8_plain(feats, weights, child_idx, child_hit,
+                              act_absmax=None):
+    """Plain twin of :func:`gather_gemm_down_q8`."""
+    return _map_conv_q8("down", feats, weights, child_idx, child_hit,
+                        act_absmax)
 
 
 def gather_gemm_down_q8(feats, weights, child_idx, child_hit,
@@ -357,4 +386,42 @@ def gather_gemm_up_q8(feats, weights, parent_idx, row_ok, octant,
                     ptr(out), b, n_in, n_out, cw, cout, gw, ng,
                     stream_ptr(feats))
     UP_Q8.launches += 1
+    return out
+
+
+def gather_gemm_k3_map_q8_plain(feats, weights, nbr_idx, nbr_hit,
+                                act_absmax=None):
+    """Plain twin of :func:`gather_gemm_k3_map_q8`."""
+    return _map_conv_q8("k3_table", feats, weights, nbr_idx, nbr_hit,
+                        act_absmax)
+
+
+def gather_gemm_k3_map_q8(feats, weights, nbr_idx, nbr_hit, act_absmax=None):
+    """int8 k=3 s=1 conv over a level's neighbour tables
+    (``conv.gather_gemm_k3_map``), in the channel groups of
+    ``q8_channel_groups("k3_table", N, Cin)``.
+
+    Args:
+      feats: [B, N, Cin] f32/bf16; weights: [27, Cin, Cout] f32.
+      nbr_idx: int32 [27, B, N]; nbr_hit: bool [27, B, N].
+      act_absmax: optional calibrated [Cin] f32.
+    Returns [B, N, Cout] in the feature dtype.
+    """
+    if not _route(feats, weights, nbr_idx, nbr_hit):
+        return gather_gemm_k3_map_q8_plain(feats, weights, nbr_idx, nbr_hit,
+                                           act_absmax)
+    _check("gather_gemm_k3_map_q8", feats, weights, 27,
+           ((nbr_idx, torch.int32), (nbr_hit, torch.bool)))
+    b, n, _ = feats.shape
+    if nbr_idx.shape != (27, b, n) or nbr_hit.shape != (27, b, n):
+        raise ValueError("gather_gemm_k3_map_q8: tables must be [27, B, N]")
+    groups, q, wq, m = _quantize("k3_table", feats, weights, n, act_absmax)
+    q, w32, m, cw, gw, ng = _kernel_operands(q, wq, m, groups)
+    cout = w32.shape[-1]
+    out = torch.empty((b, n, cout), dtype=feats.dtype, device=feats.device)
+    MAP_Q8_LIB.call(f"mrcc_conv_k3map_q8_{_SUFFIX[feats.dtype]}", ptr(q),
+                    ptr(w32), ptr(m), ptr(nbr_idx.contiguous()),
+                    ptr(nbr_hit.contiguous()), ptr(out), b, n, cw, cout, gw,
+                    ng, stream_ptr(feats))
+    K3MAP_Q8.launches += 1
     return out

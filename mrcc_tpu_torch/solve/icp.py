@@ -3,6 +3,9 @@
 A fixed number of iterations of brute-force nearest neighbour (one
 distance-matrix product) then a trimmed Kabsch.  The template is the
 synthetic EE surface with the reference's x > 0 visibility mask.
+``use_pallas=True`` finds the neighbours with the nearest-neighbour kernel
+(``ops/nn.py``, the JAX ``nn_search_pallas`` route); the engine keeps the
+default, as the JAX engine does.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import torch
 from ..data.synthetic import ee_template_points
 from ..geometry.kabsch import kabsch
 from ..geometry.transform import matrix_to_pose, pose_to_matrix
+from ..ops.nn import nn_search
 
 
 def default_template(n=2048, seed=7):
@@ -42,22 +46,34 @@ def _nn_correspondences(src, target, target_mask):
     return match, torch.sqrt(torch.clamp_min(dmin, 0.0))
 
 
+def _nn_kernel_correspondences(src, target, target_mask):
+    """:func:`_nn_correspondences` through the nearest-neighbour kernel:
+    ``dist = sqrt(max(d2, 0))`` of its own ``d2``."""
+    idx, d2 = nn_search(src, target, target_mask)
+    match = target.gather(1, idx.long()[..., None].expand(-1, -1, 3))
+    return match, torch.sqrt(torch.clamp_min(d2, 0.0))
+
+
 def icp_refine(template, ee_points, ee_mask, init_pose, iterations=30,
-               threshold=0.1):
+               threshold=0.1, use_pallas=False):
     """Refine ``init_pose [B, 7]`` so the template [M, 3] (EE frame) matches
     the observed points ``ee_points [B, N, 3]`` (mask [B, N]).
 
     Correspondences beyond ``threshold`` are dropped; an iteration with at
     most 3 kept matches keeps the previous transform.  Items with at most 3
-    valid points return ``init_pose``.
+    valid points return ``init_pose``.  ``use_pallas``: nearest neighbours
+    through the kernel (:func:`ops.nn.nn_search`) instead of the plain
+    distance matrix.
     """
+    correspondences = (_nn_kernel_correspondences if use_pallas
+                       else _nn_correspondences)
     b = ee_points.shape[0]
     init_mat = pose_to_matrix(init_pose)
     r, t = init_mat[:, :3, :3], init_mat[:, :3, 3]
     tmpl = template.expand(b, -1, -1)
     for _ in range(iterations):
         src = torch.matmul(tmpl, r.transpose(1, 2)) + t[:, None, :]
-        match, dist = _nn_correspondences(src, ee_points, ee_mask)
+        match, dist = correspondences(src, ee_points, ee_mask)
         w = (dist < threshold).to(template.dtype)
         keep = w.sum(dim=-1) > 3
         r_new, t_new = kabsch(tmpl, match,

@@ -4,12 +4,15 @@
 Weight layout ``[K, Cin, Cout]`` with K = 27 (k=3 s=1), 8 (k=2 s=2) or 1.
 Convs compute in the feature dtype with f32 accumulation; the bias is added
 outside the kernel in the feature dtype and padding rows are zeroed, as in
-``_with_bias``.  k=3 convs always run the self-keyed kernel on the card, at
-any N: the TPU's VMEM gate has no meaning there.  The k3, down and up convs
-are differentiable through the autograd Functions of ``ops/conv.py``, whose
+``_with_bias``.  A k=3 conv runs on the route its level carries: over the
+level's neighbour tables (``nbr_idx``/``nbr_hit``, built where
+``hierarchy.uses_k3_tables`` says the JAX engine builds them) through the
+k3-table conv, else the self-keyed kernel; both run at any N.  The table
+route is inference only.  The self-keyed k3, down and up convs are
+differentiable through the autograd Functions of ``ops/conv.py``, whose
 backward passes run the same kernels over the reverse maps and the dW
 kernels; where autograd records nothing (inference under ``no_grad``) they
-call the forward wrappers directly.  ``q8=True`` routes the three to the
+call the forward wrappers directly.  ``q8=True`` routes the convs to the
 int8 wrappers of ``ops/conv_q8.py`` (inference only), quantising with the
 calibrated ``act_absmax`` when one is given, else the dynamic absmax.
 """
@@ -19,9 +22,9 @@ from __future__ import annotations
 import torch
 
 from ..ops.conv import (DownConvFn, SkConvFn, UpConvFn, gather_gemm_down,
-                        gather_gemm_sk, gather_gemm_up)
-from ..ops.conv_q8 import (gather_gemm_down_q8, gather_gemm_sk_q8,
-                           gather_gemm_up_q8)
+                        gather_gemm_k3_map, gather_gemm_sk, gather_gemm_up)
+from ..ops.conv_q8 import (gather_gemm_down_q8, gather_gemm_k3_map_q8,
+                           gather_gemm_sk_q8, gather_gemm_up_q8)
 
 
 def _with_bias(out, bias, valid):
@@ -36,12 +39,23 @@ def _recorded(feats, weights):
 
 
 def conv_k3(feats, weights, level, bias=None, q8=False, act_absmax=None):
-    """k=3 s=1 submanifold conv on one level (K2; B6 with ``q8``)."""
+    """k=3 s=1 submanifold conv on one level: the k3-table conv (K3, B7)
+    where the level carries tables, else the self-keyed one (K2; B6 with
+    ``q8``)."""
+    tables = level.nbr_idx is not None
     if q8:
-        out = gather_gemm_sk_q8(feats, weights, level.key, level.kbits,
-                                act_absmax)
+        out = (gather_gemm_k3_map_q8(feats, weights, level.nbr_idx,
+                                     level.nbr_hit, act_absmax) if tables
+               else gather_gemm_sk_q8(feats, weights, level.key, level.kbits,
+                                      act_absmax))
         return _with_bias(out, bias, level.valid)
     w = weights.to(feats.dtype)
+    if tables:
+        if _recorded(feats, w):
+            raise NotImplementedError("k3-table convs are inference only: "
+                                      "build training levels self-keyed")
+        out = gather_gemm_k3_map(feats, w, level.nbr_idx, level.nbr_hit)
+        return _with_bias(out, bias, level.valid)
     if _recorded(feats, w):
         out = SkConvFn.apply(feats, w, level.key, level.kbits, level.valid)
     else:

@@ -9,8 +9,11 @@ voxelize with labels and ``build_hierarchy`` outside autograd, the model
 in train mode (batch statistics), the loss, the backward pass (the sparse
 convs' autograd Functions run the forward kernels over the reverse maps
 and the dW kernels), and the optimizer step at the epoch's learning rate.
-Metrics stay on the device until the epoch ends.  There is one conv route:
-the JAX ``conv_impl`` / ``k3_self_keyed`` options have no counterpart.
+Metrics stay on the device until the epoch ends.  Training keeps the
+self-keyed k3 route on every level, as the JAX step does at the training
+capacities: the k3-table route (``k3_self_keyed=False`` of the inference
+engine) and the int8 convs are inference only, so the JAX ``conv_impl`` /
+``k3_self_keyed`` options have no counterpart here.
 
 The step runs on the card unless ``device="cpu"`` is passed, and raises
 where there is none.

@@ -12,15 +12,22 @@ twin to 2e-2; the int8 convs agree with their plain twins to 1 ulp of the
 output type elementwise (their int32 sums are exact) and with the f32
 plain conv to 3e-2.  The dW kernels are deterministic (no float atomics): two
 launches give the same bits.  The autograd Functions' backward on the card
-agrees with autograd through the plain forward twins to 1e-5.
+agrees with autograd through the plain forward twins to 1e-5.  The rank
+kernel equals its plain twin exactly; the k3-table convs hold the conv
+tolerances above; the nearest-neighbour kernel's d2 is within 1e-5 of its
+twin and its indices equal except at near-ties (the two smallest d2 of a
+row within 1e-6 of |a|^2, the scale of the f32 rounding of
+|a|^2 - 2ab + |b|^2).
 """
 
 import pytest
 import torch
 
 from mrcc_tpu_torch.data.synthetic import build_batch
-from mrcc_tpu_torch.ops import conv, conv_q8, sort
-from mrcc_tpu_torch.sparse import KEY_PAD, build_hierarchy, voxelize
+from mrcc_tpu_torch.ops import conv, conv_q8, nn, rank, sort
+from mrcc_tpu_torch.sparse import (KEY_PAD, build_hierarchy, neighbor_tables,
+                                   voxelize)
+from mrcc_tpu_torch.sparse.hierarchy import K3_DELTAS
 
 pytestmark = pytest.mark.gpu
 
@@ -284,6 +291,21 @@ def test_conv_down_q8_table_split(cuda, big_levels):
               (coarse.child_idx, coarse.child_hit))
 
 
+def test_conv_up_q8_lane_packed_groups(cuda, levels, monkeypatch):
+    """An up conv from a table over the (shrunk) budget: 64-channel
+    groups, as the JAX wrapper's lane-packed plan."""
+    fine, coarse = levels[1], levels[2]
+    n = coarse.key.shape[1]
+    monkeypatch.setattr(conv_q8, "_TABLE_BUDGET", n * 64)
+    assert conv_q8.q8_channel_groups("up", n, 160) == ((0, 64), (64, 128),
+                                                       (128, 160))
+    _check_q8(conv_q8.gather_gemm_up_q8, conv_q8.gather_gemm_up_q8_plain,
+              conv_q8.UP_Q8, conv.gather_gemm_up_plain,
+              _feats(coarse, 160, torch.bfloat16),
+              torch.randn((8, 160, 40), device=cuda) / 9,
+              (fine.parent_idx, fine.row_ok, fine.octant))
+
+
 def test_conv_q8_rejects(cuda, levels):
     lv = levels[0]
     w = torch.zeros((27, 8, 8), device=cuda)
@@ -297,3 +319,81 @@ def test_conv_q8_rejects(cuda, levels):
         conv_q8.gather_gemm_down_q8(_feats(lv, 8, torch.float64),
                                     w[:8].double(), levels[1].child_idx,
                                     levels[1].child_hit)
+
+
+# ------------------------------------------------------- k3 tables, ICP
+
+
+@pytest.mark.parametrize("n,nq", [(1, 5), (300, 300), (4096, 1000),
+                                  (72448, 72448)])
+def test_rank_exact(cuda, n, nq):
+    """Unique keys, repeated KEY_PAD padding and KEY_PAD query bases."""
+    gen = torch.Generator().manual_seed(n)
+    keys = torch.randperm(1 << 22, generator=gen)[:n].sort().values
+    keys = keys.to(torch.int32)
+    keys[int(0.8 * n):] = KEY_PAD
+    qbase = keys[torch.randint(0, n, (nq,), generator=gen)].sort().values
+    qbase = qbase + torch.randint(-1, 2, (nq,), generator=gen,
+                                  dtype=torch.int32)
+    qbase[int(0.9 * nq):] = KEY_PAD
+    qbits = torch.randint(-(1 << 31), 1 << 31, (2, nq), generator=gen,
+                          dtype=torch.int64).to(torch.int32)
+    args = (torch.stack([keys, keys.flip(0).sort().values]).to(cuda),
+            torch.stack([qbase, qbase]).to(cuda), qbits.to(cuda))
+    for deltas in (K3_DELTAS, (0, 1, 2, 3, 7, -5)):
+        want = rank.rank_lookup_plain(args[0], args[1], deltas, args[2])
+        before = rank.RANK.launches
+        got = rank.rank_lookup(args[0], args[1], deltas, args[2])
+        assert rank.RANK.launches == before + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("cin,cout", [(3, 32), (48, 64), (130, 70)])
+@pytest.mark.parametrize("l", [0, 3])
+def test_conv_k3_map(cuda, levels, l, cin, cout):
+    lv = levels[l]
+    idx, hit = neighbor_tables(lv)
+    f = _feats(lv, cin)
+    w = torch.randn((27, cin, cout), device=cuda) / 9
+    want = conv.gather_gemm_sk_plain(f, w, lv.key, lv.kbits)
+    assert _rel(conv.gather_gemm_k3_map_plain(f, w, idx, hit), want) <= 1e-6
+    before = conv.K3MAP.launches
+    got = conv.gather_gemm_k3_map(f, w, idx, hit)
+    assert conv.K3MAP.launches == before + 1
+    assert _rel(got, want) <= 1e-5
+    got16 = conv.gather_gemm_k3_map(f.bfloat16(), w.bfloat16(), idx, hit)
+    assert got16.dtype == torch.bfloat16 and _rel(got16, want) <= 2e-2
+
+
+@pytest.mark.parametrize("cin,cout", [(3, 32), (48, 64), (384, 40)])
+def test_conv_k3_map_q8(cuda, levels, cin, cout):
+    """384 channels split 256 + 128 (the int8 k-lane cap of 27 offsets)."""
+    lv = levels[0]
+    idx, hit = neighbor_tables(lv)
+    assert len(conv_q8.q8_channel_groups("k3_table", lv.key.shape[1],
+                                         cin)) == (2 if cin == 384 else 1)
+    _check_q8(conv_q8.gather_gemm_k3_map_q8,
+              conv_q8.gather_gemm_k3_map_q8_plain, conv_q8.K3MAP_Q8,
+              conv.gather_gemm_k3_map_plain, _feats(lv, cin, torch.bfloat16),
+              torch.randn((27, cin, cout), device=cuda) / 9, (idx, hit))
+
+
+@pytest.mark.parametrize("b,m,n", [(2, 256, 512), (3, 100, 1500)])
+def test_nn_search(cuda, b, m, n):
+    gen = torch.Generator().manual_seed(m)
+    tmpl = (torch.randn((b, m, 3), generator=gen) * 0.1 + 1).to(cuda)
+    tgt = (torch.randn((b, n, 3), generator=gen) * 0.1 + 1).to(cuda)
+    mask = (torch.rand((b, n), generator=gen) > 0.3).to(cuda)
+    before = nn.NN.launches
+    idx, d2 = nn.nn_search(tmpl, tgt, mask)
+    assert nn.NN.launches == before + 1
+    w_idx, w_d2 = nn.nn_search_plain(tmpl, tgt, mask)
+    assert float((d2 - w_d2).abs().max()) <= 1e-5
+    sqs = (tmpl * tmpl).sum(-1)
+    full = sqs[..., None] - 2 * torch.bmm(tmpl, tgt.transpose(1, 2)) + (
+        tgt * tgt).sum(-1)[:, None]
+    two = torch.where(mask[:, None], full, float("inf")).topk(
+        2, dim=-1, largest=False).values
+    tie = (two[..., 1] - two[..., 0]) <= 1e-6 * sqs
+    assert not bool(((idx != w_idx) & ~tie).any())
+    assert bool(mask.gather(1, idx.long()).all())
