@@ -5,13 +5,17 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper card:
     python3 chip_smoke.py
 
 The main paths: bf16 inference (``InferenceEngine.predict_batch_arrays``),
-segmentation training (``make_segmentation_train_step``), int8 inference
-(``conv_impl="pallas-int8"``: ``calibrate_q8``, then
-``predict_batch_arrays``), production-scale inference in bf16 and int8
-(B = 2 clouds of 131072 points, whose large levels take the k3-table
-route: rank-kernel tables and the k3-table convs), and
-``icp_refine(use_pallas=True)`` (the nearest-neighbour kernel).  Phases,
-each printing one line (any failure exits non-zero before the last line):
+segmentation training (``make_segmentation_train_step``) on the self-keyed
+route and on the k3-table route, int8 inference (``conv_impl=
+"pallas-int8"``: ``calibrate_q8``, then ``predict_batch_arrays``),
+production-scale inference in bf16 and int8 (B = 2 clouds of 131072
+points, whose large levels take the k3-table route: rank-kernel tables and
+the k3-table convs), ``icp_refine(use_pallas=True)`` (the
+nearest-neighbour kernel), scene-scale segmentation training (its large
+levels on tables: the table conv's autograd Function and the k3-table dW
+kernel) and pose training (``make_pose_train_step``).  Phases, each
+printing one line and its wall time (any failure exits non-zero before the
+last line):
 
 1. device: name, count, ``nvidia-smi`` name and power limit;
 2. build: compile the kernels of ``mrcc_tpu_torch/csrc`` (one nvcc per
@@ -22,12 +26,15 @@ each printing one line (any failure exits non-zero before the last line):
    the unquantised f32 plain conv), timed with CUDA events: the forward
    kernels at the inference shapes in bf16, the int8 ones at the int8
    path's shapes (the seg net's, one split into channel groups), the dW
-   kernels at the training shapes in f32, the rank kernel (exact) and the
-   k3-table convs at the production levels' shapes, the int8 one also at a
-   two-group resident shape, the nearest-neighbour kernel (d2 1e-5, indices
-   equal but for near-ties: the two smallest d2 within 1e-6 of |a|^2);
-   then the backward of each autograd conv Function on the card against
-   autograd through the plain twins on the card (f32, 1e-5);
+   kernels at the training shapes in f32 (the k3-table dW at the K2 dW's
+   shapes on tables and at the scene-scale level 0), the rank kernel
+   (exact) and the k3-table convs at the production levels' shapes and at
+   the widest f32 training shape, the int8 one also at a two-group
+   resident shape, the nearest-neighbour kernel (d2 1e-5, indices equal
+   but for near-ties: the two smallest d2 within 1e-6 of |a|^2); then the
+   backward of each autograd conv Function (the self-keyed and the table
+   k3 convs, down, up) on the card against autograd through the plain
+   twins on the card (f32, 1e-5);
 4. the inference slice on the card vs on the CPU: one engine pair with the
    same weights, f32 (the k3-table route on every level), small size
    (integer outputs exact, poses 1e-3); int8 pairs with the same weights
@@ -35,9 +42,12 @@ each printing one line (any failure exits non-zero before the last line):
    ``k3_self_keyed=False`` (seg labels equal on >= 99.5 % of points); and
    on the card, bf16 with ``k3_self_keyed=False`` against the self-keyed
    route, same weights (seg labels >= 99.5 %, bit-equality reported);
-5. one train step on the card vs on the CPU: minkunet14A, B=2, f32, same
-   weights and batch (loss 1e-5, gradients 1e-4 and the update 1e-3 in
-   relative norm, BN statistics 1e-5);
+5. train steps on the card vs on the CPU from the same weights and batch,
+   f32: minkunet14A segmentation, B=2, self-keyed and with
+   ``k3_self_keyed=False`` (loss 1e-5, gradients 1e-4 and the update 1e-3
+   in relative norm, BN statistics 1e-5), and one pose step
+   (RobotNetEncode minkunet14A, cos2, B=2 EE crops; the loss and the four
+   distances 1e-5, the same gradient, update and BN bounds);
 6. the inference main path at full width (B=8, P=16384, minkunet18 seg/kp,
    the 18D encoder for rotation, bf16, capacities from the occupancy
    probe): 12 batches timed one by one with every launch count set to 0
@@ -50,7 +60,8 @@ each printing one line (any failure exits non-zero before the last line):
    set to 0 before and read after -> steps/s and clouds/s (median,
    quartiles), one step synchronised at the prepare / forward / backward /
    optimizer boundaries, one step under torch.profiler, peak memory, and
-   sanity checks (finite losses; the loss on the fixed batch falls);
+   sanity checks (finite losses; the loss on the fixed batch falls; no
+   plain twin called);
 8. the int8 inference path at phase 6's full width: ``calibrate_q8`` on the
    batch, then as phase 6 (12 batches timed, stages, profiler, launches
    per batch of every counter), with the int8 kernels launched, the bf16
@@ -64,7 +75,20 @@ each printing one line (any failure exits non-zero before the last line):
    plain twin called; the two k3 routes side by side on seg level 0 (rank
    build + table convs against the self-keyed kernels, same convs); and
    ``icp_refine(use_pallas=True)`` on the batch's EE crop against the
-   default ICP.
+   default ICP;
+10. training on tables and the pose trainer, at full width, each timed as
+    phase 7: (a) phase 7's configuration with ``k3_self_keyed=False``
+    (every level on tables), first one step against the self-keyed step
+    from the same weights and batch (loss 1e-5, gradients 1e-4,
+    bit-equality reported), with the rank kernel, the table conv and the
+    k3-table dW launched and the self-keyed kernels not; (b) scene-scale
+    segmentation training (minkunet18D, B = 2 scenes of 98304 points,
+    capacity 65536: levels 0-2 on tables by the JAX train step's gate,
+    3-4 self-keyed), the route checked conv by conv, voxel overflow
+    reported, 2 warm-up and 4 timed steps; (c) pose training on B = 8 EE
+    crops at capacity 4096: RobotNet 18D with cos2 (``train_pose``'s
+    default), then RobotNetEncode 18D with the pose criterion (the
+    rotation-only override).
 
 f32 phases run with TF32 off (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` False).  The last lines are the card's
@@ -90,6 +114,9 @@ TOL_BF16, TOL_F32 = 2e-2, 1e-5
 TOL_Q8 = 3e-2      # int8 conv vs the unquantised f32 conv (bench.py's bound)
 SEG_AGREE = 0.995  # int8 card vs CPU: share of equal seg labels
 TRAIN_CAPACITY = 16384  # voxel capacity of the full-width train step
+SCENE_POINTS = 98304    # scene-scale training: points per cloud
+SCENE_CAPACITY = 65536  # and its voxel capacity
+POSE_CAPACITY = 4096    # EE crops (train_mains.ee_capacity of the defaults)
 
 # each kernel's source, and the TPU kernel (file:line) each record replaces
 SOURCES = {
@@ -107,6 +134,7 @@ SOURCES = {
     "conv_k3map": "mrcc_tpu_torch/csrc/conv_map.cu",
     "conv_k3map_q8": "mrcc_tpu_torch/csrc/conv_map_q8.cu",
     "nn_search": "mrcc_tpu_torch/csrc/nn_search.cu",
+    "dw_k3map": "mrcc_tpu_torch/csrc/conv_dw_map.cu",
 }
 K2_TPU = "mrcc_tpu/ops/conv_pallas.py:767"    # _gather_gemm_call_sk
 K3_TPU = "mrcc_tpu/ops/conv_pallas.py:120"    # _gather_gemm_call
@@ -118,7 +146,8 @@ NN_TPU = "mrcc_tpu/ops/nn_pallas.py:42"         # nn_search_pallas
 PROD_POINTS = 131072  # bench.py's production profile (BENCH_POINTS)
 DW_TPU = {"dw_sk": "mrcc_tpu/ops/conv_pallas.py:1076",   # _dw_call_sk
           "dw_down": "mrcc_tpu/ops/conv_pallas.py:1691",  # _dw_call
-          "dw_up": "mrcc_tpu/ops/conv_pallas.py:1691"}
+          "dw_up": "mrcc_tpu/ops/conv_pallas.py:1691",
+          "dw_k3map": "mrcc_tpu/ops/conv_pallas.py:1691"}
 
 
 def log(phase, **kw):
@@ -210,25 +239,43 @@ def train_batch(batch=8, seed=0):
     points, centred, padded to 65536 rows (``DataConfig`` defaults)."""
     from mrcc_tpu_torch.data.dataset import DataConfig, SceneDataset
 
-    data = SceneDataset(DataConfig(), batch, seed=seed)
+    data = SceneDataset(DataConfig(data_type=None), batch, seed=seed)
     return data.collate(data.items)
 
 
-def train_levels(batch, device):
+def train_levels(batch, device, capacity=TRAIN_CAPACITY):
     """The hierarchy the train step builds for ``batch`` (0.01 m voxels,
-    capacities (16384, 16384, 8192, 4096, 2048))."""
-    from mrcc_tpu_torch.sparse import build_hierarchy, hierarchy_caps, voxelize
+    capacities ``hierarchy_caps(capacity)``, the self-keyed route where the
+    JAX step's gate keeps it, tables elsewhere): at 16384 every level
+    self-keys, at 65536 levels 0-2 take tables."""
+    from mrcc_tpu_torch.sparse import (build_hierarchy, hierarchy_caps,
+                                       train_uses_k3_tables, voxelize)
 
     vox, _ = voxelize(*(torch.as_tensor(batch[k], device=device)
                         for k in ("points", "feats", "mask")), 0.01,
-                      TRAIN_CAPACITY)
-    return build_hierarchy(vox, 4, capacities=hierarchy_caps(TRAIN_CAPACITY))
+                      capacity)
+    caps = hierarchy_caps(capacity)
+    return build_hierarchy(vox, 4, capacities=caps, k3_tables=tuple(
+        train_uses_k3_tables(n) for n in (capacity,) + caps))
 
 
-def phase_kernels(levels, tlevels, plevels, device):
+def scene_batch(batch=2, seed=40):
+    """Scene-scale training batch: ``batch`` synthetic scenes of
+    SCENE_POINTS points (12288 EE, 24576 arm, 61440 background), centred,
+    padded to SCENE_POINTS rows."""
+    from mrcc_tpu_torch.data.dataset import DataConfig, SceneDataset
+
+    data = SceneDataset(DataConfig(max_points=SCENE_POINTS, data_type=None),
+                        batch, seed=seed, n_ee=12288, n_arm=24576,
+                        n_bg=61440)
+    return data.collate(data.items)
+
+
+def phase_kernels(levels, tlevels, plevels, slevels, device):
     """Each kernel vs its plain twin at the main paths' shapes: ``levels``
     of the inference path, ``tlevels`` of the training path, ``plevels`` of
-    the production path (tables on its levels 0 and 1)."""
+    the production path (tables on its levels 0 and 1), ``slevels`` of the
+    scene-scale training path (tables on its levels 0-2)."""
     from mrcc_tpu_torch.ops import conv, conv_q8, nn, rank, sort
     from mrcc_tpu_torch.sparse import neighbor_tables
     from mrcc_tpu_torch.sparse.hierarchy import K3_DELTAS
@@ -286,7 +333,8 @@ def phase_kernels(levels, tlevels, plevels, device):
         if errs["f32"] > TOL_F32 or errs["bf16"] > TOL_BF16:
             raise AssertionError(f"{name}: relative error {errs} over "
                                  f"(f32 {TOL_F32}, bf16 {TOL_BF16})")
-        kind, args, got = (("f32", args32, got32) if path == "training"
+        kind, args, got = (("f32", args32, got32)
+                           if path.startswith("training")
                            else ("bf16", args16, got16))
         cin, cout = args32[1].shape[1:]
         # the rows the hits gather, the weights, the whole output (padding
@@ -508,7 +556,7 @@ def phase_kernels(levels, tlevels, plevels, device):
                        bound_ms(4 * (3 * b * m + 3 * b * n + 2 * b * m)
                                 + b * n, 8 * b * m * n, "f32")))))
 
-    def dw_case(name, kernel, fn, plain, f, g, maps, work):
+    def dw_case(name, kernel, fn, plain, f, g, maps, work, path="training"):
         want = plain(f, g, *maps)
         got32 = fn(f, g, *maps)
         got16 = fn(f.bfloat16(), g.bfloat16(), *maps)
@@ -523,7 +571,7 @@ def phase_kernels(levels, tlevels, plevels, device):
                        + want.numel()) + work["map_bytes"])
         bms, by = bound_ms(nbytes, 2 * work["hits"] * cin * cout, "f32")
         records.append(dict(
-            name=name, kernel=kernel, path="training", route="cuda",
+            name=name, kernel=kernel, path=path, route="cuda",
             source=SOURCES[kernel], replaces=DW_TPU[kernel],
             max_abs_err=float((got32 - want).abs().max()), rel_err=errs,
             tolerance={"f32": TOL_F32, "bf16": TOL_BF16}, dtype="f32",
@@ -553,6 +601,28 @@ def phase_kernels(levels, tlevels, plevels, device):
         dw_case(f"dw_up[{b}x{nc}->{nf} {cin}x{cout}]", "dw_up", conv.dw_up,
                 conv.dw_up_plain, feats(coarse, cin), feats(fine, cout),
                 (fine.parent_idx, fine.row_ok, fine.octant), _up_work(fine))
+
+    # the k3-table route of training: the dW kernel at dw_sk's shapes on
+    # tables (phase 10 (a), every level on tables; f32 16384-row tables,
+    # which the JAX step streams), at the scene-scale level 0 (phase 10
+    # (b)), and the forward table conv at the widest training shape
+    lv_train = dataclasses.replace(tlevels[0], **dict(zip(
+        ("nbr_idx", "nbr_hit"), neighbor_tables(tlevels[0]))))
+    for lv, cin, cout, path in ((lv_train, 3, 32, "training_tables"),
+                                (lv_train, 416, 384, "training_tables"),
+                                (lv_train, 384, 384, "training_tables"),
+                                (slevels[0], 416, 384, "training_scene")):
+        b, n = lv.key.shape
+        dw_case(f"dw_k3map[{b}x{n} {cin}x{cout}]", "dw_k3map",
+                conv.dw_k3_map, conv.dw_k3_map_plain, feats(lv, cin),
+                feats(lv, cout), (lv.nbr_idx, lv.nbr_hit), _table_work(lv),
+                path=path)
+    b, n = lv_train.key.shape
+    conv_case(f"conv_k3map[{b}x{n} 384->384 f32]", "conv_k3map", HBM_TPU,
+              conv.gather_gemm_k3_map, conv.gather_gemm_k3_map_plain,
+              [feats(lv_train, 384), weights(27, 384, 384), lv_train.nbr_idx,
+               lv_train.nbr_hit], _table_work(lv_train), 27,
+              path="training_tables")
     log("kernels", cases=[{k: r.get(k) for k in (
         "name", "path", "replaces", "ms", "quantise_ms", "plain_ms",
         "library_ms", "library_call", "bound_ms", "bound_by", "work",
@@ -574,11 +644,19 @@ def phase_backward(tlevels, device):
         x = torch.randn(level.key.shape + (c,), generator=gen).to(device)
         return torch.where(level.valid[..., None], x, 0.0)
 
+    from mrcc_tpu_torch.sparse import neighbor_tables
+
     l0, l1, l2, l3, l4 = tlevels
+    t2 = dataclasses.replace(l2, **dict(zip(("nbr_idx", "nbr_hit"),
+                                            neighbor_tables(l2))))
     cases = {
         "k3[level 2 128x128]": (
             27, 128, 128, l2, l2, lambda f, w: C.conv_k3(f, w, l2),
             lambda f, w: conv.gather_gemm_sk_plain(f, w, l2.key, l2.kbits)),
+        "k3map[level 2 128x128]": (
+            27, 128, 128, t2, t2, lambda f, w: C.conv_k3(f, w, t2),
+            lambda f, w: conv.gather_gemm_k3_map_plain(f, w, t2.nbr_idx,
+                                                       t2.nbr_hit)),
         "down[level 0->1 32x32]": (
             8, 32, 32, l0, l1, lambda f, w: C.conv_down(f, w, l0, l1),
             lambda f, w: conv.gather_gemm_down_plain(f, w, l1.child_idx,
@@ -595,6 +673,7 @@ def phase_backward(tlevels, device):
         w0 = (torch.randn((taps, cin, cout), generator=gen) / 8).to(device)
         ct = feats(dst, cout)
         grads = []
+        before = conv.DW_K3MAP.launches
         for run in (fn, plain):
             f = f0.clone().requires_grad_()
             w = w0.clone().requires_grad_()
@@ -602,6 +681,9 @@ def phase_backward(tlevels, device):
             grads.append((f.grad, w.grad))
         errs[name] = {"dfeats": rel_err(grads[0][0], grads[1][0]),
                       "dW": rel_err(grads[0][1], grads[1][1])}
+        if name.startswith("k3map") and conv.DW_K3MAP.launches != before + 1:
+            raise AssertionError(f"backward {name}: the k3-table dW kernel "
+                                 "did not run")
         if max(errs[name].values()) > TOL_F32:
             raise AssertionError(f"backward {name}: {errs[name]} over "
                                  f"{TOL_F32}")
@@ -825,10 +907,10 @@ def bench_config(pts, caps, **kw):
 def plain_calls():
     """Count calls of every plain twin of ``ops`` (the wrappers look them up
     by module attribute, so a counting stand-in sees each one)."""
-    from mrcc_tpu_torch.ops import conv, conv_q8, sort
+    from mrcc_tpu_torch.ops import conv, conv_q8, nn, rank, sort
 
     calls, saved = {}, []
-    for mod in (sort, conv, conv_q8):
+    for mod in (sort, conv, conv_q8, rank, nn):
         for name in dir(mod):
             if not name.endswith("_plain"):
                 continue
@@ -1271,15 +1353,17 @@ def _train_pair_errors(cpu, gpu, before):
             "bn": worst["bn"], "worst_tensor": worst}
 
 
-def phase_train_card_vs_cpu():
+def phase_train_card_vs_cpu(k3_self_keyed=True):
     """One train step from the same weights and batch on the card and on
-    the CPU: minkunet14A, B=2, f32, capacity 4096."""
+    the CPU: minkunet14A, B=2, f32, capacity 4096; ``k3_self_keyed=False``:
+    every level on tables (the table conv, its Function and the k3-table
+    dW kernel on the card, their plain twins on the CPU)."""
     from mrcc_tpu_torch.data.dataset import DataConfig, SceneDataset
     from mrcc_tpu_torch.models import RobotNetSegmentation
     from mrcc_tpu_torch.sparse.nn import init_parameters
     from mrcc_tpu_torch.train import TrainConfig, make_segmentation_train_step
 
-    cfg = DataConfig(max_points=4096)
+    cfg = DataConfig(max_points=4096, data_type=None)
     data = SceneDataset(cfg, 2, seed=21, n_ee=512, n_arm=1024, n_bg=2048)
     batch = data.collate(data.items)
     cpu = init_parameters(RobotNetSegmentation(backbone="minkunet14A"), 5)
@@ -1287,34 +1371,70 @@ def phase_train_card_vs_cpu():
     before = {n: p.detach().clone() for n, p in cpu.named_parameters()}
     out = {}
     for dev, model in (("cpu", cpu), ("cuda", gpu)):
-        step, _ = make_segmentation_train_step(model, cfg, TrainConfig(), 4096,
-                                               device=dev)
+        step, _ = make_segmentation_train_step(
+            model, cfg, TrainConfig(k3_self_keyed=k3_self_keyed), 4096,
+            device=dev)
         out[dev] = {k: float(v) for k, v in step(batch, 1e-4).items()}
     loss_err = abs(out["cuda"]["loss"] - out["cpu"]["loss"]) / abs(
         out["cpu"]["loss"])
     errs = _train_pair_errors(cpu, gpu, before)
     report = dict(loss=out, loss_rel_err=loss_err, **errs,
+                  k3_tables=step.k3_tables,
                   tolerance={"loss": 1e-5, "grad": 1e-4, "update": 1e-3,
                              "bn": 1e-5})
     if (loss_err > 1e-5 or errs["grad"] > 1e-4 or errs["update"] > 1e-3
-            or errs["bn"] > 1e-5):
+            or errs["bn"] > 1e-5
+            or any(step.k3_tables) == k3_self_keyed):
         raise AssertionError(f"train step, card vs CPU: {report}")
-    log("train_card_vs_cpu", **report)
+    log("train_card_vs_cpu" if k3_self_keyed else
+        "train_tables_card_vs_cpu", **report)
 
 
-def phase_train(counters, warmup=2, timed=6, lr=1e-4):
-    """Segmentation training at full width on one fixed batch; returns the
-    launches of one step (the first timed one) of every kernel."""
-    from mrcc_tpu_torch.data.dataset import DataConfig
-    from mrcc_tpu_torch.models import RobotNetSegmentation
+POSE_METRICS = ("loss", "dist", "dist_position", "dist_orientation",
+                "angle_diff")
+
+
+def phase_pose_card_vs_cpu():
+    """One pose step from the same weights and batch on the card and on the
+    CPU: RobotNetEncode minkunet14A, cos2, B=2 EE crops, capacity 1024,
+    f32 (loss and distances 1e-5, gradients 1e-4, update 1e-3, BN 1e-5)."""
+    from mrcc_tpu_torch.data.dataset import DataConfig, PoseDataset
+    from mrcc_tpu_torch.models import RobotNetEncode
     from mrcc_tpu_torch.sparse.nn import init_parameters
-    from mrcc_tpu_torch.train import TrainConfig, make_segmentation_train_step
+    from mrcc_tpu_torch.train import (LossConfig, TrainConfig,
+                                      make_pose_train_step)
 
-    batch = train_batch()
-    model = init_parameters(RobotNetSegmentation(backbone="minkunet"), 1)
-    step, _ = make_segmentation_train_step(model, DataConfig(),
-                                           TrainConfig(batch_size=8),
-                                           TRAIN_CAPACITY)
+    cfg = DataConfig(max_points=2048)
+    data = PoseDataset(cfg, 2, seed=23, n_ee=2048, n_arm=1024, n_bg=2048)
+    batch = data.collate(data.items)
+    cpu = init_parameters(RobotNetEncode(backbone="minkunet14A"), 6)
+    gpu = copy.deepcopy(cpu)
+    before = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+    out = {}
+    for dev, model in (("cpu", cpu), ("cuda", gpu)):
+        step, _ = make_pose_train_step(model, cfg, LossConfig(),
+                                       TrainConfig(), 1024, device=dev)
+        out[dev] = {k: float(v) for k, v in step(batch, 1e-4).items()}
+    metric_err = {k: abs(out["cuda"][k] - out["cpu"][k])
+                  / max(abs(out["cpu"][k]), 1e-3) for k in POSE_METRICS}
+    errs = _train_pair_errors(cpu, gpu, before)
+    report = dict(metrics=out, metric_rel_err=metric_err, **errs,
+                  tolerance={"metrics": 1e-5, "grad": 1e-4, "update": 1e-3,
+                             "bn": 1e-5})
+    if (max(metric_err.values()) > 1e-5 or errs["grad"] > 1e-4
+            or errs["update"] > 1e-3 or errs["bn"] > 1e-5):
+        raise AssertionError(f"pose step, card vs CPU: {report}")
+    log("pose_card_vs_cpu", **report)
+
+
+def _train_run(step, batch, counters, warmup, timed, lr=1e-4):
+    """Drive ``step`` on one fixed batch: ``warmup`` steps, then ``timed``
+    steps timed one by one with every launch count set to 0 before the
+    first (its launches are one step's; no plain twin may run in it) and
+    read after the first and the last, one more step synchronised at the
+    prepare / forward / backward / optimizer boundaries, one under
+    torch.profiler.  Returns ``(launches of one step, report)``; the
+    report's losses must be finite and fall."""
     b = batch["points"].shape[0]
     losses = []
 
@@ -1330,10 +1450,11 @@ def phase_train(counters, warmup=2, timed=6, lr=1e-4):
     torch.cuda.reset_peak_memory_stats()
     for ctr in counters:
         ctr.launches = 0
-    step_s = [run()]  # the counted run: one train step
+    with plain_calls() as plain:
+        step_s = [run()]  # the counted run: one train step
     launches = {ctr.name: ctr.launches for ctr in counters}
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel never ran in training: {launches}")
+    if plain:
+        raise AssertionError(f"plain twins called in training: {plain}")
     step_s += [run() for _ in range(timed - 1)]
     total = {ctr.name: ctr.launches for ctr in counters}
     if total != {k: timed * v for k, v in launches.items()}:
@@ -1341,7 +1462,6 @@ def phase_train(counters, warmup=2, timed=6, lr=1e-4):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     q1, med, q3 = np.percentile(step_s, [25, 50, 75])
 
-    # one step synchronised at each stage boundary
     stages = {}
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -1368,15 +1488,16 @@ def phase_train(counters, warmup=2, timed=6, lr=1e-4):
     top = dict(sorted(device_ms.items(), key=lambda kv: -kv[1])[:14])
     ported = {k: sum(v for n, v in device_ms.items() if k in n)
               for k in ("sort_chunk", "sort_global_stage", "conv_sk_kernel",
-                        "conv_down_kernel", "conv_up_kernel", "SkSource",
-                        "DownSource", "UpSource", "dw_reduce")}
+                        "conv_down_kernel", "conv_up_kernel",
+                        "conv_k3map_kernel", "rank_kernel", "SkSource",
+                        "DownSource", "UpSource", "TableSource", "dw_reduce")}
     checks = {"finite_losses": bool(np.isfinite(losses).all()),
               "loss_first": losses[0], "loss_last": losses[-1]}
     if not (checks["finite_losses"] and losses[-1] < losses[0]):
         raise AssertionError(f"training sanity failed: {losses}")
-    log("train", batch=b, points=int(batch["points"].shape[1]),
-        voxel_capacity=TRAIN_CAPACITY, backbone="minkunet (18D)",
-        warmup_steps=warmup, steps=timed, card=smi_line(),
+    return launches, dict(
+        batch=b, points=int(batch["points"].shape[1]), warmup_steps=warmup,
+        steps=timed, card=smi_line(),
         steps_per_s_median=1 / med, steps_per_s_q1_q3=[1 / q3, 1 / q1],
         clouds_per_s_median=b / med, clouds_per_s_q1_q3=[b / q3, b / q1],
         step_ms_median=step_ms, step_ms_all=[1e3 * x for x in step_s],
@@ -1385,7 +1506,169 @@ def phase_train(counters, warmup=2, timed=6, lr=1e-4):
         ported_kernel_device_ms=ported, top_device_ms=top,
         launches_per_step=launches, peak_mem_gb=peak_gb, losses=losses,
         **checks)
+
+
+def _seg_step(model, k3_self_keyed=True, capacity=TRAIN_CAPACITY):
+    from mrcc_tpu_torch.data.dataset import DataConfig
+    from mrcc_tpu_torch.train import TrainConfig, make_segmentation_train_step
+
+    return make_segmentation_train_step(
+        model, DataConfig(data_type=None),
+        TrainConfig(batch_size=8, k3_self_keyed=k3_self_keyed), capacity)[0]
+
+
+def phase_train(counters, warmup=2, timed=6):
+    """Segmentation training at full width on one fixed batch; returns the
+    launches of one step (the first timed one) of every kernel."""
+    from mrcc_tpu_torch.models import RobotNetSegmentation
+    from mrcc_tpu_torch.sparse.nn import init_parameters
+
+    model = init_parameters(RobotNetSegmentation(backbone="minkunet"), 1)
+    launches, report = _train_run(_seg_step(model), train_batch(), counters,
+                                  warmup, timed)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel never ran in training: {launches}")
+    log("train", voxel_capacity=TRAIN_CAPACITY, backbone="minkunet (18D)",
+        **report)
     return launches
+
+
+def _grads(model):
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def phase_train_tables(counters, warmup=2, timed=6):
+    """Phase 10 (a): phase 7's configuration with ``k3_self_keyed=False``
+    (every level on rank tables).  One step from the same weights and batch
+    against the self-keyed step (loss 1e-5, gradients 1e-4 in relative
+    norm; bit-equality reported), then timed as phase 7, with the rank
+    kernel, the table conv and the k3-table dW kernel launched and the
+    self-keyed kernels not."""
+    from mrcc_tpu_torch.models import RobotNetSegmentation
+    from mrcc_tpu_torch.ops import conv, rank
+    from mrcc_tpu_torch.sparse.nn import init_parameters
+
+    batch = train_batch()
+    base = init_parameters(RobotNetSegmentation(backbone="minkunet"), 1)
+    results = {}
+    for sk in (True, False):
+        model = copy.deepcopy(base)
+        step = _seg_step(model, k3_self_keyed=sk)
+        metrics = step(batch, 1e-4)
+        results[sk] = (float(metrics["loss"]), _grads(model), step, model)
+    (l_sk, g_sk, _, _), (l_t, g_t, step, _) = results[True], results[False]
+    del results[True]
+    flat = [torch.cat([g[n].flatten() for n in g_sk]) for g in (g_t, g_sk)]
+    cmp = {"loss": [l_sk, l_t], "loss_rel_err": abs(l_t - l_sk) / abs(l_sk),
+           "grad_rel_err": rel_err(*flat),
+           "bit_equal": {"loss": l_t == l_sk,
+                         "grads": all(torch.equal(g_t[n], g_sk[n])
+                                      for n in g_sk)},
+           "tolerance": {"loss": 1e-5, "grad": 1e-4}}
+    if cmp["loss_rel_err"] > 1e-5 or cmp["grad_rel_err"] > 1e-4 \
+            or not all(step.k3_tables):
+        raise AssertionError(f"tables vs self-keyed training: {cmp}")
+    launches, report = _train_run(step, batch, counters, warmup, timed)
+    names = {ctr.name for ctr in (rank.RANK, conv.K3MAP, conv.DW_K3MAP)}
+    if any(launches[k] <= 0 for k in names) or launches[conv.SK.name] \
+            or launches[conv.DW_SK.name]:
+        raise AssertionError(f"table training launches: {launches}")
+    log("train_tables", voxel_capacity=TRAIN_CAPACITY,
+        backbone="minkunet (18D)", k3_tables=step.k3_tables,
+        vs_self_keyed=cmp, **report)
+    return launches
+
+
+def phase_train_scene(counters, warmup=2, timed=4):
+    """Phase 10 (b): scene-scale segmentation training (minkunet18D, B=2
+    scenes of SCENE_POINTS points, voxel capacity SCENE_CAPACITY): the k3
+    route checked level by level against the JAX gate (the table conv on
+    levels 0-2, the self-keyed one on 3-4; one dW launch per k3 conv of
+    its route, the rank kernel once per table level), voxel overflow, then
+    timed as phase 7."""
+    from mrcc_tpu_torch.models import RobotNetSegmentation
+    from mrcc_tpu_torch.ops import conv, rank
+    from mrcc_tpu_torch.sparse import train_uses_k3_tables
+    from mrcc_tpu_torch.sparse.nn import init_parameters
+
+    batch = scene_batch()
+    model = init_parameters(RobotNetSegmentation(backbone="minkunet18D"), 2)
+    step = _seg_step(model, capacity=SCENE_CAPACITY)
+    caps = (SCENE_CAPACITY,) + step.caps
+    want = tuple(train_uses_k3_tables(n) for n in caps)
+    if step.k3_tables != want or want != (True,) * 3 + (False,) * 2:
+        raise AssertionError(f"scene route {step.k3_tables} over {caps}")
+    step(batch, 1e-4)  # builds, allocator
+    torch.cuda.synchronize()
+    for ctr in counters:
+        ctr.launches = 0
+    with k3_calls() as calls, plain_calls() as plain:
+        step(batch, 1e-4)
+        torch.cuda.synchronize()
+    got = {ctr.name: ctr.launches for ctr in counters}
+    table_rows = {n for n, t in zip(caps, want) if t}
+    bad = [cl for cl in calls
+           if cl[1] != (cl[0] in table_rows)
+           or cl[4] != (("conv_k3map",) if cl[1] else ("conv_sk",))]
+    n_table = sum(1 for cl in calls if cl[1])
+    n_sk = len(calls) - n_table
+    if (bad or plain or got[rank.RANK.name] != sum(want)
+            or got[conv.DW_K3MAP.name] != n_table
+            or got[conv.DW_SK.name] != n_sk or not n_table or not n_sk):
+        raise AssertionError(f"scene k3 route: wrong convs {bad[:4]}, "
+                             f"launches {got}, plain {plain}")
+    routes = {str(n): {"tables": t, "k3_convs": sum(1 for cl in calls
+                                                    if cl[0] == n)}
+              for n, t in zip(caps, want)}
+    vox, _, levels = step.prepare(batch)
+    occupancy = {"capacities": list(caps),
+                 "voxels": [lv.count.tolist() for lv in levels],
+                 "points": batch["mask"].sum(1).tolist()}
+    occupancy["overflow"] = [[c >= cap for c in lv]
+                             for lv, cap in zip(occupancy["voxels"], caps)]
+    del vox, levels
+    launches, report = _train_run(step, batch, counters, warmup, timed)
+    log("train_scene", voxel_capacity=SCENE_CAPACITY,
+        backbone="minkunet18D", k3_tables=step.k3_tables, k3_routes=routes,
+        occupancy=occupancy, **report)
+    return launches
+
+
+def phase_pose_train(counters, warmup=2, timed=6):
+    """Phase 10 (c): pose training at full width on B=8 EE crops at voxel
+    capacity POSE_CAPACITY: RobotNet 18D with cos2 (``train_pose``'s
+    default), then RobotNetEncode 18D with the pose criterion (the
+    rotation-only override: 5 mm voxels, no position term); each timed as
+    phase 7.  Returns the launches of one step of each."""
+    from mrcc_tpu_torch.cli.train_mains import (PoseModelConfig,
+                                                select_pose_model)
+    from mrcc_tpu_torch.data.dataset import DataConfig, PoseDataset
+    from mrcc_tpu_torch.sparse.nn import init_parameters
+    from mrcc_tpu_torch.train import (LossConfig, TrainConfig,
+                                      make_pose_train_step)
+
+    runs = (("pose_robotnet", PoseModelConfig(), DataConfig(), "cos2",
+             LossConfig(loss_type="cos2")),
+            ("pose_encode", PoseModelConfig(encode_only=True),
+             DataConfig(scale=200.0), "pose",
+             LossConfig(loss_type="pose", disable_position=True)))
+    out = {}
+    for name, model_cfg, data_cfg, loss, loss_cfg in runs:
+        torch.cuda.empty_cache()
+        data = PoseDataset(data_cfg, 8, seed=50)
+        batch = data.collate(data.items)
+        model = init_parameters(select_pose_model(model_cfg, data_cfg), 3)
+        step, _ = make_pose_train_step(model, data_cfg, loss_cfg,
+                                       TrainConfig(batch_size=8),
+                                       POSE_CAPACITY)
+        vox = step.prepare(batch)[0]
+        launches, report = _train_run(step, batch, counters, warmup, timed)
+        log(name, model=type(model).__name__, backbone="minkunet (18D)",
+            loss=loss, voxel_size=data_cfg.quantization_size,
+            voxel_capacity=POSE_CAPACITY, k3_tables=step.k3_tables,
+            voxels=vox.count.tolist(), **report)
+        out[name] = launches
+    return out
 
 
 def main():
@@ -1401,36 +1684,56 @@ def main():
 
     from mrcc_tpu_torch.ops import conv, conv_q8, nn, rank, sort
 
-    phase_build()
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log("wall", of=name, seconds=time.perf_counter() - t0)
+        return out
+
+    phase("build", phase_build)
     dev = torch.device("cuda")
     inputs, caps, levels = bench_levels(dev)
     pinputs, pcaps, plevels = bench_levels(dev, batch=2, points=PROD_POINTS,
                                            tables=True)
     tlevels = train_levels(train_batch(), dev)
-    records = phase_kernels(levels, tlevels, plevels, dev)
-    phase_backward(tlevels, dev)
-    del tlevels, plevels
-    phase_card_vs_cpu()
-    phase_int8_card_vs_cpu()
-    phase_int8_card_vs_cpu(k3_self_keyed=False)
-    phase_bf16_routes_on_card()
-    phase_train_card_vs_cpu()
+    slevels = train_levels(scene_batch(), dev, capacity=SCENE_CAPACITY)
+    records = phase("kernels", phase_kernels, levels, tlevels, plevels,
+                    slevels, dev)
+    phase("backward", phase_backward, tlevels, dev)
+    del tlevels, plevels, slevels
+    phase("card_vs_cpu", phase_card_vs_cpu)
+    phase("int8_card_vs_cpu", phase_int8_card_vs_cpu)
+    phase("int8_tables_card_vs_cpu", phase_int8_card_vs_cpu, False)
+    phase("bf16_tables_vs_self_keyed", phase_bf16_routes_on_card)
+    phase("train_card_vs_cpu", phase_train_card_vs_cpu)
+    phase("train_tables_card_vs_cpu", phase_train_card_vs_cpu, False)
+    phase("pose_card_vs_cpu", phase_pose_card_vs_cpu)
     counters = [sort.SORT, conv.SK, conv.DOWN, conv.UP]
-    launches, bf16_seg = phase_main_path(inputs, caps, counters)
+    launches, bf16_seg = phase("main_path", phase_main_path, inputs, caps,
+                               counters)
     launches = {"inference": launches}
     torch.cuda.empty_cache()
-    launches["training"] = phase_train(
-        counters + [conv.DW_SK, conv.DW_DOWN, conv.DW_UP])
+    train_counters = counters + [conv.DW_SK, conv.DW_DOWN, conv.DW_UP]
+    launches["training"] = phase("train", phase_train, train_counters)
     torch.cuda.empty_cache()
-    launches["int8"] = phase_int8_main_path(
-        inputs, caps, counters + [conv_q8.SK_Q8, conv_q8.DOWN_Q8,
-                                  conv_q8.UP_Q8], bf16_seg)
+    launches["int8"] = phase(
+        "int8_main_path", phase_int8_main_path, inputs, caps,
+        counters + [conv_q8.SK_Q8, conv_q8.DOWN_Q8, conv_q8.UP_Q8], bf16_seg)
     torch.cuda.empty_cache()
-    launches.update(phase_production(
-        pinputs, pcaps, counters + [
+    launches.update(phase(
+        "production", phase_production, pinputs, pcaps, counters + [
             conv_q8.SK_Q8, conv_q8.DOWN_Q8, conv_q8.UP_Q8, rank.RANK,
             conv.K3MAP, conv_q8.K3MAP_Q8, nn.NN],
         ("production", "production_int8")))
+    torch.cuda.empty_cache()
+    table_counters = train_counters + [rank.RANK, conv.K3MAP, conv.DW_K3MAP]
+    launches["training_tables"] = phase("train_tables", phase_train_tables,
+                                        table_counters)
+    torch.cuda.empty_cache()
+    launches["training_scene"] = phase("train_scene", phase_train_scene,
+                                       table_counters)
+    torch.cuda.empty_cache()
+    launches.update(phase("pose_train", phase_pose_train, table_counters))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_by_path")

@@ -1,23 +1,31 @@
-// Weight gradients of the k=2 s=2 down conv and its transpose (K3's
-// backward).
+// Weight gradients of K3's convs over explicit maps: the k=2 s=2 down
+// conv, its transpose, and the k=3 s=1 conv over a level's neighbour
+// tables.
 //
 // Replaces: mrcc_tpu/ops/conv_pallas.py::_dw_call and its wrapper
-// dw_gather_gemm, over the down (8-child) map and the broadcast-k up map.
+// dw_gather_gemm, over the down (8-child) map, the broadcast-k up map and
+// the 27-offset rank tables (the k3-table mode, the weight cotangent of
+// pallas_conv_op("k3", ...)).
 //
-//   down: dW[k] = sum_{b,p} child_hit[k, b, p] * feats[b, child_idx[k, b, p]]^T (x) g[b, p]
-//   up:   dW[k] = sum_{b,c} row_ok[b, c] * [octant[b, c] == k]
-//                 * feats[b, parent_idx[b, c]]^T (x) g[b, c]
+//   down:  dW[k] = sum_{b,p} child_hit[k, b, p] * feats[b, child_idx[k, b, p]]^T (x) g[b, p]
+//   up:    dW[k] = sum_{b,c} row_ok[b, c] * [octant[b, c] == k]
+//                  * feats[b, parent_idx[b, c]]^T (x) g[b, c]
+//   k3map: dW[k] = sum_{b,i} nbr_hit[k, b, i] * feats[b, nbr_idx[k, b, i]]^T (x) g[b, i]
 //
-// feats is the conv's input level (fine for down, coarse for up), g its
-// output cotangent masked by the output level's validity.  row_ok is
-// valid & parent_ok: children of parents that overflowed the coarse
-// capacity alias slot capacity - 1 and contribute nothing.
+// feats is the conv's input level (fine for down, coarse for up, the
+// level itself for k3map), g its output cotangent masked by the output
+// level's validity.  row_ok is valid & parent_ok: children of parents that
+// overflowed the coarse capacity alias slot capacity - 1 and contribute
+// nothing.
 //
 // Bound on the card: each hit row costs 2 * Cin * Cout FLOPs against one
-// gathered feature row and one g row; the wide up convs of the decoder
-// (256/384 channels) are bound by operations, the narrow down convs by
-// bytes.  Design: dw_gemm.cuh (per-CTA (k, dW block, row slice), hits
-// compacted in row order, f32 FMA, slices summed in fixed order).
+// gathered feature row and one g row; the wide convs of the decoder
+// (256/384 channels) are bound by operations, the narrow ones (the stem,
+// the down convs) by bytes.  Design: dw_gemm.cuh (per-CTA (k, dW block,
+// row slice), hits compacted in row order, f32 FMA, slices summed in fixed
+// order).  The TPU kernel's one-hot window gathers, lane packing and
+// 128-aligned windows are VMEM workarounds with no counterpart here: a
+// table entry is a plain row index.
 
 #include "dw_gemm.cuh"
 
@@ -26,6 +34,7 @@ namespace {
 using namespace mrcc;
 
 constexpr int K2 = 8;
+constexpr int K3 = 27;
 
 struct DownSource {
   const int* child_idx;
@@ -48,6 +57,18 @@ struct UpSource {
   __device__ __forceinline__ int operator()(int k, int b, int c) const {
     const size_t at = static_cast<size_t>(b) * n_out + c;
     return (row_ok[at] && octant[at] == k) ? parent_idx[at] : -1;
+  }
+};
+
+struct TableSource {
+  const int* nbr_idx;
+  const uint8_t* nbr_hit;
+  int batch;
+  int n;
+
+  __device__ __forceinline__ int operator()(int k, int b, int i) const {
+    const size_t o = (static_cast<size_t>(k) * batch + b) * n + i;
+    return nbr_hit[o] ? nbr_idx[o] : -1;
   }
 };
 
@@ -99,4 +120,28 @@ extern "C" int mrcc_dw_up_bf16(const void* feats, const void* g,
   return mrcc::dw_launch<__nv_bfloat16>(
       UpSource{parent_idx, row_ok, octant, n_out}, feats, g, part, out, batch,
       n_in, n_out, K2, cin, cout, slices, stream);
+}
+
+// k3map: feats [B, n, cin], g [B, n, cout] (the same level),
+// nbr_idx [27, B, n] int32, nbr_hit [27, B, n] bool,
+// part [slices, 27, cin, cout] f32 (unused when slices == 1),
+// out [27, cin, cout] f32.  Returns cudaGetLastError().
+extern "C" int mrcc_dw_k3map_f32(const void* feats, const void* g,
+                                 const int* nbr_idx, const uint8_t* nbr_hit,
+                                 float* part, float* out, int batch, int n,
+                                 int cin, int cout, int slices,
+                                 cudaStream_t stream) {
+  return mrcc::dw_launch<float>(TableSource{nbr_idx, nbr_hit, batch, n},
+                                feats, g, part, out, batch, n, n, K3, cin,
+                                cout, slices, stream);
+}
+
+extern "C" int mrcc_dw_k3map_bf16(const void* feats, const void* g,
+                                  const int* nbr_idx, const uint8_t* nbr_hit,
+                                  float* part, float* out, int batch, int n,
+                                  int cin, int cout, int slices,
+                                  cudaStream_t stream) {
+  return mrcc::dw_launch<__nv_bfloat16>(
+      TableSource{nbr_idx, nbr_hit, batch, n}, feats, g, part, out, batch, n,
+      n, K3, cin, cout, slices, stream);
 }

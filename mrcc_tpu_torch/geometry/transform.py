@@ -59,6 +59,25 @@ def matrix_to_quat(m):
     return qnormalize(cands.gather(-2, idx)[..., 0, :])
 
 
+def rot6d_to_matrix(r6):
+    """Continuous 6D rotation -> rotation matrix (..., 3, 3): Gram-Schmidt
+    on the two predicted columns, ``[b1 b2 b1 x b2]``."""
+    eps = 1e-8
+    a1, a2 = r6[..., :3], r6[..., 3:6]
+    b1 = a1 / torch.clamp_min(torch.linalg.vector_norm(a1, dim=-1,
+                                                       keepdim=True), eps)
+    a2p = a2 - (b1 * a2).sum(-1, keepdim=True) * b1
+    b2 = a2p / torch.clamp_min(torch.linalg.vector_norm(a2p, dim=-1,
+                                                        keepdim=True), eps)
+    b3 = torch.linalg.cross(b1, b2, dim=-1)
+    return torch.stack([b1, b2, b3], dim=-1)
+
+
+def rot6d_to_quat(r6):
+    """6D rotation -> WXYZ quaternion (via :func:`rot6d_to_matrix`)."""
+    return matrix_to_quat(rot6d_to_matrix(r6))
+
+
 def pose_to_matrix(pose):
     """Pose [x, y, z, qw, qx, qy, qz] -> 4x4 homogeneous transform."""
     rot = quat_to_matrix(pose[..., 3:7])

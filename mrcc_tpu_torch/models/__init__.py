@@ -1,8 +1,8 @@
 """Sparse U-Net models (port of ``mrcc_tpu/models``: MinkUNet and the
-RobotNet segmentation / encoder heads)."""
+RobotNet pose, encoder and segmentation heads)."""
 
 from .minkunet import MinkUNetBase, make_minkunet
-from .robotnet import RobotNetEncode, RobotNetSegmentation
+from .robotnet import RobotNet, RobotNetEncode, RobotNetSegmentation
 
-__all__ = ["MinkUNetBase", "RobotNetEncode", "RobotNetSegmentation",
-           "make_minkunet"]
+__all__ = ["MinkUNetBase", "RobotNet", "RobotNetEncode",
+           "RobotNetSegmentation", "make_minkunet"]

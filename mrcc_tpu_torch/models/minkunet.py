@@ -62,12 +62,15 @@ def variant(name: str) -> dict:
 
 class MinkUNetBase(nn.Module):
     """Configurable sparse U-Net.  ``encoder_only`` builds the stem and the
-    four encoder stages only (RobotNetEncode)."""
+    four encoder stages only (RobotNetEncode); ``with_final=False`` leaves
+    out the final 1x1 conv (RobotNet, which reads ``forward_except_final``).
+    ``inplanes`` is the width of the last stage's output."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  planes: Tuple[int, ...] = DEFAULT_PLANES,
                  layers: Tuple[int, ...] = (2,) * 8, block: str = "basic",
-                 init_dim: int = 32, encoder_only: bool = False):
+                 init_dim: int = 32, encoder_only: bool = False,
+                 with_final: bool = True):
         super().__init__()
         block_cls = BLOCKS[block]
         exp = block_cls.expansion
@@ -101,7 +104,8 @@ class MinkUNetBase(nn.Module):
             setattr(self, f"bntr{s}", SparseBatchNorm(planes[s]))
             self.inplanes = planes[s] + skips[i]
             setattr(self, f"block{s + 1}", blocks(planes[s], layers[s]))
-        self.final = SparseConv1x1(planes[7] * exp, out_channels, bias=True)
+        if with_final:
+            self.final = SparseConv1x1(self.inplanes, out_channels, bias=True)
 
     @staticmethod
     def _run(blocks, feats, level):

@@ -9,16 +9,18 @@ k2-down and broadcast-k up modes, convs over the explicit stride-2 maps
 that ``build_hierarchy`` scatters, and in its k3-table mode
 (:func:`gather_gemm_k3_map`), the k=3 s=1 conv over the rank kernel's
 neighbour tables; reading global memory at any N, it also stands in for
-``conv_pallas._gather_gemm_call_hbm``.  The k3-table conv is inference
-only (the trainer's levels stay self-keyed).
+``conv_pallas._gather_gemm_call_hbm``.
 
 The weight gradients: ``csrc/conv_dw_sk.cu`` (:func:`dw_sk`) replaces
 ``conv_pallas._dw_call_sk`` and ``csrc/conv_dw_map.cu`` (:func:`dw_down`,
-:func:`dw_up`) replaces ``conv_pallas._dw_call``.  The autograd Functions
-:class:`SkConvFn`, :class:`DownConvFn` and :class:`UpConvFn` carry the JAX
-custom VJPs (``pallas_conv_sk_op``, ``pallas_conv_op``): data cotangents
-through the forward kernels over the reverse maps, weight cotangents
-through the dW kernels.
+:func:`dw_up`, :func:`dw_k3_map`) replaces ``conv_pallas._dw_call`` in its
+down, up and k3-table modes.  The autograd Functions :class:`SkConvFn`,
+:class:`K3MapConvFn`, :class:`DownConvFn` and :class:`UpConvFn` carry the
+JAX custom VJPs (``pallas_conv_sk_op``, ``pallas_conv_op``): data
+cotangents through the forward kernels over the reverse maps (the k3
+convs over their own level with ``W[26 - k]^T``), weight cotangents
+through the dW kernels.  Both k3 routes train: the self-keyed one and the
+table one.
 
 Each wrapper launches its kernel for CUDA tensors (f32 or bf16 features,
 weights / gradients of the same dtype, f32 accumulation) and runs its plain
@@ -61,6 +63,8 @@ DW_MAP_LIB = KernelLibrary("conv_dw_map", {
     "mrcc_dw_down_bf16": (P, P, P, P, P, P, I, I, I, I, I, I, P),
     "mrcc_dw_up_f32": (P, P, P, P, P, P, P, I, I, I, I, I, I, P),
     "mrcc_dw_up_bf16": (P, P, P, P, P, P, P, I, I, I, I, I, I, P),
+    "mrcc_dw_k3map_f32": (P, P, P, P, P, P, I, I, I, I, I, P),
+    "mrcc_dw_k3map_bf16": (P, P, P, P, P, P, I, I, I, I, I, P),
 })
 LIBRARIES = (SK_LIB, MAP_LIB, DW_SK_LIB, DW_MAP_LIB)
 SK = LaunchCounter("conv_sk")
@@ -70,6 +74,7 @@ K3MAP = LaunchCounter("conv_k3map")
 DW_SK = LaunchCounter("dw_sk")
 DW_DOWN = LaunchCounter("dw_down")
 DW_UP = LaunchCounter("dw_up")
+DW_K3MAP = LaunchCounter("dw_k3map")
 
 _DW_TILE = 64           # DW_TILE of csrc/dw_gemm.cuh
 _DW_TARGET_CTAS = 1056  # 8 CTAs per SM of an H100 (132 SMs)
@@ -262,7 +267,7 @@ def gather_gemm_k3_map_plain(feats, weights, nbr_idx, nbr_hit):
 
 
 def gather_gemm_k3_map(feats, weights, nbr_idx, nbr_hit):
-    """k=3 s=1 conv over a level's neighbour tables (inference).
+    """k=3 s=1 conv over a level's neighbour tables.
 
     ``out[b, i] = sum_k nbr_hit[k, b, i] * feats[b, nbr_idx[k, b, i]] @ W[k]``
 
@@ -384,17 +389,23 @@ def dw_sk(feats, g, key, kbits):
     return out
 
 
-def dw_down_plain(feats, g, child_idx, child_hit):
-    """Plain twin of :func:`dw_down`."""
-    k_taps = child_idx.shape[0]
+def _map_dw(feats, g, map_idx, map_hit):
+    """``sum_{b, r} map_hit[k] * feats[map_idx[k]]^T (x) g`` per offset k,
+    in f32."""
+    k_taps = map_idx.shape[0]
     out = torch.zeros((k_taps, feats.shape[-1], g.shape[-1]),
                       dtype=torch.float32, device=feats.device)
     f = feats.float()
     gf = g.to(feats.dtype).float()
     for k in range(k_taps):
-        out[k] = _outer_sum(torch.where(child_hit[k][..., None],
-                                        _gather(f, child_idx[k]), 0.0), gf)
+        out[k] = _outer_sum(torch.where(map_hit[k][..., None],
+                                        _gather(f, map_idx[k]), 0.0), gf)
     return out
+
+
+def dw_down_plain(feats, g, child_idx, child_hit):
+    """Plain twin of :func:`dw_down`."""
+    return _map_dw(feats, g, child_idx, child_hit)
 
 
 def dw_down(feats, g, child_idx, child_hit):
@@ -424,6 +435,43 @@ def dw_down(feats, g, child_idx, child_hit):
                     ptr(child_idx), ptr(child_hit), ptr(part), ptr(out), b,
                     n_in, n_out, cin, cout, slices, stream_ptr(feats))
     DW_DOWN.launches += 1
+    return out
+
+
+def dw_k3_map_plain(feats, g, nbr_idx, nbr_hit):
+    """Plain twin of :func:`dw_k3_map`."""
+    return _map_dw(feats, g, nbr_idx, nbr_hit)
+
+
+def dw_k3_map(feats, g, nbr_idx, nbr_hit):
+    """Weight gradient of :func:`gather_gemm_k3_map`.
+
+    ``dW[k] = sum_{b, i} nbr_hit[k, b, i] * feats[b, nbr_idx[k, b, i]]^T
+    (x) g[b, i]``
+
+    Args:
+      feats: [B, N, Cin] f32/bf16 (the conv's input); g: [B, N, Cout] same
+        dtype, the output cotangent masked by the level's validity.
+      nbr_idx: int32 [27, B, N]; nbr_hit: bool [27, B, N].
+    Returns [27, Cin, Cout] f32.
+    """
+    if not _route(feats, g, nbr_idx, nbr_hit):
+        return dw_k3_map_plain(feats, g, nbr_idx, nbr_hit)
+    _check_dw("dw_k3_map", feats, g, ((nbr_idx, torch.int32),
+                                      (nbr_hit, torch.bool)))
+    b, n, cin = feats.shape
+    cout = g.shape[-1]
+    if (g.shape[1] != n or nbr_idx.shape != (27, b, n)
+            or nbr_hit.shape != (27, b, n)):
+        raise ValueError("dw_k3_map: g must be [B, N, Cout], tables "
+                         "[27, B, N]")
+    feats, g = feats.contiguous(), g.contiguous()
+    nbr_idx, nbr_hit = nbr_idx.contiguous(), nbr_hit.contiguous()
+    slices, part, out = _dw_buffers(27, cin, cout, b * n, feats.device)
+    DW_MAP_LIB.call(f"mrcc_dw_k3map_{_SUFFIX[feats.dtype]}", ptr(feats),
+                    ptr(g), ptr(nbr_idx), ptr(nbr_hit), ptr(part), ptr(out),
+                    b, n, cin, cout, slices, stream_ptr(feats))
+    DW_K3MAP.launches += 1
     return out
 
 
@@ -475,7 +523,8 @@ def dw_up(feats, g, parent_idx, row_ok, octant):
 #
 # The backward passes of the JAX custom VJPs (conv_pallas.py:1201-1215,
 # 1865-1884), g masked by the output level first:
-#   k3:   dfeats = sk conv of g with W[26 - k]^T over the same level;
+#   k3:   dfeats = sk (or table) conv of g with W[26 - k]^T over the same
+#         level (and tables);
 #   down: dfeats = up conv of g with W^T over the fine level's parent map;
 #   up:   dfeats = down conv of g with W^T over the coarse level's child map;
 #   dW from the dW kernels.  Both rest on the child map pointing back at c
@@ -505,6 +554,31 @@ class SkConvFn(torch.autograd.Function):
                                     key, kbits)
         if ctx.needs_input_grad[1]:
             dw = dw_sk(feats, g_m, key, kbits).to(weights.dtype)
+        return dfeats, dw, None, None, None
+
+
+class K3MapConvFn(torch.autograd.Function):
+    """:func:`gather_gemm_k3_map` with the table conv's VJP (the k3 mode of
+    ``pallas_conv_op``).  ``apply(feats, weights, nbr_idx, nbr_hit,
+    valid)``.  The data cotangent runs the same tables: they are symmetric
+    (``nbr(i, k) = j`` with a hit iff ``nbr(j, 26 - k) = i`` with a hit,
+    the ``kbits`` gate holding both ways)."""
+
+    @staticmethod
+    def forward(ctx, feats, weights, nbr_idx, nbr_hit, valid):
+        ctx.save_for_backward(feats, weights, nbr_idx, nbr_hit, valid)
+        return gather_gemm_k3_map(feats, weights, nbr_idx, nbr_hit)
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, weights, nbr_idx, nbr_hit, valid = ctx.saved_tensors
+        g_m = _masked(g, valid, feats.dtype)
+        dfeats = dw = None
+        if ctx.needs_input_grad[0]:
+            dfeats = gather_gemm_k3_map(g_m, weights.flip(0).transpose(1, 2),
+                                        nbr_idx, nbr_hit)
+        if ctx.needs_input_grad[1]:
+            dw = dw_k3_map(feats, g_m, nbr_idx, nbr_hit).to(weights.dtype)
         return dfeats, dw, None, None, None
 
 

@@ -7,12 +7,14 @@ outside the kernel in the feature dtype and padding rows are zeroed, as in
 ``_with_bias``.  A k=3 conv runs on the route its level carries: over the
 level's neighbour tables (``nbr_idx``/``nbr_hit``, built where
 ``hierarchy.uses_k3_tables`` says the JAX engine builds them) through the
-k3-table conv, else the self-keyed kernel; both run at any N.  The table
-route is inference only.  The self-keyed k3, down and up convs are
-differentiable through the autograd Functions of ``ops/conv.py``, whose
-backward passes run the same kernels over the reverse maps and the dW
-kernels; where autograd records nothing (inference under ``no_grad``) they
-call the forward wrappers directly.  ``q8=True`` routes the convs to the
+k3-table conv, else the self-keyed kernel; both run at any N.  The k3
+convs of both routes, the down and the up convs are differentiable
+through the autograd Functions of ``ops/conv.py`` (``SkConvFn``,
+``K3MapConvFn``, ``DownConvFn``, ``UpConvFn``), whose backward passes run
+the same kernels over the reverse maps and the dW kernels; the trainers
+build tables where ``hierarchy.train_uses_k3_tables`` says the JAX train
+step does.  Where autograd records nothing (inference under ``no_grad``)
+they call the forward wrappers directly.  ``q8=True`` routes the convs to the
 int8 wrappers of ``ops/conv_q8.py`` (inference only), quantising with the
 calibrated ``act_absmax`` when one is given, else the dynamic absmax.
 """
@@ -21,8 +23,9 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.conv import (DownConvFn, SkConvFn, UpConvFn, gather_gemm_down,
-                        gather_gemm_k3_map, gather_gemm_sk, gather_gemm_up)
+from ..ops.conv import (DownConvFn, K3MapConvFn, SkConvFn, UpConvFn,
+                        gather_gemm_down, gather_gemm_k3_map, gather_gemm_sk,
+                        gather_gemm_up)
 from ..ops.conv_q8 import (gather_gemm_down_q8, gather_gemm_k3_map_q8,
                            gather_gemm_sk_q8, gather_gemm_up_q8)
 
@@ -51,10 +54,9 @@ def conv_k3(feats, weights, level, bias=None, q8=False, act_absmax=None):
         return _with_bias(out, bias, level.valid)
     w = weights.to(feats.dtype)
     if tables:
-        if _recorded(feats, w):
-            raise NotImplementedError("k3-table convs are inference only: "
-                                      "build training levels self-keyed")
-        out = gather_gemm_k3_map(feats, w, level.nbr_idx, level.nbr_hit)
+        maps = (level.nbr_idx, level.nbr_hit)
+        out = (K3MapConvFn.apply(feats, w, *maps, level.valid)
+               if _recorded(feats, w) else gather_gemm_k3_map(feats, w, *maps))
         return _with_bias(out, bias, level.valid)
     if _recorded(feats, w):
         out = SkConvFn.apply(feats, w, level.key, level.kbits, level.valid)

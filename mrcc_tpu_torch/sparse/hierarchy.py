@@ -1,6 +1,6 @@
 """Coordinate hierarchy for sparse U-Nets (port of
 ``mrcc_tpu/sparse/hierarchy.py``: the self-keyed and the k3-table routes of
-inference, the self-keyed route of training).
+inference and of training).
 
 Per stride level: the unique voxel set (sorted packed keys), parent links
 into the next-coarser level (``parent_idx``, ``parent_ok``, ``octant``) for
@@ -8,8 +8,9 @@ the transpose convs, the k=2 s=2 child map built by scatter through the
 downsample sort (``child_idx``/``child_hit``, stored on the coarser level),
 the k=3 validity bitmap ``kbits`` that the self-keyed conv and the rank
 kernel read (port of ``ops/rank_pallas.py::sk_bits``; plain tensor code,
-no kernel), and on the levels :func:`uses_k3_tables` names, the 27-offset
-neighbour tables ``nbr_idx``/``nbr_hit`` built by the rank kernel
+no kernel), and on the levels :func:`uses_k3_tables` (inference) or
+:func:`train_uses_k3_tables` (training) names, the 27-offset neighbour
+tables ``nbr_idx``/``nbr_hit`` built by the rank kernel
 (:func:`neighbor_tables`).
 """
 
@@ -127,6 +128,22 @@ def uses_k3_tables(n: int, conv_impl: str = "pallas",
     itemsize = 1 if conv_impl == "pallas-int8" else 2
     return not (n % 128 == 0 and n >= 128
                 and n * 128 * itemsize <= TABLE_BUDGET)
+
+
+def train_uses_k3_tables(n: int, k3_self_keyed: bool = True) -> bool:
+    """Whether an ``n``-row level of a train step takes the k3-table route.
+
+    This reproduces the JAX train step's gate
+    (``mrcc_tpu/sparse/hierarchy.py:78-95``, ``_use_self_keyed`` under the
+    ``"pallas"`` impl, which both JAX steps pass ``k3_self_keyed`` to):
+    tables where ``k3_self_keyed`` is off, or where the level fails
+    ``conv_pallas.sk_pack(n, itemsize=2) == 1``, that is where n is not a
+    multiple of 128 or its 128-lane bf16 table exceeds the 5 MiB budget
+    (20480 rows).  The itemsize is 2 whatever the step's dtype: unlike
+    :func:`uses_k3_tables`, f32 alone does not put a level on tables.
+    """
+    return not k3_self_keyed or not (n % 128 == 0 and n >= 128
+                                     and n * 128 * 2 <= TABLE_BUDGET)
 
 
 def neighbor_tables(level: Level):

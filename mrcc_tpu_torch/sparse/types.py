@@ -50,3 +50,7 @@ class SparseVoxels:
     feats: torch.Tensor
     valid: torch.Tensor
     count: torch.Tensor
+
+    def coords(self) -> torch.Tensor:
+        """Signed level-0 voxel coordinates (int32 [B, N, 3])."""
+        return self.off - COORD_OFFSET

@@ -1,17 +1,18 @@
-"""Segmentation training (port of ``mrcc_tpu/train``: criterion,
-checkpoints, optimizer, train step and epoch loop)."""
+"""Training (port of ``mrcc_tpu/train``: criteria, checkpoints, optimizer,
+the segmentation and pose train steps and the epoch loop)."""
 
 from .checkpoint import (checkpoint_restore, checkpoint_save, is_multiple,
                          is_power2, latest_checkpoint)
-from .losses import segmentation_loss
-from .trainer import (AverageMeter, MetricsWriter, SegmentationTrainStep,
-                      TrainConfig, Trainer,
-                      make_optimizer, make_segmentation_train_step,
-                      step_learning_rate)
+from .losses import LossConfig, LossType, get_criterion, segmentation_loss
+from .trainer import (AverageMeter, MetricsWriter, PoseTrainStep,
+                      SegmentationTrainStep, TrainConfig, Trainer,
+                      make_optimizer, make_pose_train_step,
+                      make_segmentation_train_step, step_learning_rate)
 
-__all__ = ["AverageMeter", "MetricsWriter", "SegmentationTrainStep",
-           "TrainConfig", "Trainer",
-           "checkpoint_restore", "checkpoint_save", "is_multiple",
-           "is_power2", "latest_checkpoint", "make_optimizer",
+__all__ = ["AverageMeter", "LossConfig", "LossType", "MetricsWriter",
+           "PoseTrainStep", "SegmentationTrainStep", "TrainConfig",
+           "Trainer", "checkpoint_restore", "checkpoint_save",
+           "get_criterion", "is_multiple", "is_power2", "latest_checkpoint",
+           "make_optimizer", "make_pose_train_step",
            "make_segmentation_train_step", "segmentation_loss",
            "step_learning_rate"]

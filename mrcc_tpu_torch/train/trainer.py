@@ -1,21 +1,26 @@
-"""Segmentation trainer (port of ``mrcc_tpu/train/trainer.py``:
-``TrainConfig``, ``step_learning_rate``, ``make_optimizer``,
-``AverageMeter``, ``MetricsWriter``, ``make_segmentation_train_step`` and
-``Trainer``).
+"""Trainers (port of ``mrcc_tpu/train/trainer.py``: ``TrainConfig``,
+``step_learning_rate``, ``make_optimizer``, ``AverageMeter``,
+``MetricsWriter``, ``make_segmentation_train_step``,
+``make_pose_train_step`` and ``Trainer``).
 
 The JAX step is one jit program over a functional ``TrainState``; here the
 model and the optimizer hold the state and the step runs eagerly:
-voxelize with labels and ``build_hierarchy`` outside autograd, the model
-in train mode (batch statistics), the loss, the backward pass (the sparse
-convs' autograd Functions run the forward kernels over the reverse maps
-and the dW kernels), and the optimizer step at the epoch's learning rate.
-Metrics stay on the device until the epoch ends.  Training keeps the
-self-keyed k3 route on every level, as the JAX step does at the training
-capacities: the k3-table route (``k3_self_keyed=False`` of the inference
-engine) and the int8 convs are inference only, so the JAX ``conv_impl`` /
-``k3_self_keyed`` options have no counterpart here.
+voxelize (with labels for segmentation) and ``build_hierarchy`` outside
+autograd, the model in train mode (batch statistics), the criterion, the
+backward pass (the sparse convs' autograd Functions run the forward
+kernels over the reverse maps and the dW kernels), and the optimizer step
+at the epoch's learning rate.  Metrics stay on the device until the epoch
+ends.
 
-The step runs on the card unless ``device="cpu"`` is passed, and raises
+The k3 route per level is the JAX train step's
+(``hierarchy.train_uses_k3_tables``): self-keyed where
+``TrainConfig.k3_self_keyed`` is on and the level passes the TPU's
+self-key gate, else on rank-kernel tables, whose convs train through
+``K3MapConvFn`` and the k3-table dW kernel.  The JAX ``conv_impl`` option
+has no counterpart: the port routes by device, and its int8 convs are
+inference only.
+
+The steps run on the card unless ``device="cpu"`` is passed, and raise
 where there is none.
 """
 
@@ -29,9 +34,12 @@ import time
 import torch
 
 from ..device import resolve_device
-from ..sparse import build_hierarchy, hierarchy_caps, voxelize
+from ..geometry.metrics import compute_pose_dist
+from ..geometry.transform import rot6d_to_quat
+from ..sparse import (build_hierarchy, hierarchy_caps, train_uses_k3_tables,
+                      voxelize)
 from . import checkpoint as ckpt
-from .losses import segmentation_loss
+from .losses import LossConfig, LossType, get_criterion, segmentation_loss
 
 
 @dataclasses.dataclass
@@ -48,6 +56,9 @@ class TrainConfig:
     save_freq: int = 4
     batch_size: int = 2
     seed: int = 1
+    # self-keyed k3 convs where a level passes the JAX step's gate
+    # (train_uses_k3_tables); False puts every level on tables
+    k3_self_keyed: bool = True
 
 
 def step_learning_rate(base_lr, epoch, step_epoch, multiplier):
@@ -98,47 +109,29 @@ class MetricsWriter:
                                 "step": int(step)}) + "\n")
 
 
-class SegmentationTrainStep:
-    """One per-voxel cross-entropy train step (``train_segmentation.py`` hot
-    loop), callable as ``step(batch, lr)``.
-
-    Its stages run in order and can be called one by one (to time them):
-    :meth:`prepare` (voxelize with labels, ``build_hierarchy``, outside
-    autograd), :meth:`forward` (model in train mode, loss), :meth:`backward`
-    and :meth:`update` (optimizer step at ``lr``).  ``batch`` holds numpy
-    arrays or tensors ``points [B, P, 3]``, ``feats [B, P, C]``,
-    ``mask [B, P]`` and ``labels [B, P]``.  The parameters' ``.grad`` hold
-    the step's gradients afterwards.
-    """
+class _TrainStep:
+    """Stages shared by the train steps: the hierarchy of a voxelised batch
+    on the JAX step's k3 route, the backward pass and the optimizer step.
+    The parameters' ``.grad`` hold the step's gradients afterwards."""
 
     def __init__(self, model, optimizer, data_cfg, voxel_capacity: int,
-                 ignore_label: int, device: torch.device):
+                 k3_self_keyed: bool, device: torch.device):
         self.model = model
         self.optimizer = optimizer
         self.qsize = data_cfg.quantization_size
         self.capacity = voxel_capacity
         self.caps = hierarchy_caps(voxel_capacity)
-        self.ignore_label = ignore_label
+        self.k3_tables = tuple(train_uses_k3_tables(n, k3_self_keyed)
+                               for n in (voxel_capacity,) + self.caps)
         self.device = device
 
-    def prepare(self, batch):
-        """-> (SparseVoxels, voxel labels, levels)."""
-        t = {k: torch.as_tensor(batch[k], device=self.device)
-             for k in ("points", "feats", "mask", "labels")}
-        with torch.no_grad():
-            vox, _, vlabels = voxelize(t["points"], t["feats"], t["mask"],
-                                       self.qsize, self.capacity,
-                                       labels=t["labels"],
-                                       ignore_label=self.ignore_label)
-            levels = build_hierarchy(vox, 4, capacities=self.caps)
-        return vox, vlabels, levels
+    def _tensors(self, batch, keys):
+        return {k: torch.as_tensor(batch[k], device=self.device)
+                for k in keys}
 
-    def forward(self, vox, vlabels, levels):
-        """-> (logits, loss)."""
-        self.model.train()
-        logits = self.model(vox.feats, levels)
-        return logits, segmentation_loss(logits, vlabels, vox.valid,
-                                         ignore_label=self.ignore_label)
+    def _levels(self, vox):
+        return build_hierarchy(vox, 4, capacities=self.caps,
+                               k3_tables=self.k3_tables)
 
     def backward(self, loss):
         self.optimizer.zero_grad(set_to_none=True)
@@ -148,6 +141,44 @@ class SegmentationTrainStep:
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.step()
+
+
+class SegmentationTrainStep(_TrainStep):
+    """One per-voxel cross-entropy train step (``train_segmentation.py`` hot
+    loop), callable as ``step(batch, lr)``.
+
+    Its stages run in order and can be called one by one (to time them):
+    :meth:`prepare` (voxelize with labels, ``build_hierarchy``, outside
+    autograd), :meth:`forward` (model in train mode, loss), :meth:`backward`
+    and :meth:`update` (optimizer step at ``lr``).  ``batch`` holds numpy
+    arrays or tensors ``points [B, P, 3]``, ``feats [B, P, C]``,
+    ``mask [B, P]`` and ``labels [B, P]``.
+    """
+
+    def __init__(self, model, optimizer, data_cfg, voxel_capacity: int,
+                 ignore_label: int, device: torch.device,
+                 k3_self_keyed: bool = True):
+        super().__init__(model, optimizer, data_cfg, voxel_capacity,
+                         k3_self_keyed, device)
+        self.ignore_label = ignore_label
+
+    def prepare(self, batch):
+        """-> (SparseVoxels, voxel labels, levels)."""
+        t = self._tensors(batch, ("points", "feats", "mask", "labels"))
+        with torch.no_grad():
+            vox, _, vlabels = voxelize(t["points"], t["feats"], t["mask"],
+                                       self.qsize, self.capacity,
+                                       labels=t["labels"],
+                                       ignore_label=self.ignore_label)
+            levels = self._levels(vox)
+        return vox, vlabels, levels
+
+    def forward(self, vox, vlabels, levels):
+        """-> (logits, loss)."""
+        self.model.train()
+        logits = self.model(vox.feats, levels)
+        return logits, segmentation_loss(logits, vlabels, vox.valid,
+                                         ignore_label=self.ignore_label)
 
     def __call__(self, batch, lr):
         """Run every stage; returns ``{"loss", "accuracy"}`` as device
@@ -173,7 +204,75 @@ def make_segmentation_train_step(model, data_cfg, train_cfg: TrainConfig,
     model.to(dev)
     optimizer = make_optimizer(model.parameters(), train_cfg)
     return SegmentationTrainStep(model, optimizer, data_cfg, voxel_capacity,
-                                 ignore_label, dev), optimizer
+                                 ignore_label, dev,
+                                 train_cfg.k3_self_keyed), optimizer
+
+
+class PoseTrainStep(_TrainStep):
+    """One pose-regression train step (``train.py`` hot loop), callable as
+    ``step(batch, lr)``, with the stages of :class:`SegmentationTrainStep`.
+    ``batch`` holds ``points``, ``feats``, ``mask``, ``pose [B, 7]`` (WXYZ)
+    and, with ``use_joint_angles``, ``joint_angles [B, 9]``.  The criterion
+    gets the level-0 voxel coordinates and their validity."""
+
+    def __init__(self, model, optimizer, criterion, loss_cfg: LossConfig,
+                 data_cfg, voxel_capacity: int, use_joint_angles: bool,
+                 device: torch.device, k3_self_keyed: bool = True):
+        super().__init__(model, optimizer, data_cfg, voxel_capacity,
+                         k3_self_keyed, device)
+        self.criterion = criterion
+        self.rot6d = LossType(loss_cfg.loss_type) == LossType.COS2_6D
+        self.use_joint_angles = use_joint_angles
+
+    def prepare(self, batch):
+        """-> (SparseVoxels, levels, pose, joint angles or None)."""
+        keys = ("points", "feats", "mask", "pose") + (
+            ("joint_angles",) if self.use_joint_angles else ())
+        t = self._tensors(batch, keys)
+        with torch.no_grad():
+            vox, _ = voxelize(t["points"], t["feats"], t["mask"], self.qsize,
+                              self.capacity)
+            levels = self._levels(vox)
+        return vox, levels, t["pose"], t.get("joint_angles")
+
+    def forward(self, vox, levels, pose, joint_angles):
+        """-> (head output, loss)."""
+        self.model.train()
+        out = self.model(vox.feats, levels, joint_angles)
+        return out, self.criterion(pose, out,
+                                   coords=vox.coords().to(torch.float32),
+                                   coords_valid=vox.valid)
+
+    def __call__(self, batch, lr):
+        """Run every stage; returns ``{"loss", "dist", "dist_position",
+        "dist_orientation", "angle_diff"}`` (batch means) as device
+        scalars."""
+        vox, levels, pose, ja = self.prepare(batch)
+        out, loss = self.forward(vox, levels, pose, ja)
+        self.backward(loss)
+        self.update(lr)
+        with torch.no_grad():
+            out7 = (torch.cat([out[:, :3], rot6d_to_quat(out[:, 3:9])], -1)
+                    if self.rot6d else out[:, :7])
+            dist, dist_pos, dist_ori, angle = compute_pose_dist(pose, out7)
+        return {"loss": loss.detach(), "dist": dist.mean(),
+                "dist_position": dist_pos.mean(),
+                "dist_orientation": dist_ori.mean(),
+                "angle_diff": angle.mean()}
+
+
+def make_pose_train_step(model, data_cfg, loss_cfg: LossConfig,
+                         train_cfg: TrainConfig, voxel_capacity: int,
+                         use_joint_angles: bool = False, device=None):
+    """Move ``model`` to the device (the card unless ``device`` says
+    otherwise; raises where there is none) and return
+    ``(PoseTrainStep, optimizer)``."""
+    dev = resolve_device(device)
+    model.to(dev)
+    optimizer = make_optimizer(model.parameters(), train_cfg)
+    return PoseTrainStep(model, optimizer, get_criterion(loss_cfg), loss_cfg,
+                         data_cfg, voxel_capacity, use_joint_angles, dev,
+                         train_cfg.k3_self_keyed), optimizer
 
 
 class Trainer:

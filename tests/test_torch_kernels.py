@@ -17,7 +17,8 @@ kernel equals its plain twin exactly; the k3-table convs hold the conv
 tolerances above; the nearest-neighbour kernel's d2 is within 1e-5 of its
 twin and its indices equal except at near-ties (the two smallest d2 of a
 row within 1e-6 of |a|^2, the scale of the f32 rounding of
-|a|^2 - 2ab + |b|^2).
+|a|^2 - 2ab + |b|^2).  The k3-table dW kernel holds the dW tolerances and
+``K3MapConvFn`` the backward one.
 """
 
 import pytest
@@ -154,6 +155,9 @@ def _dw_cases(lv_all, l, cin, cout):
     fine, coarse = lv_all[l], lv_all[l + 1]
     row_ok = fine.valid & fine.parent_ok
     return {
+        "k3map": (conv.dw_k3_map, conv.dw_k3_map_plain, conv.DW_K3MAP,
+                  _feats(fine, cin), _feats(fine, cout),
+                  neighbor_tables(fine)),
         "sk": (conv.dw_sk, conv.dw_sk_plain, conv.DW_SK, _feats(fine, cin),
                _feats(fine, cout), (fine.key, fine.kbits)),
         "down": (conv.dw_down, conv.dw_down_plain, conv.DW_DOWN,
@@ -164,14 +168,14 @@ def _dw_cases(lv_all, l, cin, cout):
     }
 
 
-@pytest.mark.parametrize("kind", ["sk", "down", "up"])
+@pytest.mark.parametrize("kind", ["sk", "down", "up", "k3map"])
 @pytest.mark.parametrize("cin,cout", [(3, 32), (20, 90), (130, 70)])
 @pytest.mark.parametrize("l", [0, 2])
 def test_dw_kernels(cuda, levels, kind, l, cin, cout):
     _check_dw(*_dw_cases(levels, l, cin, cout)[kind])
 
 
-@pytest.mark.parametrize("kind", ["sk", "down", "up"])
+@pytest.mark.parametrize("kind", ["sk", "down", "up", "k3map"])
 def test_dw_kernels_at_40000_rows(cuda, big_levels, kind):
     assert big_levels[0].key.shape[1] == 40000
     _check_dw(*_dw_cases(big_levels, 0, 130, 70)[kind])
@@ -184,16 +188,34 @@ def test_dw_rejects(cuda, levels):
         conv.dw_sk(f.double(), f.double(), lv.key, lv.kbits)
     with pytest.raises(ValueError):
         conv.dw_sk(f, f.bfloat16(), lv.key, lv.kbits)
+    idx, hit = neighbor_tables(lv)
+    with pytest.raises(ValueError):
+        conv.dw_k3_map(f.double(), f.double(), idx, hit)
+    with pytest.raises(ValueError):
+        conv.dw_k3_map(f, f.bfloat16(), idx, hit)
+    with pytest.raises(ValueError):
+        conv.dw_k3_map(f, f, idx.long(), hit)
+    with pytest.raises(ValueError):
+        conv.dw_k3_map(f, f, idx[:8], hit[:8])
 
 
-@pytest.mark.parametrize("kind", ["k3", "down", "up"])
+@pytest.mark.parametrize("kind", ["k3", "k3map", "down", "up"])
 def test_conv_function_backward(cuda, levels, kind):
     """The Functions' backward (kernels) vs autograd of the plain twins."""
+    import dataclasses
+
     from mrcc_tpu_torch.sparse import conv as C
 
     fine, coarse = levels[1], levels[2]
     cin, cout = 48, 40
-    if kind == "k3":
+    if kind == "k3map":
+        lv = dataclasses.replace(fine, **dict(zip(
+            ("nbr_idx", "nbr_hit"), neighbor_tables(fine))))
+        taps, src, dst = 27, lv, lv
+        fn = lambda f, w: C.conv_k3(f, w, lv)  # noqa: E731
+        plain = lambda f, w: conv.gather_gemm_k3_map_plain(  # noqa: E731
+            f, w, lv.nbr_idx, lv.nbr_hit)
+    elif kind == "k3":
         taps, src, dst = 27, fine, fine
         fn = lambda f, w: C.conv_k3(f, w, fine)  # noqa: E731
         plain = lambda f, w: conv.gather_gemm_sk_plain(  # noqa: E731
