@@ -23,18 +23,24 @@ last line):
 3. kernels vs their plain PyTorch twins at the main paths' shapes (exact
    for the sort; relative norm 2e-2 for bf16 against the f32 twin, 1e-5 for
    f32; the int8 convs within 1 bf16 ulp of their plain twins and 3e-2 of
-   the unquantised f32 plain conv), timed with CUDA events: the forward
-   kernels at the inference shapes in bf16, the int8 ones at the int8
-   path's shapes (the seg net's, one split into channel groups), the dW
-   kernels at the training shapes in f32 (the k3-table dW at the K2 dW's
-   shapes on tables and at the scene-scale level 0), the rank kernel
-   (exact) and the k3-table convs at the production levels' shapes and at
-   the widest f32 training shape, the int8 one also at a two-group
-   resident shape, the nearest-neighbour kernel (d2 1e-5, indices equal
-   but for near-ties: the two smallest d2 within 1e-6 of |a|^2); then the
+   the unquantised f32 plain conv), timed with CUDA events: the sort at
+   the inference, training and production point sorts and past 2^17 rows
+   ([1, 307200], [1, 2^20]), beside ``torch.argsort(stable=True)``; the
+   self-keyed conv also at Cin 3 and 416 -> 384 in f32 and on a level of
+   padding rows; the forward kernels at the inference shapes in bf16, the
+   int8 ones at the int8 path's shapes (the seg net's, one split into
+   channel groups), the dW kernels at the training shapes in f32 (the
+   k3-table dW at the K2 dW's shapes on tables and at the scene-scale
+   level 0), the rank kernel (exact) and the k3-table convs at the
+   production levels' shapes and at the widest f32 training shape, the
+   int8 one also at a two-group resident shape, the nearest-neighbour
+   kernel (d2 1e-5, indices equal but for near-ties: the two smallest d2
+   within 1e-6 of |a|^2); then the
    backward of each autograd conv Function (the self-keyed and the table
    k3 convs, down, up) on the card against autograd through the plain
-   twins on the card (f32, 1e-5);
+   twins on the card (f32, 1e-5); then one full 640 x 480 frame (B = 1,
+   P = 307200): ``measure_seg_caps``, ``voxelize`` and ``build_hierarchy``
+   on the card against the CPU, every integer output equal;
 4. the inference slice on the card vs on the CPU: one engine pair with the
    same weights, f32 (the k3-table route on every level), small size
    (integer outputs exact, poses 1e-3); int8 pairs with the same weights
@@ -88,7 +94,11 @@ last line):
     reported, 2 warm-up and 4 timed steps; (c) pose training on B = 8 EE
     crops at capacity 4096: RobotNet 18D with cos2 (``train_pose``'s
     default), then RobotNetEncode 18D with the pose criterion (the
-    rotation-only override).
+    rotation-only override); RobotNet's K2 time by level and conv (CUDA
+    events around each launch of one step).
+
+``python3 chip_smoke.py --pose-k2`` builds the kernels and runs only that
+K2 breakdown.
 
 f32 phases run with TF32 off (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` False).  The last lines are the card's
@@ -109,7 +119,7 @@ import torch
 
 # peak rates of one H100 SXM (NVIDIA data sheet, dense): bytes/s and op/s
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12, "tf32": 495e12}
 TOL_BF16, TOL_F32 = 2e-2, 1e-5
 TOL_Q8 = 3e-2      # int8 conv vs the unquantised f32 conv (bench.py's bound)
 SEG_AGREE = 0.995  # int8 card vs CPU: share of equal seg labels
@@ -144,6 +154,7 @@ MAP_Q8_TPU = "mrcc_tpu/ops/conv_pallas.py:1235"  # _gather_gemm_call_q8
 RANK_TPU = "mrcc_tpu/ops/rank_pallas.py:89"     # _rank_call
 NN_TPU = "mrcc_tpu/ops/nn_pallas.py:42"         # nn_search_pallas
 PROD_POINTS = 131072  # bench.py's production profile (BENCH_POINTS)
+FRAME_POINTS = 640 * 480  # one full depth frame
 DW_TPU = {"dw_sk": "mrcc_tpu/ops/conv_pallas.py:1076",   # _dw_call_sk
           "dw_down": "mrcc_tpu/ops/conv_pallas.py:1691",  # _dw_call
           "dw_up": "mrcc_tpu/ops/conv_pallas.py:1691",
@@ -292,11 +303,15 @@ def phase_kernels(levels, tlevels, plevels, slevels, device):
                 / np.sqrt(k * cin)).to(device)
 
     # K1: duplicate-heavy [8, 16384] (many points per voxel) and [8, 12544]
-    # on the inference path; the train step's [8, 65536] point keys (global
-    # merge passes beyond one block's 2^14 rows)
+    # on the inference path; the train step's [8, 65536] point keys; the
+    # production point sort [2, 131072]; past the first kernel's 2^17
+    # limit (C20): a full 640 x 480 frame [1, 307200] and [1, 2^20]
     for b, n, hi, path in ((8, 16384, 3000, "inference"),
                            (8, 12544, 1 << 30, "inference"),
-                           (8, 65536, 16000, "training")):
+                           (8, 65536, 16000, "training"),
+                           (2, PROD_POINTS, 1 << 30, "production"),
+                           (1, FRAME_POINTS, 1 << 30, "frame"),
+                           (1, 1 << 20, 1 << 18, "frame")):
         key = torch.randint(0, hi, (b, n), generator=gen,
                             dtype=torch.int32).to(device)
         key[:, : n // 5] = 1 << 30  # KEY_PAD rows
@@ -307,6 +322,8 @@ def phase_kernels(levels, tlevels, plevels, slevels, device):
             raise AssertionError(f"argsort [{b}, {n}] differs from the "
                                  "stable plain sort")
         ms = cuda_ms(lambda: sort.argsort(key))
+        # key read once, sorted key and permutation written once; three
+        # radix passes of one digit each per entry
         records.append(dict(
             name=f"argsort[{b}x{n}]", kernel="argsort", path=path,
             route="cuda", source=SOURCES["argsort"],
@@ -316,7 +333,7 @@ def phase_kernels(levels, tlevels, plevels, slevels, device):
             library_ms=cuda_ms(lambda: torch.argsort(key, dim=-1,
                                                      stable=True)),
             **dict(zip(("bound_ms", "bound_by"),
-                       bound_ms(b * n * 12, b * _ce_count(n), "f32")))))
+                       bound_ms(b * n * 12, 3 * b * n, "f32")))))
 
     def conv_case(name, kernel, replaces, fn, plain, args32, work, k,
                   path="inference"):
@@ -342,7 +359,8 @@ def phase_kernels(levels, tlevels, plevels, slevels, device):
         nbytes = ((4 if kind == "f32" else 2)
                   * (work["read"] * cin + k * cin * cout + want.numel())
                   + work["map_bytes"])
-        bms, by = bound_ms(nbytes, 2 * work["hits"] * cin * cout, kind)
+        ops = 2 * work["hits"] * cin * cout
+        bms, by = bound_ms(nbytes, ops, kind)
         records.append(dict(
             name=name, kernel=kernel, path=path, route="cuda",
             source=SOURCES[kernel], replaces=replaces,
@@ -351,6 +369,11 @@ def phase_kernels(levels, tlevels, plevels, slevels, device):
             dtype=kind, work=work, ms=cuda_ms(lambda: fn(*args)),
             plain_ms=cuda_ms(lambda: plain(*args)), library_ms=None,
             bound_ms=bms, bound_by=by))
+        if kernel == "conv_sk" and kind == "f32":
+            # K2's f32 route: three TF32 products a term on tensor cores
+            records[-1]["bound_3xtf32_ms"] = max(
+                1e3 * 3 * ops / PEAK_OPS["tf32"],
+                1e3 * nbytes / HBM_BYTES_PER_S)
 
     for li, cin, cout in ((0, 3, 32), (0, 128, 96), (3, 384, 256)):
         lv = levels[li]
@@ -359,12 +382,24 @@ def phase_kernels(levels, tlevels, plevels, slevels, device):
                   conv.gather_gemm_sk, conv.gather_gemm_sk_plain,
                   [feats(lv, cin), weights(27, cin, cout), lv.key, lv.kbits],
                   _sk_work(lv), 27)
-    lv = tlevels[0]  # the training step's widest k3 conv (decoder, level 0)
+    # the training step's level 0: the stem (Cin 3), the widest decoder
+    # conv (384 -> 384) and the skip-concatenated one (416 -> 384)
+    lv = tlevels[0]
     b, n = lv.key.shape
-    conv_case(f"conv_sk[{b}x{n} 384->384 f32]", "conv_sk", K2_TPU,
+    for cin, cout in ((384, 384), (3, 32), (416, 384)):
+        conv_case(f"conv_sk[{b}x{n} {cin}->{cout} f32]", "conv_sk", K2_TPU,
+                  conv.gather_gemm_sk, conv.gather_gemm_sk_plain,
+                  [feats(lv, cin), weights(27, cin, cout), lv.key, lv.kbits],
+                  _sk_work(lv), 27, path="training")
+    # a level whose rows are all padding (kbits 0): every tile skips every
+    # offset and writes zeros
+    lv = dataclasses.replace(levels[3], kbits=torch.zeros_like(
+        levels[3].kbits))
+    b, n = lv.key.shape
+    conv_case(f"conv_sk[{b}x{n} 384->256 all padding]", "conv_sk", K2_TPU,
               conv.gather_gemm_sk, conv.gather_gemm_sk_plain,
-              [feats(lv, 384), weights(27, 384, 384), lv.key, lv.kbits],
-              _sk_work(lv), 27, path="training")
+              [feats(lv, 384), weights(27, 384, 256), lv.key, lv.kbits],
+              _sk_work(lv), 27)
     # K3 down at the inference path's first down conv; at the training
     # step's level 0 -> 1, where the JAX step streams the over-budget f32
     # table (_gather_gemm_call_hbm): the stem's down conv (32 -> 32) and the
@@ -625,7 +660,8 @@ def phase_kernels(levels, tlevels, plevels, slevels, device):
               path="training_tables")
     log("kernels", cases=[{k: r.get(k) for k in (
         "name", "path", "replaces", "ms", "quantise_ms", "plain_ms",
-        "library_ms", "library_call", "bound_ms", "bound_by", "work",
+        "library_ms", "library_call", "bound_ms", "bound_by",
+        "bound_3xtf32_ms", "work",
         "groups", "hits", "near_ties", "idx_differ_at_ties", "max_abs_err",
         "rel_err", "tolerance")}
         for r in records])
@@ -690,13 +726,58 @@ def phase_backward(tlevels, device):
     log("backward", tolerance=TOL_F32, rel_err=errs)
 
 
-def _ce_count(n):
-    """Compare-exchanges of one bitonic row padded to a power of two, two
-    operations each (compare, select)."""
-    n2, lg = 2, 1
-    while n2 < n:
-        n2, lg = n2 * 2, lg + 1
-    return n2 * lg * (lg + 1) // 4 * 2
+def phase_frame(counters, seed=60):
+    """C20 on the path: ``measure_seg_caps``, ``voxelize`` and
+    ``build_hierarchy`` (depth 4, self-keyed bitmaps) of one full 640 x 480
+    frame (B = 1, P = 307200) on the card and on the CPU; every integer
+    output exactly equal.  Returns the launches of the card's voxelize +
+    build_hierarchy."""
+    from mrcc_tpu_torch.app import measure_seg_caps
+    from mrcc_tpu_torch.data.synthetic import build_batch
+    from mrcc_tpu_torch.geometry import center_at_origin
+    from mrcc_tpu_torch.sparse import build_hierarchy, voxelize
+
+    pts, rgb, mask = build_batch(1, FRAME_POINTS, seed=seed)
+    caps = measure_seg_caps(pts, rgb, mask, device="cuda")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p, c, m = (torch.as_tensor(x, device=dev) for x in (pts, rgb, mask))
+        cen, _ = center_at_origin(p, mask=m)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            for ctr in counters:
+                ctr.launches = 0
+        t = time.perf_counter()
+        with plain_calls() as plain:
+            vox, pv = voxelize(cen, c, m, 1 / 200.0, caps[0])
+            levels = build_hierarchy(vox, 4, capacities=caps[1:])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = {ctr.name: ctr.launches for ctr in counters}
+            if plain:
+                raise AssertionError(f"frame: plain twins called: {plain}")
+        out[dev] = (vox, pv, levels, 1e3 * (time.perf_counter() - t))
+    (gv, gpv, glv, g_ms), (cv, cpv, clv, c_ms) = out["cuda"], out["cpu"]
+    pairs = [("vox." + k, getattr(gv, k), getattr(cv, k))
+             for k in ("off", "key", "valid", "count")]
+    pairs.append(("point_to_voxel", gpv, cpv))
+    for li, (a, b) in enumerate(zip(glv, clv)):
+        for k in ("off", "key", "valid", "count", "parent_idx", "parent_ok",
+                  "row_ok", "octant", "child_idx", "child_hit", "kbits"):
+            if getattr(b, k) is not None:
+                pairs.append((f"level{li}.{k}", getattr(a, k), getattr(b, k)))
+    differ = [name for name, a, b in pairs if not torch.equal(a.cpu(), b)]
+    if differ:
+        raise AssertionError(f"frame: card vs CPU differ in {differ}")
+    if not launches.get("argsort"):
+        raise AssertionError(f"frame: the sort kernel did not run: "
+                             f"{launches}")
+    log("frame", points=FRAME_POINTS, real_points=int(mask.sum()),
+        capacities=list(caps), voxels=[int(lv.count[0]) for lv in glv],
+        equal_outputs=len(pairs), feats_max_abs_err=float(
+            (gv.feats.cpu() - cv.feats).abs().max()),
+        card_ms=g_ms, cpu_ms=c_ms, launches=launches)
+    return launches
 
 
 def _sk_work(level):
@@ -1277,7 +1358,7 @@ def _inference_report(engine, inputs, out, iters):
     batch_ms = 1e3 * med
     top = dict(sorted(device_ms.items(), key=lambda kv: -kv[1])[:12])
     ported = {k: sum(v for n, v in device_ms.items() if k in n)
-              for k in ("sort_chunk", "sort_global_stage", "conv_sk_kernel",
+              for k in ("radix_", "KeySearch",
                         "conv_down_kernel", "conv_up_kernel",
                         "conv_sk_q8_kernel", "conv_down_q8_kernel",
                         "conv_up_q8_kernel", "rank_kernel",
@@ -1353,11 +1434,37 @@ def _train_pair_errors(cpu, gpu, before):
             "bn": worst["bn"], "worst_tensor": worst}
 
 
+def _cpu_noise_floor(start, reference, cfg, batch, before, rel=1e-7):
+    """The CPU train step again from ``start`` with the input colours moved
+    by +-``rel`` relative (two seeded draws): the largest gradient and
+    update errors against ``reference`` over the four runs, the resolution
+    of a card-vs-CPU step check (C21)."""
+    from mrcc_tpu_torch.train import TrainConfig, make_segmentation_train_step
+
+    worst = {"grad": 0.0, "update": 0.0}
+    for seed in (0, 1):
+        noise = np.random.default_rng(seed).standard_normal(
+            batch["feats"].shape)
+        for sign in (1, -1):
+            model = copy.deepcopy(start)
+            moved = dict(batch, feats=(batch["feats"] * (
+                1 + sign * rel * noise)).astype(np.float32))
+            step, _ = make_segmentation_train_step(model, cfg, TrainConfig(),
+                                                   4096, device="cpu")
+            step(moved, 1e-4)
+            errs = _train_pair_errors(reference, model, before)
+            worst = {k: max(v, errs[k]) for k, v in worst.items()}
+    return worst
+
+
 def phase_train_card_vs_cpu(k3_self_keyed=True):
     """One train step from the same weights and batch on the card and on
     the CPU: minkunet14A, B=2, f32, capacity 4096; ``k3_self_keyed=False``:
     every level on tables (the table conv, its Function and the k3-table
-    dW kernel on the card, their plain twins on the CPU)."""
+    dW kernel on the card, their plain twins on the CPU).  The self-keyed
+    pair also reports ``cpu_noise_floor``: how far the CPU step itself
+    moves when its input colours move by 1e-7 relative (ROADMAP C21),
+    the most over four draws."""
     from mrcc_tpu_torch.data.dataset import DataConfig, SceneDataset
     from mrcc_tpu_torch.models import RobotNetSegmentation
     from mrcc_tpu_torch.sparse.nn import init_parameters
@@ -1368,6 +1475,7 @@ def phase_train_card_vs_cpu(k3_self_keyed=True):
     batch = data.collate(data.items)
     cpu = init_parameters(RobotNetSegmentation(backbone="minkunet14A"), 5)
     gpu = copy.deepcopy(cpu)
+    cpu_start = copy.deepcopy(cpu)
     before = {n: p.detach().clone() for n, p in cpu.named_parameters()}
     out = {}
     for dev, model in (("cpu", cpu), ("cuda", gpu)):
@@ -1382,6 +1490,9 @@ def phase_train_card_vs_cpu(k3_self_keyed=True):
                   k3_tables=step.k3_tables,
                   tolerance={"loss": 1e-5, "grad": 1e-4, "update": 1e-3,
                              "bn": 1e-5})
+    if k3_self_keyed:
+        report["cpu_noise_floor"] = _cpu_noise_floor(cpu_start, cpu, cfg,
+                                                     batch, before)
     if (loss_err > 1e-5 or errs["grad"] > 1e-4 or errs["update"] > 1e-3
             or errs["bn"] > 1e-5
             or any(step.k3_tables) == k3_self_keyed):
@@ -1487,9 +1598,9 @@ def _train_run(step, batch, counters, warmup, timed, lr=1e-4):
     step_ms = 1e3 * med
     top = dict(sorted(device_ms.items(), key=lambda kv: -kv[1])[:14])
     ported = {k: sum(v for n, v in device_ms.items() if k in n)
-              for k in ("sort_chunk", "sort_global_stage", "conv_sk_kernel",
+              for k in ("radix_", "KeySearch",
                         "conv_down_kernel", "conv_up_kernel",
-                        "conv_k3map_kernel", "rank_kernel", "SkSource",
+                        "NbrTable", "rank_kernel", "SkSource",
                         "DownSource", "UpSource", "TableSource", "dw_reduce")}
     checks = {"finite_losses": bool(np.isfinite(losses).all()),
               "loss_first": losses[0], "loss_last": losses[-1]}
@@ -1634,6 +1745,81 @@ def phase_train_scene(counters, warmup=2, timed=4):
     return launches
 
 
+@contextlib.contextmanager
+def sk_timed():
+    """Time every K2 launch of a run with CUDA events (the autograd
+    Function looks the wrapper up by module attribute): yields a list of
+    ``(rows, Cin, Cout, start event, end event)``."""
+    from mrcc_tpu_torch.ops import conv
+
+    calls, orig = [], conv.gather_gemm_sk
+
+    def timed(feats, weights, key, kbits):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig(feats, weights, key, kbits)
+        end.record()
+        calls.append((key.shape[1], feats.shape[-1], weights.shape[-1],
+                      start, end))
+        return out
+
+    conv.gather_gemm_sk = timed
+    try:
+        yield calls
+    finally:
+        conv.gather_gemm_sk = orig
+
+
+def pose_k2_breakdown(step, batch, lr=1e-4):
+    """K2's device time in one pose train step by level capacity (rows,
+    with the valid voxels of the levels of that capacity) and conv
+    (Cin -> Cout; a data cotangent runs Cout -> Cin with W[26 - k]^T), from
+    CUDA events around each launch."""
+    step(batch, lr)  # warm
+    torch.cuda.synchronize()
+    with sk_timed() as calls:
+        step(batch, lr)
+        torch.cuda.synchronize()
+    # levels of one capacity share a key (RobotNet's levels 0 and 1 both
+    # have 4096 rows): their voxels are summed
+    voxels = {}
+    for lv in step.prepare(batch)[1]:
+        rows = lv.key.shape[1]
+        voxels[rows] = voxels.get(rows, 0) + int(lv.count.sum())
+    by = {}
+    for rows, cin, cout, start, end in calls:
+        d = by.setdefault(f"{rows} rows ({voxels.get(rows)} voxels) "
+                          f"{cin}->{cout}", {"calls": 0, "ms": 0.0})
+        d["calls"] += 1
+        d["ms"] += start.elapsed_time(end)
+    per_level = {}
+    for rows, _, _, start, end in calls:
+        per_level[rows] = per_level.get(rows, 0.0) + start.elapsed_time(end)
+    return {"k2_ms": sum(per_level.values()), "k2_calls": len(calls),
+            "k2_ms_by_level": per_level, "k2_by_conv": by}
+
+
+def phase_pose_k2(seed=50):
+    """``--pose-k2``: only K2's breakdown in one RobotNet 18D pose step
+    (phase 10 c's configuration), for comparing kernel versions."""
+    from mrcc_tpu_torch.cli.train_mains import (PoseModelConfig,
+                                                select_pose_model)
+    from mrcc_tpu_torch.data.dataset import DataConfig, PoseDataset
+    from mrcc_tpu_torch.sparse.nn import init_parameters
+    from mrcc_tpu_torch.train import (LossConfig, TrainConfig,
+                                      make_pose_train_step)
+
+    data_cfg = DataConfig()
+    data = PoseDataset(data_cfg, 8, seed=seed)
+    model = init_parameters(select_pose_model(PoseModelConfig(), data_cfg), 3)
+    step, _ = make_pose_train_step(model, data_cfg,
+                                   LossConfig(loss_type="cos2"),
+                                   TrainConfig(batch_size=8), POSE_CAPACITY)
+    log("pose_k2", card=smi_line(),
+        **pose_k2_breakdown(step, data.collate(data.items)))
+
+
 def phase_pose_train(counters, warmup=2, timed=6):
     """Phase 10 (c): pose training at full width on B=8 EE crops at voxel
     capacity POSE_CAPACITY: RobotNet 18D with cos2 (``train_pose``'s
@@ -1663,6 +1849,8 @@ def phase_pose_train(counters, warmup=2, timed=6):
                                        POSE_CAPACITY)
         vox = step.prepare(batch)[0]
         launches, report = _train_run(step, batch, counters, warmup, timed)
+        if name == "pose_robotnet":
+            report["k2"] = pose_k2_breakdown(step, batch)
         log(name, model=type(model).__name__, backbone="minkunet (18D)",
             loss=loss, voxel_size=data_cfg.quantization_size,
             voxel_capacity=POSE_CAPACITY, k3_tables=step.k3_tables,
@@ -1684,6 +1872,11 @@ def main():
 
     from mrcc_tpu_torch.ops import conv, conv_q8, nn, rank, sort
 
+    if sys.argv[1:] == ["--pose-k2"]:
+        phase_build()
+        phase_pose_k2()
+        return 0
+
     def phase(name, fn, *args):
         t0 = time.perf_counter()
         out = fn(*args)
@@ -1701,6 +1894,7 @@ def main():
                     slevels, dev)
     phase("backward", phase_backward, tlevels, dev)
     del tlevels, plevels, slevels
+    frame = phase("frame", phase_frame, [sort.SORT, conv.SK, rank.RANK])
     phase("card_vs_cpu", phase_card_vs_cpu)
     phase("int8_card_vs_cpu", phase_int8_card_vs_cpu)
     phase("int8_tables_card_vs_cpu", phase_int8_card_vs_cpu, False)
@@ -1711,7 +1905,7 @@ def main():
     counters = [sort.SORT, conv.SK, conv.DOWN, conv.UP]
     launches, bf16_seg = phase("main_path", phase_main_path, inputs, caps,
                                counters)
-    launches = {"inference": launches}
+    launches = {"inference": launches, "frame": frame}
     torch.cuda.empty_cache()
     train_counters = counters + [conv.DW_SK, conv.DW_DOWN, conv.DW_UP]
     launches["training"] = phase("train", phase_train, train_counters)

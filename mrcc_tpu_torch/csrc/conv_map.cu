@@ -19,29 +19,30 @@
 // Bound on the card: the down conv reads 8 child rows of Cin per parent,
 // the k3 conv up to 27 neighbour rows per row, the up conv one parent row
 // per child; all do 2 * Cin * Cout FLOPs per gathered row (operations at
-// the k3 conv's decoder widths, bytes at narrow ones).  Design: one kernel
-// for the down and k3 maps, templated on the offset count; the maps are
-// read once per CTA into shared memory (27 x 64 ints for k3), offsets no
-// row of the tile hits are skipped, and the identity offset reads the
-// table like any other (its entry is the row itself where valid);
-// gathered rows stage through shared memory in f32 and accumulate with FMA
-// (gather_gemm.cuh).  The up conv keeps all eight weight slices of a channel
-// stage in shared memory (8 x 8 x 64 f32 = 16 KB) so that each output row
-// multiplies by its own octant's slice.  First version: CUDA-core FMA.
+// the k3 conv's decoder widths, bytes at narrow ones).  Design: the down
+// map's CTA reads its 8 x 64 map entries once into shared memory, skips
+// offsets no row of the tile hits, stages gathered rows through shared
+// memory in f32 and accumulates with FMA (gather_gemm.cuh).  The up conv
+// keeps all eight weight slices of a channel stage in shared memory
+// (8 x 8 x 64 f32 = 16 KB) so that each output row multiplies by its own
+// octant's slice.  Both are CUDA-core first versions.  The k3 table conv
+// runs the self-keyed conv's tensor-core tile (gather_mma.cuh) with a table
+// load for the key search: its neighbour list is the same as K2's (the
+// identity offset's entry is the row itself where valid), so the two k3
+// routes give the same bits, forward and backward.
 
 #include "gather_gemm.cuh"
+#include "gather_mma.cuh"
 
 namespace {
 
 using namespace mrcc;
 
 constexpr int K2 = 8;
-constexpr int K3 = 27;
 constexpr int KC_DOWN = 16;
 constexpr int KC_UP = 8;
 
-// K-offset map conv (K = 8: down, K = 27: k3 table); named conv_down_kernel
-// for K = 8 and conv_k3map_kernel for K = 27 in profiles.
+// K-offset map conv (K = 8: the down conv).
 template <typename T, int K>
 __device__ __forceinline__ void conv_map_body(
     const T* __restrict__ feats, const T* __restrict__ w,
@@ -98,15 +99,28 @@ conv_down_kernel(const T* __restrict__ feats, const T* __restrict__ w,
                        n_out, cin, cout);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-conv_k3map_kernel(const T* __restrict__ feats, const T* __restrict__ w,
-                  const int* __restrict__ nbr_idx,
-                  const uint8_t* __restrict__ nbr_hit, T* __restrict__ out,
-                  int batch, int n, int cin, int cout) {
-  conv_map_body<T, K3>(feats, w, nbr_idx, nbr_hit, out, batch, n, n, cin,
-                       cout);
-}
+// The k3 table conv's row source: the neighbour tables of the level,
+// nbr_idx / nbr_hit [27, B, n].
+struct NbrTable {
+  const int* idx;
+  const uint8_t* hit;
+  int batch;
+
+  __device__ __forceinline__ void resolve(int b, int m0, int n,
+                                          int* nbr) const {
+    for (int e = threadIdx.x; e < tc::K3 * tc::BM; e += tc::THREADS) {
+      const int k = e / tc::BM;
+      const int row = m0 + e % tc::BM;
+      int j = -1;
+      if (row < n) {
+        const size_t o = (static_cast<size_t>(k) * batch + b) * n + row;
+        if (hit[o]) j = idx[o];
+      }
+      nbr[e] = j;
+    }
+    __syncthreads();
+  }
+};
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -190,18 +204,6 @@ int launch_down(const void* feats, const void* w, const int* child_idx,
 }
 
 template <typename T>
-int launch_k3map(const void* feats, const void* w, const int* nbr_idx,
-                 const uint8_t* nbr_hit, void* out, int batch, int n, int cin,
-                 int cout, cudaStream_t stream) {
-  if (n > 0 && batch > 0 && cout > 0) {
-    conv_k3map_kernel<T><<<conv_grid(n, cout, batch), THREADS, 0, stream>>>(
-        static_cast<const T*>(feats), static_cast<const T*>(w), nbr_idx,
-        nbr_hit, static_cast<T*>(out), batch, n, cin, cout);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
 int launch_up(const void* feats, const void* w, const int* parent_idx,
               const uint8_t* row_ok, const int* octant, void* out, int batch,
               int n_in, int n_out, int cin, int cout, cudaStream_t stream) {
@@ -236,21 +238,28 @@ extern "C" int mrcc_conv_down_bf16(const void* feats, const void* w,
 }
 
 // k3 table: feats [B, n, cin], w [27, cin, cout], nbr_idx [27, B, n] int32,
-// nbr_hit [27, B, n] bool, out [B, n, cout].  Returns cudaGetLastError().
+// nbr_hit [27, B, n] bool, out [B, n, cout].  lists: int32 scratch of
+// B * ceil(n / 64) * (27 * 64 + 28) where cout > 128, else may be null.
+// Returns cudaGetLastError().
 extern "C" int mrcc_conv_k3map_f32(const void* feats, const void* w,
                                    const int* nbr_idx, const uint8_t* nbr_hit,
-                                   void* out, int batch, int n, int cin,
-                                   int cout, cudaStream_t stream) {
-  return launch_k3map<float>(feats, w, nbr_idx, nbr_hit, out, batch, n, cin,
-                             cout, stream);
+                                   int* lists, void* out, int batch, int n,
+                                   int cin, int cout, cudaStream_t stream) {
+  const cudaError_t err = tc::launch_gather_mma<float>(
+      feats, w, NbrTable{nbr_idx, nbr_hit, batch}, lists, out, batch, n, cin,
+      cout, stream);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 extern "C" int mrcc_conv_k3map_bf16(const void* feats, const void* w,
-                                    const int* nbr_idx, const uint8_t* nbr_hit,
+                                    const int* nbr_idx,
+                                    const uint8_t* nbr_hit, int* lists,
                                     void* out, int batch, int n, int cin,
                                     int cout, cudaStream_t stream) {
-  return launch_k3map<__nv_bfloat16>(feats, w, nbr_idx, nbr_hit, out, batch,
-                                     n, cin, cout, stream);
+  const cudaError_t err = tc::launch_gather_mma<__nv_bfloat16>(
+      feats, w, NbrTable{nbr_idx, nbr_hit, batch}, lists, out, batch, n, cin,
+      cout, stream);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // up: feats [B, n_in, cin] (coarse level), w [8, cin, cout],

@@ -4,7 +4,8 @@ without augmentation).
 
 ``DataConfig`` holds the DATA fields the trainers read.  ``SceneDataset``
 serves whole scenes for segmentation (the JAX segmentation main sets
-``data_type`` to None): centred as ``_post_point_ops`` does.
+``data_type`` to None): colours rescued and points centred as
+``AliveV2Dataset._load_item`` and ``_post_point_ops`` do.
 ``PoseDataset`` serves pose items as ``AliveV2Dataset._load_item`` builds
 them: the label pose in WXYZ, the crop to the EE (label 2) for
 ``data_type="ee_seg"``, the colour rescue, ``voxelize_position``,
@@ -64,6 +65,19 @@ def collate(items, cfg: DataConfig):
     return out
 
 
+def rescue_colours(rgb):
+    """``AliveV2Dataset._load_item``'s colour rescue: colours with a
+    negative value are min-max scaled into [0, 1] per channel, and colours
+    in [0, 1] are centred to [-0.5, 0.5]."""
+    if len(rgb) > 0:
+        if rgb.min() < 0:
+            mn, mx = rgb.min(0), rgb.max(0)
+            rgb = (rgb - mn) / np.maximum(mx - mn, 1e-12)
+        if rgb.min() > -1e-6 and rgb.max() < 1 + 1e-6:
+            rgb = rgb - 0.5
+    return rgb
+
+
 def _batches(dataset, batch_size, shuffle, seed, drop_last):
     order = np.arange(len(dataset))
     if shuffle:
@@ -77,7 +91,8 @@ def _batches(dataset, batch_size, shuffle, seed, drop_last):
 
 class SceneDataset:
     """``n_scenes`` scenes of ``generate_sample(seed + i, **sample_kw)``,
-    generated once: ``points``, ``feats`` (RGB) and ``labels`` (int32)."""
+    generated once: ``points``, ``feats`` (RGB after the colour rescue,
+    :func:`rescue_colours`) and ``labels`` (int32)."""
 
     def __init__(self, cfg: DataConfig, n_scenes: int, seed: int = 0,
                  **sample_kw):
@@ -88,8 +103,9 @@ class SceneDataset:
             points = s["points"]
             if cfg.center_at_origin:
                 points = points - (points.max(0) + points.min(0)) / 2
+            rgb = rescue_colours(np.asarray(s["rgb"], np.float32))
             self.items.append({"points": points.astype(np.float32),
-                               "feats": s["rgb"].astype(np.float32),
+                               "feats": rgb.astype(np.float32),
                                "labels": s["labels"].astype(np.int32)})
 
     def __len__(self):
@@ -121,12 +137,7 @@ def pose_item(sample, cfg: DataConfig):
     elif cfg.data_type is not None:
         raise NotImplementedError(f"data_type {cfg.data_type!r}: the port "
                                   "serves None and 'ee_seg'")
-    if len(rgb) > 0:  # colour rescue: min-max to [0, 1], then centred
-        if rgb.min() < 0:
-            mn, mx = rgb.min(0), rgb.max(0)
-            rgb = (rgb - mn) / np.maximum(mx - mn, 1e-12)
-        if rgb.min() > -1e-6 and rgb.max() < 1 + 1e-6:
-            rgb = rgb - 0.5
+    rgb = rescue_colours(rgb)
     if cfg.voxelize_position:
         pose[:3] /= cfg.quantization_size
     if cfg.data_type == "ee_seg" and cfg.move_ee_to_origin:

@@ -2,14 +2,16 @@
 
 K2 (``csrc/conv_sk.cu``) replaces ``conv_pallas._gather_gemm_call_sk``: the
 self-keyed k=3 s=1 conv that resolves neighbours from the level's sorted
-keys and per-row validity bitmap, with no neighbour tables.
+keys and per-row validity bitmap, with no neighbour tables, on the
+tensor-core tile of ``csrc/gather_mma.cuh``.
 
 K3 (``csrc/conv_map.cu``) replaces ``conv_pallas._gather_gemm_call`` in its
 k2-down and broadcast-k up modes, convs over the explicit stride-2 maps
 that ``build_hierarchy`` scatters, and in its k3-table mode
 (:func:`gather_gemm_k3_map`), the k=3 s=1 conv over the rank kernel's
-neighbour tables; reading global memory at any N, it also stands in for
-``conv_pallas._gather_gemm_call_hbm``.
+neighbour tables (K2's tile with a table load for the key search, so the
+two k3 routes give the same bits); reading global memory at any N, it also
+stands in for ``conv_pallas._gather_gemm_call_hbm``.
 
 The weight gradients: ``csrc/conv_dw_sk.cu`` (:func:`dw_sk`) replaces
 ``conv_pallas._dw_call_sk`` and ``csrc/conv_dw_map.cu`` (:func:`dw_down`,
@@ -43,16 +45,16 @@ if any(_K3_DELTAS[26 - k] != -d for k, d in enumerate(_K3_DELTAS)):
     raise AssertionError("K3_OFFSETS lost the negated-delta symmetry")
 
 SK_LIB = KernelLibrary("conv_sk", {
-    "mrcc_conv_sk_f32": (P, P, P, P, P, I, I, I, I, P),
-    "mrcc_conv_sk_bf16": (P, P, P, P, P, I, I, I, I, P),
+    "mrcc_conv_sk_f32": (P, P, P, P, P, P, I, I, I, I, P),
+    "mrcc_conv_sk_bf16": (P, P, P, P, P, P, I, I, I, I, P),
 })
 MAP_LIB = KernelLibrary("conv_map", {
     "mrcc_conv_down_f32": (P, P, P, P, P, I, I, I, I, I, P),
     "mrcc_conv_down_bf16": (P, P, P, P, P, I, I, I, I, I, P),
     "mrcc_conv_up_f32": (P, P, P, P, P, P, I, I, I, I, I, P),
     "mrcc_conv_up_bf16": (P, P, P, P, P, P, I, I, I, I, I, P),
-    "mrcc_conv_k3map_f32": (P, P, P, P, P, I, I, I, I, P),
-    "mrcc_conv_k3map_bf16": (P, P, P, P, P, I, I, I, I, P),
+    "mrcc_conv_k3map_f32": (P, P, P, P, P, P, I, I, I, I, P),
+    "mrcc_conv_k3map_bf16": (P, P, P, P, P, P, I, I, I, I, P),
 })
 DW_SK_LIB = KernelLibrary("conv_dw_sk", {
     "mrcc_dw_sk_f32": (P, P, P, P, P, P, I, I, I, I, I, P),
@@ -81,6 +83,10 @@ _DW_TARGET_CTAS = 1056  # 8 CTAs per SM of an H100 (132 SMs)
 _DW_MIN_ROWS = 2048     # rows of one slice at least
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+_MMA_ROWS = 64     # BM of csrc/gather_mma.cuh
+_MMA_COLS = 128    # BN
+_MMA_LIST = 27 * 64 + 28  # LIST: one row tile's neighbours and offsets
 
 
 def _route(*tensors) -> bool:
@@ -140,6 +146,15 @@ def _dw_buffers(k, cin, cout, rows, device):
     part = (torch.empty((slices, k, cin, cout), dtype=torch.float32,
                         device=device) if slices > 1 else None)
     return slices, part, out
+
+
+def _k3_lists(b, n, cout, device):
+    """Scratch of the k3 convs' resolved row tiles (``gather_mma.cuh``),
+    used where Cout spans several column tiles."""
+    if cout <= _MMA_COLS:
+        return None
+    return torch.empty(b * -(-n // _MMA_ROWS) * _MMA_LIST, dtype=torch.int32,
+                       device=device)
 
 
 def _gather(f, idx):
@@ -203,9 +218,10 @@ def gather_gemm_sk(feats, weights, key, kbits):
     feats, weights = feats.contiguous(), weights.contiguous()
     key, kbits = key.contiguous(), kbits.contiguous()
     out = torch.empty((b, n, cout), dtype=feats.dtype, device=feats.device)
+    lists = _k3_lists(b, n, cout, feats.device)
     SK_LIB.call(f"mrcc_conv_sk_{_SUFFIX[feats.dtype]}", ptr(feats),
-                ptr(weights), ptr(key), ptr(kbits), ptr(out), b, n, cin, cout,
-                stream_ptr(feats))
+                ptr(weights), ptr(key), ptr(kbits), ptr(lists), ptr(out), b, n,
+                cin, cout, stream_ptr(feats))
     SK.launches += 1
     return out
 
@@ -288,9 +304,10 @@ def gather_gemm_k3_map(feats, weights, nbr_idx, nbr_hit):
     feats, weights = feats.contiguous(), weights.contiguous()
     nbr_idx, nbr_hit = nbr_idx.contiguous(), nbr_hit.contiguous()
     out = torch.empty((b, n, cout), dtype=feats.dtype, device=feats.device)
+    lists = _k3_lists(b, n, cout, feats.device)
     MAP_LIB.call(f"mrcc_conv_k3map_{_SUFFIX[feats.dtype]}", ptr(feats),
-                 ptr(weights), ptr(nbr_idx), ptr(nbr_hit), ptr(out), b, n,
-                 feats.shape[-1], cout, stream_ptr(feats))
+                 ptr(weights), ptr(nbr_idx), ptr(nbr_hit), ptr(lists),
+                 ptr(out), b, n, feats.shape[-1], cout, stream_ptr(feats))
     K3MAP.launches += 1
     return out
 

@@ -1,8 +1,11 @@
-"""K1 — stable ascending argsort of int32 keys (``csrc/sort.cu``).
+"""K1 — stable ascending argsort of int32 keys (``csrc/sort.cu``: an LSD
+radix sort, three passes of 11-bit digits over tiles of 2048 entries).
 
-Replaces ``mrcc_tpu/ops/sort_pallas.py::bitonic_argsort``.  The contract is
-stable order under duplicates: voxelize passes many points per voxel key
-and every downsample many children per parent key, plus KEY_PAD rows.
+Replaces ``mrcc_tpu/ops/sort_pallas.py::bitonic_argsort``; unlike it, and
+like the JAX package's XLA fallback (``mrcc_tpu/sparse/sorting.py``), it
+takes any row length.  The contract is stable order under duplicates:
+voxelize passes many points per voxel key and every downsample many
+children per parent key, plus KEY_PAD rows.
 ``sort_pallas.py`` documents "valid entries unique"; the callers never
 guaranteed it, and neither kernel needs it.
 """
@@ -13,20 +16,14 @@ import torch
 
 from .build import I, KernelLibrary, LaunchCounter, P, ptr, stream_ptr
 
-MAX_N = 1 << 17          # the TPU kernel's range (sort_pallas.supported)
-_CHUNK = 1 << 14         # entries one block sorts in shared memory
+_TILE = 2048     # entries of one radix tile (csrc/sort.cu kTile)
+_RADIX = 2048    # buckets of an 11-bit digit
+_MAX_B = 65535   # grid.y
 
 LIB = KernelLibrary("sort", {
-    "mrcc_argsort_i32": (P, P, P, P, I, I, I, P),
+    "mrcc_argsort_i32": (P, P, P, P, I, I, P),
 })
 SORT = LaunchCounter("argsort")
-
-
-def _next_pow2(n: int) -> int:
-    p = 2
-    while p < n:
-        p <<= 1
-    return p
 
 
 def argsort_plain(key: torch.Tensor):
@@ -40,7 +37,8 @@ def argsort(key: torch.Tensor):
 
     Returns ``(sorted_key [B, N] int32, perm [B, N] int32)`` with
     ``sorted_key == key.gather(-1, perm)``; equal keys keep index order.
-    CUDA tensors run the kernel (N <= 2**17), CPU tensors the plain twin.
+    CUDA tensors run the kernel (any N an int32 index reaches), CPU tensors
+    the plain twin.
     """
     if key.device.type == "cpu":
         return argsort_plain(key)
@@ -50,17 +48,19 @@ def argsort(key: torch.Tensor):
         raise ValueError(f"argsort: needs int32 [B, N], got {key.dtype} "
                          f"{tuple(key.shape)}")
     b, n = key.shape
-    if n > MAX_N:
-        raise ValueError(f"argsort: N = {n} exceeds {MAX_N}")
+    if b > _MAX_B:
+        raise ValueError(f"argsort: B = {b} exceeds {_MAX_B}")
     key = key.contiguous()
-    skey = torch.empty_like(key)
-    perm = torch.empty_like(key)
+    out = torch.empty((2, b, n), dtype=torch.int32, device=key.device)
+    skey, perm = out[0], out[1]
     if b == 0 or n == 0:
         return skey, perm
-    n2 = _next_pow2(n)
-    scratch = (torch.empty((b, n2), dtype=torch.int64, device=key.device)
-               if n2 > _CHUNK else None)
-    LIB.call("mrcc_argsort_i32", ptr(key), ptr(skey), ptr(perm), ptr(scratch),
-             b, n, n2, stream_ptr(key))
+    tiles = -(-n // _TILE)
+    # ping-pong keys and indices, the three passes' tile histograms, one
+    # pass's tile offsets and the row histograms (csrc/sort.cu)
+    scratch = torch.empty(2 * b * n + 4 * b * tiles * _RADIX + 3 * b * _RADIX,
+                          dtype=torch.int32, device=key.device)
+    LIB.call("mrcc_argsort_i32", ptr(key), ptr(skey), ptr(perm),
+             ptr(scratch), b, n, stream_ptr(key))
     SORT.launches += 1
     return skey, perm

@@ -6,8 +6,10 @@ there on its own:
 
     python -m pytest tests/test_torch_kernels.py -m gpu --noconftest
 
-Tolerances: the sort is exact; f32 convs and dW kernels agree with the
-plain twin to relative norm 1e-5 (summation order), bf16 ones with the f32
+Tolerances: the sort is exact (at any N: 2^18 and a 640 x 480 frame are
+past the first kernel's limit); f32 convs and dW kernels agree with the
+plain twin to relative norm 1e-5 (summation order; the self-keyed conv's
+f32 route is a 3xTF32 split on tensor cores), bf16 ones with the f32
 twin to 2e-2; the int8 convs agree with their plain twins to 1 ulp of the
 output type elementwise (their int32 sums are exact) and with the f32
 plain conv to 3e-2.  The dW kernels are deterministic (no float atomics): two
@@ -55,26 +57,52 @@ def _rel(a, b):
     return float((a.float() - b.float()).norm() / b.float().norm())
 
 
-@pytest.mark.parametrize("n", [1, 77, 4096, 16384, 16385, 40000, 1 << 17])
+def _check_argsort(key):
+    before = sort.SORT.launches
+    got = sort.argsort(key)
+    assert sort.SORT.launches == before + 1
+    want = torch.sort(key, dim=-1, stable=True)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1].to(torch.int32))
+
+
+@pytest.mark.parametrize("n", [1, 2, 77, 4095, 4096, 12544, 16384, 16385,
+                               40000, 1 << 17, (1 << 17) + 1, 1 << 18,
+                               307200])
 def test_argsort_exact(cuda, n):
+    """Duplicate-heavy keys with a quarter KEY_PAD rows; 2^18 and 307200
+    (a 640 x 480 frame) are past the first kernel's 2^17 limit."""
     gen = torch.Generator().manual_seed(n)
     key = torch.randint(0, max(n // 4, 2), (3, n), generator=gen,
                         dtype=torch.int32)
     key[:, torch.rand(n, generator=gen) < 0.25] = KEY_PAD
-    key = key.to(cuda)
-    before = sort.SORT.launches
-    got = sort.argsort(key)
-    assert sort.SORT.launches == before + 1
-    want = sort.argsort_plain(key)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    _check_argsort(key.to(cuda))
+
+
+@pytest.mark.parametrize("kind", ["equal", "pad", "negative"])
+@pytest.mark.parametrize("n", [4095, 307200])
+def test_argsort_key_kinds(cuda, kind, n):
+    """All-equal rows, all-KEY_PAD rows, and negative keys down to the
+    int32 limits (the sign flip)."""
+    gen = torch.Generator().manual_seed(n + len(kind))
+    if kind == "equal":
+        key = torch.full((2, n), 12345, dtype=torch.int32)
+    elif kind == "pad":
+        key = torch.full((2, n), KEY_PAD, dtype=torch.int32)
+    else:
+        key = torch.randint(-(1 << 31), (1 << 31) - 1, (2, n), generator=gen,
+                            dtype=torch.int32)
+        key[:, ::7] = -3
+        key[:, 1::11] = torch.iinfo(torch.int32).min
+        key[:, 2::13] = torch.iinfo(torch.int32).max
+    _check_argsort(key.to(cuda))
 
 
 def test_argsort_rejects(cuda):
     with pytest.raises(ValueError):
         sort.argsort(torch.zeros((2, 8), dtype=torch.int64, device=cuda))
     with pytest.raises(ValueError):
-        sort.argsort(torch.zeros((1, (1 << 17) + 1), dtype=torch.int32,
-                                 device=cuda))
+        sort.argsort(torch.zeros((2, 8, 3), dtype=torch.int32, device=cuda))
 
 
 def _feats(level, c, dtype=torch.float32):
@@ -95,6 +123,74 @@ def test_conv_sk(cuda, levels, l, cin, cout):
     assert _rel(got, want) <= 1e-5
     got16 = conv.gather_gemm_sk(f.bfloat16(), w.bfloat16(), lv.key, lv.kbits)
     assert got16.dtype == torch.bfloat16 and _rel(got16, want) <= 2e-2
+
+
+@pytest.fixture(scope="module")
+def ragged_level(cuda):
+    """A level 0 of 3300 rows (not a multiple of the 64-row tile) with
+    3130 / 3030 voxels and padding after them."""
+    pts, rgb, mask = build_batch(2, 4096, seed=4)
+    vox, _ = voxelize(torch.as_tensor(pts, device=cuda),
+                      torch.as_tensor(rgb, device=cuda),
+                      torch.as_tensor(mask, device=cuda), 1 / 100.0, 3300)
+    return build_hierarchy(vox, 1, capacities=(1024,))[0]
+
+
+def _check_sk(lv, cin, cout, scale=1.0):
+    f = _feats(lv, cin)
+    w = torch.randn((27, cin, cout), device=lv.key.device) * scale / cin**0.5
+    want = conv.gather_gemm_sk_plain(f, w, lv.key, lv.kbits)
+    before = conv.SK.launches
+    got = conv.gather_gemm_sk(f, w, lv.key, lv.kbits)
+    assert conv.SK.launches == before + 1
+    assert got.dtype == torch.float32 and _rel(got, want) <= 1e-5
+    got16 = conv.gather_gemm_sk(f.bfloat16(), w.bfloat16(), lv.key, lv.kbits)
+    assert got16.dtype == torch.bfloat16 and _rel(got16, want) <= 2e-2
+    return got, got16
+
+
+@pytest.mark.parametrize("cout", [32, 96, 256, 384])
+@pytest.mark.parametrize("cin", [3, 32, 96, 384, 416])
+def test_conv_sk_widths(cuda, ragged_level, cin, cout):
+    """The main paths' widths (ragged Cin 3, Cin / Cout not multiples of
+    the MMA tile) over 3300 rows: f32 (3xTF32) 1e-5, bf16 2e-2."""
+    assert ragged_level.key.shape[1] % 64 != 0
+    _check_sk(ragged_level, cin, cout)
+
+
+@pytest.mark.parametrize("case", ["border", "scattered"])
+def test_conv_sk_wide_span(cuda, case):
+    """C4: keys over the whole 10-bit window (border keys alias across the
+    packed fields; the bitmap gates them) and blobs far apart in key
+    order."""
+    gen = torch.Generator().manual_seed(len(case))
+    if case == "border":
+        ax = torch.tensor([0, 1, 2, 3, 511, 512, 1020, 1021, 1022, 1023])
+        off = torch.cartesian_prod(ax, ax, ax).float()
+    else:
+        centres = torch.randint(40, 984, (8, 1, 3), generator=gen)
+        off = (centres + torch.randint(-4, 5, (8, 90, 3), generator=gen)) \
+            .reshape(-1, 3).float()
+    pts = ((off - 512 + 0.5) * 0.01)[None].expand(2, -1, -1).contiguous()
+    rgb = torch.rand(pts.shape, generator=gen)
+    vox, _ = voxelize(pts.to(cuda), rgb.to(cuda),
+                      torch.ones(pts.shape[:2], dtype=torch.bool,
+                                 device=cuda), 0.01, 1024)
+    lv = build_hierarchy(vox, 1, capacities=(512,))[0]
+    _check_sk(lv, 40, 72)
+
+
+def test_conv_sk_all_padding(cuda, ragged_level):
+    """Rows whose bitmap is 0 (padding) hit nothing and come out 0."""
+    import dataclasses
+
+    lv = dataclasses.replace(ragged_level,
+                             kbits=torch.zeros_like(ragged_level.kbits))
+    f = _feats(ragged_level, 96)
+    w = torch.randn((27, 96, 256), device=cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        got = conv.gather_gemm_sk(f.to(dtype), w.to(dtype), lv.key, lv.kbits)
+        assert got.dtype == dtype and not got.any()
 
 
 @pytest.mark.parametrize("cin,cout", [(32, 32), (20, 90)])
@@ -235,6 +331,28 @@ def test_conv_function_backward(cuda, levels, kind):
     ct = _feats(dst, cout)
     grads = []
     for run in (fn, plain):
+        f = f0.clone().requires_grad_()
+        w = w0.clone().requires_grad_()
+        (run(f, w) * ct).sum().backward()
+        grads.append((f.grad, w.grad))
+    for got, want in zip(*grads):
+        assert _rel(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("cin,cout", [(3, 32), (96, 256), (416, 384)])
+def test_sk_conv_fn_backward_widths(cuda, ragged_level, cin, cout):
+    """SkConvFn's backward (K2 with W[26 - k]^T for dfeats, the dW kernel)
+    vs autograd through the plain twin: 1e-5 in f32."""
+    from mrcc_tpu_torch.sparse import conv as C
+
+    lv = ragged_level
+    f0 = _feats(lv, cin)
+    w0 = torch.randn((27, cin, cout), device=cuda) / cin**0.5
+    ct = _feats(lv, cout)
+    grads = []
+    for run in (lambda f, w: C.conv_k3(f, w, lv),
+                lambda f, w: conv.gather_gemm_sk_plain(f, w, lv.key,
+                                                       lv.kbits)):
         f = f0.clone().requires_grad_()
         w = w0.clone().requires_grad_()
         (run(f, w) * ct).sum().backward()

@@ -17,6 +17,7 @@ from mrcc_tpu.ops.rank_pallas import sk_bits
 from mrcc_tpu.sparse import build_hierarchy as jax_build_hierarchy
 from mrcc_tpu.sparse import slice_to_points as jax_slice_to_points
 from mrcc_tpu.sparse import voxelize as jax_voxelize
+from mrcc_tpu.sparse.sorting import argsort_keys as jax_argsort_keys
 from mrcc_tpu.sparse.hierarchy import K3_OFFSETS as JAX_K3_OFFSETS
 from mrcc_tpu_torch.ops.sort import argsort, argsort_plain
 from mrcc_tpu_torch.sparse import (KEY_PAD, build_hierarchy, slice_to_points,
@@ -75,6 +76,28 @@ def test_sort_plain_matches_jax_stable_argsort(n):
         np.testing.assert_array_equal(order.numpy(), want_order)
         np.testing.assert_array_equal(skey.numpy(),
                                       np.take_along_axis(key, want_order, -1))
+
+
+def test_sort_and_voxelize_past_two_pow_17_match_jax():
+    """B = 1, P = 2^17 + 4096 (past the TPU kernel's range, where the JAX
+    package takes XLA's stable argsort): the port's argsort and voxelize
+    give the same order, keys and voxel rows."""
+    p = (1 << 17) + 4096
+    pts, rgb, mask = _cloud(17, b=1, p=p)
+    coords = np.floor(pts / Q).astype(np.int32) + 512
+    ok = mask & ((coords >= 0) & (coords < 1024)).all(-1)
+    key = np.where(ok, (coords[..., 0] << 20) | (coords[..., 1] << 10)
+                   | coords[..., 2], KEY_PAD).astype(np.int32)
+    want_key, want_order = jax_argsort_keys(jnp.asarray(key))
+    got_key, got_order = argsort(_t(key))
+    _same(want_order, got_order)
+    _same(want_key, got_key)
+    vox_j, pv_j, _ = jax_voxelize(jnp.asarray(pts), jnp.asarray(rgb),
+                                  jnp.asarray(mask), Q, 65536)
+    vox, pv = voxelize(_t(pts), _t(rgb), _t(mask), Q, 65536)
+    for name in ("off", "key", "valid", "count", "feats"):
+        _same(getattr(vox_j, name), getattr(vox, name))
+    _same(pv_j, pv)
 
 
 @pytest.mark.parametrize("capacity", [2048, 300])  # 300 overflows
