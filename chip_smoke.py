@@ -31,14 +31,17 @@ last line):
    int8 ones at the int8 path's shapes (the seg net's, one split into
    channel groups), the dW kernels at the training shapes in f32 (the
    k3-table dW at the K2 dW's shapes on tables and at the scene-scale
-   level 0), the rank kernel (exact) and the k3-table convs at the
-   production levels' shapes and at the widest f32 training shape, the
-   int8 one also at a two-group resident shape, the nearest-neighbour
-   kernel (d2 1e-5, indices equal but for near-ties: the two smallest d2
-   within 1e-6 of |a|^2); then the
-   backward of each autograd conv Function (the self-keyed and the table
-   k3 convs, down, up) on the card against autograd through the plain
-   twins on the card (f32, 1e-5); then one full 640 x 480 frame (B = 1,
+   level 0; two launches bit-equal; their hit lists exactly equal to the
+   plain twin's, the list kernel timed once per source; beside each, the
+   3xTF32 bound and ``torch.mm`` over the same hits' operands gathered
+   beforehand, the GEMM alone), the rank kernel (exact) and the k3-table
+   convs at the production levels' shapes and at the widest f32 training
+   shape, the int8 one also at a two-group resident shape, the
+   nearest-neighbour kernel (d2 1e-5, indices equal but for near-ties: the
+   two smallest d2 within 1e-6 of |a|^2); then the backward of each
+   autograd conv Function (the self-keyed and the table k3 convs, down,
+   up) on the card against autograd through the plain twins on the card
+   (f32, 1e-5); then one full 640 x 480 frame (B = 1,
    P = 307200): ``measure_seg_caps``, ``voxelize`` and ``build_hierarchy``
    on the card against the CPU, every integer output equal;
 4. the inference slice on the card vs on the CPU: one engine pair with the
@@ -98,7 +101,9 @@ last line):
     events around each launch of one step).
 
 ``python3 chip_smoke.py --pose-k2`` builds the kernels and runs only that
-K2 breakdown.
+K2 breakdown; ``--dw`` builds them and times each dW launch of one phase-7
+step and one phase-10 b step by kernel and shape (CUDA events), to compare
+two versions of the dW kernels in one call.
 
 f32 phases run with TF32 off (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` False).  The last lines are the card's
@@ -145,6 +150,7 @@ SOURCES = {
     "conv_k3map_q8": "mrcc_tpu_torch/csrc/conv_map_q8.cu",
     "nn_search": "mrcc_tpu_torch/csrc/nn_search.cu",
     "dw_k3map": "mrcc_tpu_torch/csrc/conv_dw_map.cu",
+    "dw_lists": "mrcc_tpu_torch/csrc/hit_lists.cuh",
 }
 K2_TPU = "mrcc_tpu/ops/conv_pallas.py:767"    # _gather_gemm_call_sk
 K3_TPU = "mrcc_tpu/ops/conv_pallas.py:120"    # _gather_gemm_call
@@ -591,6 +597,8 @@ def phase_kernels(levels, tlevels, plevels, slevels, device):
                        bound_ms(4 * (3 * b * m + 3 * b * n + 2 * b * m)
                                 + b * n, 8 * b * m * n, "f32")))))
 
+    listed = set()
+
     def dw_case(name, kernel, fn, plain, f, g, maps, work, path="training"):
         want = plain(f, g, *maps)
         got32 = fn(f, g, *maps)
@@ -599,12 +607,29 @@ def phase_kernels(levels, tlevels, plevels, slevels, device):
         if errs["f32"] > TOL_F32 or errs["bf16"] > TOL_BF16:
             raise AssertionError(f"{name}: relative error {errs} over "
                                  f"(f32 {TOL_F32}, bf16 {TOL_BF16})")
+        if not torch.equal(fn(f, g, *maps), got32):
+            raise AssertionError(f"{name}: two launches differ")
         k, cin, cout = want.shape
         # the feature rows the hits gather, the g rows of outputs with a
         # hit, dW once, and the map entries of valid rows
         nbytes = (4 * (work["read"] * cin + work["written"] * cout
                        + want.numel()) + work["map_bytes"])
-        bms, by = bound_ms(nbytes, 2 * work["hits"] * cin * cout, "f32")
+        ops = 2 * work["hits"] * cin * cout
+        bms, by = bound_ms(nbytes, ops, "f32")
+        # the hit lists, exact against their twin; then the yardstick of
+        # the GEMM alone: torch.mm over the operands of the same hits,
+        # gathered beforehand (f32, TF32 off)
+        kind = kernel.removeprefix("dw_")
+        n_in = f.shape[1]
+        lists = conv.dw_hit_lists(kind, n_in, *maps)
+        twin = conv.dw_hit_lists_plain(kind, n_in, *maps)
+        if not all(torch.equal(a, b) for a, b in zip(lists, twin)):
+            raise AssertionError(f"{name}: hit lists differ from the twin")
+        ff, gg = f.reshape(-1, cin), g.reshape(-1, cout)
+        pairs = [(ff[lists[0][j, :c].long()], gg[lists[1][j, :c].long()])
+                 for j, c in enumerate(lists[2].tolist())]
+        gemm_ms = cuda_ms(lambda: [torch.mm(a.T, b) for a, b in pairs])
+        del pairs
         records.append(dict(
             name=name, kernel=kernel, path=path, route="cuda",
             source=SOURCES[kernel], replaces=DW_TPU[kernel],
@@ -612,7 +637,28 @@ def phase_kernels(levels, tlevels, plevels, slevels, device):
             tolerance={"f32": TOL_F32, "bf16": TOL_BF16}, dtype="f32",
             work=work, ms=cuda_ms(lambda: fn(f, g, *maps)),
             plain_ms=cuda_ms(lambda: plain(f, g, *maps)), library_ms=None,
-            bound_ms=bms, bound_by=by))
+            bound_ms=bms, bound_by=by,
+            bound_3xtf32_ms=max(1e3 * 3 * ops / PEAK_OPS["tf32"],
+                                1e3 * nbytes / HBM_BYTES_PER_S),
+            gemm_ms=gemm_ms,
+            gemm_call="torch.mm(A_k.T, G_k) for each offset k, operands "
+                      "gathered beforehand, f32, TF32 off"))
+        if kind in listed:
+            return
+        # the list kernel once per source: the maps of valid rows read,
+        # two ints a hit and the counts written
+        listed.add(kind)
+        raw = [m.contiguous() for m in maps]
+        records.append(dict(
+            name=f"dw_lists[{kind} {name.split('[', 1)[1].split(' ')[0]}]",
+            kernel="dw_lists", path=path, route="cuda",
+            source=SOURCES["dw_lists"], replaces=DW_TPU[kernel],
+            max_abs_err=0.0, tolerance="exact", work=work,
+            ms=cuda_ms(lambda: conv._launch_hit_lists(kind, n_in, raw)),
+            plain_ms=cuda_ms(lambda: conv.dw_hit_lists_plain(kind, n_in,
+                                                             *maps)),
+            library_ms=None, **dict(zip(("bound_ms", "bound_by"), bound_ms(
+                work["map_bytes"] + 8 * work["hits"] + 4 * k, 0, "f32")))))
 
     for li, cin, cout in ((0, 3, 32), (0, 416, 384), (0, 384, 384),
                           (4, 128, 256)):
@@ -661,7 +707,7 @@ def phase_kernels(levels, tlevels, plevels, slevels, device):
     log("kernels", cases=[{k: r.get(k) for k in (
         "name", "path", "replaces", "ms", "quantise_ms", "plain_ms",
         "library_ms", "library_call", "bound_ms", "bound_by",
-        "bound_3xtf32_ms", "work",
+        "bound_3xtf32_ms", "gemm_ms", "gemm_call", "work",
         "groups", "hits", "near_ties", "idx_differ_at_ties", "max_abs_err",
         "rel_err", "tolerance")}
         for r in records])
@@ -1601,7 +1647,8 @@ def _train_run(step, batch, counters, warmup, timed, lr=1e-4):
               for k in ("radix_", "KeySearch",
                         "conv_down_kernel", "conv_up_kernel",
                         "NbrTable", "rank_kernel", "SkSource",
-                        "DownSource", "UpSource", "TableSource", "dw_reduce")}
+                        "DownSource", "UpSource", "TableSource",
+                        "hit_lists_kernel", "dw_mma_kernel", "dw_reduce")}
     checks = {"finite_losses": bool(np.isfinite(losses).all()),
               "loss_first": losses[0], "loss_last": losses[-1]}
     if not (checks["finite_losses"] and losses[-1] < losses[0]):
@@ -1615,6 +1662,8 @@ def _train_run(step, batch, counters, warmup, timed, lr=1e-4):
         stage_ms={k: 1e3 * v for k, v in stages.items()},
         device_busy_ms=busy, device_idle_share=1 - busy / step_ms,
         ported_kernel_device_ms=ported, top_device_ms=top,
+        dw_device_ms=sum(ported[k] for k in ("hit_lists_kernel",
+                                             "dw_mma_kernel", "dw_reduce")),
         launches_per_step=launches, peak_mem_gb=peak_gb, losses=losses,
         **checks)
 
@@ -1820,6 +1869,74 @@ def phase_pose_k2(seed=50):
         **pose_k2_breakdown(step, data.collate(data.items)))
 
 
+@contextlib.contextmanager
+def dw_timed():
+    """Time every dW launch of a run with CUDA events (the autograd
+    Functions look the wrappers up by module attribute): yields a list of
+    ``(kind, B, rows in, rows out, Cin, Cout, start event, end event)``."""
+    from mrcc_tpu_torch.ops import conv
+
+    names = ("dw_sk", "dw_k3_map", "dw_down", "dw_up")
+    calls, orig = [], {n: getattr(conv, n) for n in names}
+
+    def timed(name):
+        def run(feats, g, *maps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = orig[name](feats, g, *maps)
+            end.record()
+            calls.append((name, feats.shape[0], feats.shape[1], g.shape[1],
+                          feats.shape[-1], g.shape[-1], start, end))
+            return out
+        return run
+
+    for n in names:
+        setattr(conv, n, timed(n))
+    try:
+        yield calls
+    finally:
+        for n in names:
+            setattr(conv, n, orig[n])
+
+
+def dw_breakdown(step, batch, lr=1e-4):
+    """The dW kernels' device time in one train step, by kernel and shape,
+    from CUDA events around each launch (the step warmed first)."""
+    step(batch, lr)
+    torch.cuda.synchronize()
+    with dw_timed() as calls:
+        step(batch, lr)
+        torch.cuda.synchronize()
+    by = {}
+    for name, b, n_in, n_out, cin, cout, start, end in calls:
+        rows = f"{b}x{n_in}" + (f"->{n_out}" if n_out != n_in else "")
+        d = by.setdefault(f"{name}[{rows} {cin}x{cout}]",
+                          {"calls": 0, "ms": 0.0})
+        d["calls"] += 1
+        d["ms"] += start.elapsed_time(end)
+    return {"dw_ms": sum(d["ms"] for d in by.values()),
+            "dw_calls": len(calls), "dw_by_shape": by}
+
+
+def phase_dw():
+    """``--dw``: only the dW breakdown of one phase-7 step (minkunet 18D,
+    B = 8, capacity 16384, self-keyed) and one phase-10 b step (scene
+    scale, levels 0-2 on tables), for comparing kernel versions."""
+    from mrcc_tpu_torch.models import RobotNetSegmentation
+    from mrcc_tpu_torch.sparse.nn import init_parameters
+
+    model = init_parameters(RobotNetSegmentation(backbone="minkunet"), 1)
+    log("dw_step", cell="training", card=smi_line(),
+        **dw_breakdown(_seg_step(model), train_batch()))
+    del model
+    torch.cuda.empty_cache()
+    model = init_parameters(RobotNetSegmentation(backbone="minkunet18D"), 2)
+    log("dw_step", cell="training_scene", card=smi_line(),
+        **dw_breakdown(_seg_step(model, capacity=SCENE_CAPACITY),
+                       scene_batch()))
+
+
 def phase_pose_train(counters, warmup=2, timed=6):
     """Phase 10 (c): pose training at full width on B=8 EE crops at voxel
     capacity POSE_CAPACITY: RobotNet 18D with cos2 (``train_pose``'s
@@ -1872,9 +1989,12 @@ def main():
 
     from mrcc_tpu_torch.ops import conv, conv_q8, nn, rank, sort
 
-    if sys.argv[1:] == ["--pose-k2"]:
+    if sys.argv[1:] in (["--pose-k2"], ["--dw"]):
         phase_build()
-        phase_pose_k2()
+        if sys.argv[1] == "--pose-k2":
+            phase_pose_k2()
+        else:
+            phase_dw()
         return 0
 
     def phase(name, fn, *args):
@@ -1907,7 +2027,8 @@ def main():
                                counters)
     launches = {"inference": launches, "frame": frame}
     torch.cuda.empty_cache()
-    train_counters = counters + [conv.DW_SK, conv.DW_DOWN, conv.DW_UP]
+    train_counters = counters + [conv.DW_SK, conv.DW_DOWN, conv.DW_UP,
+                                 conv.DW_LISTS]
     launches["training"] = phase("train", phase_train, train_counters)
     torch.cuda.empty_cache()
     launches["int8"] = phase(

@@ -21,11 +21,11 @@
 // Bound on the card: each hit row costs 2 * Cin * Cout FLOPs against one
 // gathered feature row and one g row; the wide convs of the decoder
 // (256/384 channels) are bound by operations, the narrow ones (the stem,
-// the down convs) by bytes.  Design: dw_gemm.cuh (per-CTA (k, dW block,
-// row slice), hits compacted in row order, f32 FMA, slices summed in fixed
-// order).  The TPU kernel's one-hot window gathers, lane packing and
-// 128-aligned windows are VMEM workarounds with no counterpart here: a
-// table entry is a plain row index.
+// the down convs) by bytes.  Design: dw_gemm.cuh (per-offset hit lists
+// built once, a tensor-core gather-GEMM per (offset, dW tile, slice of the
+// list), slices summed in a fixed order).  The TPU kernel's one-hot window
+// gathers, lane packing and 128-aligned windows are VMEM workarounds with
+// no counterpart here: a table entry is a plain row index.
 
 #include "dw_gemm.cuh"
 
@@ -74,74 +74,82 @@ struct TableSource {
 
 }  // namespace
 
-// down: feats [B, n_in, cin] (fine), g [B, n_out, cout] (coarse),
-// child_idx [8, B, n_out] int32, child_hit [8, B, n_out] bool,
-// part [slices, 8, cin, cout] f32 (unused when slices == 1),
-// out [8, cin, cout] f32.  Returns cudaGetLastError().
-extern "C" int mrcc_dw_down_f32(const void* feats, const void* g,
-                                const int* child_idx, const uint8_t* child_hit,
-                                float* part, float* out, int batch, int n_in,
-                                int n_out, int cin, int cout, int slices,
-                                cudaStream_t stream) {
-  return mrcc::dw_launch<float>(
-      DownSource{child_idx, child_hit, batch, n_out}, feats, g, part, out,
-      batch, n_in, n_out, K2, cin, cout, slices, stream);
-}
+// Scratch of every entry point: lists [2, K, B * n_out] int32, status
+// [K * ceil(B * n_out / 2048) + 1] u64, count [K] int32, part [slots,
+// cin, cout] f32 (unused when slots == K); out [K, cin, cout] f32.  The
+// *_lists entry points build the lists alone.  Each returns
+// cudaGetLastError().
 
-extern "C" int mrcc_dw_down_bf16(const void* feats, const void* g,
-                                 const int* child_idx, const uint8_t* child_hit,
-                                 float* part, float* out, int batch, int n_in,
-                                 int n_out, int cin, int cout, int slices,
-                                 cudaStream_t stream) {
-  return mrcc::dw_launch<__nv_bfloat16>(
-      DownSource{child_idx, child_hit, batch, n_out}, feats, g, part, out,
-      batch, n_in, n_out, K2, cin, cout, slices, stream);
+// down: feats [B, n_in, cin] (fine), g [B, n_out, cout] (coarse),
+// child_idx [8, B, n_out] int32, child_hit [8, B, n_out] bool.
+#define DW_DOWN(SUFFIX, T)                                                    \
+  extern "C" int mrcc_dw_down_##SUFFIX(                                      \
+      const void* feats, const void* g, const int* child_idx,                \
+      const uint8_t* child_hit, int* lists, unsigned long long* status,      \
+      int* count, float* part, float* out, int batch, int n_in, int n_out,   \
+      int cin, int cout, int slots, cudaStream_t stream) {                  \
+    return mrcc::dw_launch<T>(                                                \
+        DownSource{child_idx, child_hit, batch, n_out}, feats, g, lists,     \
+        status, count, part, out, batch, n_in, n_out, K2, cin, cout, slots, \
+        stream);                                                             \
+  }
+DW_DOWN(f32, float)
+DW_DOWN(bf16, __nv_bfloat16)
+
+extern "C" int mrcc_dw_down_lists(const int* child_idx,
+                                  const uint8_t* child_hit, int* lists,
+                                  unsigned long long* status, int* count,
+                                  int batch, int n_in, int n_out,
+                                  cudaStream_t stream) {
+  return mrcc::dw_lists(DownSource{child_idx, child_hit, batch, n_out}, lists,
+                        status, count, batch, n_in, n_out, K2, stream);
 }
 
 // up: feats [B, n_in, cin] (coarse), g [B, n_out, cout] (fine),
-// parent_idx/octant [B, n_out] int32, row_ok [B, n_out] bool,
-// part [slices, 8, cin, cout] f32 (unused when slices == 1),
-// out [8, cin, cout] f32.  Returns cudaGetLastError().
-extern "C" int mrcc_dw_up_f32(const void* feats, const void* g,
-                              const int* parent_idx, const uint8_t* row_ok,
-                              const int* octant, float* part, float* out,
-                              int batch, int n_in, int n_out, int cin, int cout,
-                              int slices, cudaStream_t stream) {
-  return mrcc::dw_launch<float>(
-      UpSource{parent_idx, row_ok, octant, n_out}, feats, g, part, out, batch,
-      n_in, n_out, K2, cin, cout, slices, stream);
-}
+// parent_idx/octant [B, n_out] int32, row_ok [B, n_out] bool.
+#define DW_UP(SUFFIX, T)                                                      \
+  extern "C" int mrcc_dw_up_##SUFFIX(                                        \
+      const void* feats, const void* g, const int* parent_idx,               \
+      const uint8_t* row_ok, const int* octant, int* lists,                  \
+      unsigned long long* status, int* count, float* part, float* out,       \
+      int batch, int n_in, int n_out, int cin, int cout, int slots,         \
+      cudaStream_t stream) {                                                 \
+    return mrcc::dw_launch<T>(                                                \
+        UpSource{parent_idx, row_ok, octant, n_out}, feats, g, lists,        \
+        status, count, part, out, batch, n_in, n_out, K2, cin, cout, slots, \
+        stream);                                                             \
+  }
+DW_UP(f32, float)
+DW_UP(bf16, __nv_bfloat16)
 
-extern "C" int mrcc_dw_up_bf16(const void* feats, const void* g,
-                               const int* parent_idx, const uint8_t* row_ok,
-                               const int* octant, float* part, float* out,
-                               int batch, int n_in, int n_out, int cin,
-                               int cout, int slices, cudaStream_t stream) {
-  return mrcc::dw_launch<__nv_bfloat16>(
-      UpSource{parent_idx, row_ok, octant, n_out}, feats, g, part, out, batch,
-      n_in, n_out, K2, cin, cout, slices, stream);
+extern "C" int mrcc_dw_up_lists(const int* parent_idx, const uint8_t* row_ok,
+                                const int* octant, int* lists,
+                                unsigned long long* status, int* count,
+                                int batch, int n_in, int n_out,
+                                cudaStream_t stream) {
+  return mrcc::dw_lists(UpSource{parent_idx, row_ok, octant, n_out}, lists,
+                        status, count, batch, n_in, n_out, K2, stream);
 }
 
 // k3map: feats [B, n, cin], g [B, n, cout] (the same level),
-// nbr_idx [27, B, n] int32, nbr_hit [27, B, n] bool,
-// part [slices, 27, cin, cout] f32 (unused when slices == 1),
-// out [27, cin, cout] f32.  Returns cudaGetLastError().
-extern "C" int mrcc_dw_k3map_f32(const void* feats, const void* g,
-                                 const int* nbr_idx, const uint8_t* nbr_hit,
-                                 float* part, float* out, int batch, int n,
-                                 int cin, int cout, int slices,
-                                 cudaStream_t stream) {
-  return mrcc::dw_launch<float>(TableSource{nbr_idx, nbr_hit, batch, n},
-                                feats, g, part, out, batch, n, n, K3, cin,
-                                cout, slices, stream);
-}
+// nbr_idx [27, B, n] int32, nbr_hit [27, B, n] bool.
+#define DW_K3MAP(SUFFIX, T)                                                   \
+  extern "C" int mrcc_dw_k3map_##SUFFIX(                                     \
+      const void* feats, const void* g, const int* nbr_idx,                  \
+      const uint8_t* nbr_hit, int* lists, unsigned long long* status,        \
+      int* count, float* part, float* out, int batch, int n, int cin,        \
+      int cout, int slots, cudaStream_t stream) {                           \
+    return mrcc::dw_launch<T>(                                                \
+        TableSource{nbr_idx, nbr_hit, batch, n}, feats, g, lists, status,    \
+        count, part, out, batch, n, n, K3, cin, cout, slots, stream);       \
+  }
+DW_K3MAP(f32, float)
+DW_K3MAP(bf16, __nv_bfloat16)
 
-extern "C" int mrcc_dw_k3map_bf16(const void* feats, const void* g,
-                                  const int* nbr_idx, const uint8_t* nbr_hit,
-                                  float* part, float* out, int batch, int n,
-                                  int cin, int cout, int slices,
-                                  cudaStream_t stream) {
-  return mrcc::dw_launch<__nv_bfloat16>(
-      TableSource{nbr_idx, nbr_hit, batch, n}, feats, g, part, out, batch, n,
-      n, K3, cin, cout, slices, stream);
+extern "C" int mrcc_dw_k3map_lists(const int* nbr_idx, const uint8_t* nbr_hit,
+                                   int* lists, unsigned long long* status,
+                                   int* count, int batch, int n,
+                                   cudaStream_t stream) {
+  return mrcc::dw_lists(TableSource{nbr_idx, nbr_hit, batch, n}, lists,
+                        status, count, batch, n, n, K3, stream);
 }

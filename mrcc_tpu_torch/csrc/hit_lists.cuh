@@ -1,0 +1,203 @@
+// Per-offset hit lists of a gather map, built once per call (the first
+// stage of the weight-gradient kernels, dw_gemm.cuh):
+//
+//   for each offset k, in row order r = b * n_rows + i (b-major, then i),
+//   every row whose source src(k, b, i) = j is >= 0 (a hit) gives the pair
+//     fidx[k][pos] = b * n_in + j   (the gathered input row)
+//     gidx[k][pos] = r              (the output / cotangent row)
+//   and count[k] = the number of hits of k.
+//
+// Source is a device functor int operator()(int k, int b, int i) const:
+// the self-keyed key search, a down conv's child map, an up conv's parent
+// / octant map (row_ok folded in) or a level's neighbour tables; it may
+// also overload resolve() below.  Misses, gated-off offsets and padding
+// rows never enter a list.
+//
+// Positions come from a scan of the hit flags in row order: one kernel, a
+// decoupled look-back.  Block t (a ticket taken in launch order, so every
+// earlier tile belongs to a block that is already running) owns tile
+// t % tiles of offset t / tiles: TILE rows, ITEMS per thread, striped
+// so that each pass of THREADS rows is read coalesced.  It publishes its
+// tile's hit count, looks back over the earlier tiles of its offset for
+// their sum (one warp, 32 tiles a round, stopping at the nearest tile that
+// has published its inclusive prefix), publishes its own inclusive prefix
+// and scatters its hits in row order (warp ballots).  The atomic only
+// hands out tiles; the lists themselves are the same bits for the same
+// inputs.  The status words must be zero before the launch
+// (launch_hit_lists clears them with one memset).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace mrcc {
+namespace hitlist {
+
+constexpr int THREADS = 256;
+constexpr int ITEMS = 8;
+constexpr int TILE = THREADS * ITEMS;
+constexpr int WARPS = THREADS / 32;
+
+// status word of a tile: flag in bits 62-63 (0 nothing yet, 1 the tile's
+// own count, 2 the inclusive prefix of the offset up to this tile), the
+// value in the low 32 bits
+constexpr unsigned long long AGGREGATE = 1ull << 62;
+constexpr unsigned long long INCLUSIVE = 2ull << 62;
+
+__device__ __forceinline__ void store_release(unsigned long long* p,
+                                              unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;\n" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long load_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];\n"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// The hits of offset k before tile `tile`: warp-wide look-back over the
+// status words st[0, tile).  Called by one whole warp; lane 0's value is
+// the result.
+__device__ __forceinline__ int look_back(const unsigned long long* st,
+                                         int tile) {
+  const int lane = threadIdx.x & 31;
+  int excl = 0;
+  for (int p = tile - 1;; p -= 32) {
+    const int q = p - lane;
+    unsigned long long s = INCLUSIVE;  // before tile 0: an empty prefix
+    if (q >= 0) {
+      do {
+        s = load_acquire(st + q);
+      } while ((s >> 62) == 0);
+    }
+    const unsigned incl = __ballot_sync(0xffffffffu, (s >> 62) == 2);
+    // the nearest tile with its inclusive prefix ends the sum
+    const int stop = incl ? __ffs(incl) - 1 : 31;
+    int v = lane <= stop ? static_cast<int>(s & 0xffffffffu) : 0;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    excl += __shfl_sync(0xffffffffu, v, 0);
+    if (incl) return excl;
+  }
+}
+
+// src(k, b, i) for ITEMS rows of one thread; a source may overload this
+// (found by argument-dependent lookup) to resolve its rows side by side.
+template <class Source>
+__device__ __forceinline__ void resolve(const Source& src, int k,
+                                        const int (&b)[ITEMS],
+                                        const int (&i)[ITEMS],
+                                        int (&j)[ITEMS]) {
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it)
+    j[it] = b[it] < 0 ? -1 : src(k, b[it], i[it]);
+}
+
+// grid (K * tiles), THREADS threads; tiles = ceil(B * n_rows / TILE).
+// lists: fidx [K, B * n_rows] then gidx [K, B * n_rows] (int32; entries
+// past count[k] are left as they were); status: K * tiles words then the
+// ticket, all zero.
+template <class Source>
+__global__ void __launch_bounds__(THREADS)
+hit_lists_kernel(Source src, int* __restrict__ lists,
+                 unsigned long long* __restrict__ status,
+                 int* __restrict__ count, int batch, int n_in, int n_rows,
+                 int tiles) {
+  __shared__ int ticket;
+  __shared__ int warp_before[ITEMS][WARPS];
+  __shared__ int tile_before;
+  __shared__ int tile_hits;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0)
+    ticket = atomicAdd(reinterpret_cast<unsigned int*>(
+                           status + static_cast<size_t>(gridDim.x)), 1u);
+  __syncthreads();
+  const int k = ticket / tiles;
+  const int tile = ticket % tiles;
+  const int total = batch * n_rows;
+  const int r0 = tile * TILE;
+
+  int bs[ITEMS], is[ITEMS], j[ITEMS];
+  unsigned mask[ITEMS];
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it) {
+    const int r = r0 + it * THREADS + threadIdx.x;
+    bs[it] = r < total ? r / n_rows : -1;  // -1: past the rows
+    is[it] = r < total ? r - bs[it] * n_rows : 0;
+  }
+  resolve(src, k, bs, is, j);
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it) {
+    mask[it] = __ballot_sync(0xffffffffu, j[it] >= 0);
+    if (lane == 0) warp_before[it][warp] = __popc(mask[it]);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {  // exclusive prefix over (pass, warp), row order
+    int sum = 0;
+    for (int it = 0; it < ITEMS; ++it)
+      for (int w = 0; w < WARPS; ++w) {
+        const int c = warp_before[it][w];
+        warp_before[it][w] = sum;
+        sum += c;
+      }
+    unsigned long long* st = status + static_cast<size_t>(k) * tiles;
+    store_release(st + tile,
+                  (tile == 0 ? INCLUSIVE : AGGREGATE) |
+                      static_cast<unsigned long long>(sum));
+    tile_hits = sum;
+  }
+  __syncthreads();
+  if (warp == 0 && tile > 0) {
+    const unsigned long long* st = status + static_cast<size_t>(k) * tiles;
+    const int excl = look_back(st, tile);
+    if (lane == 0) {
+      store_release(status + static_cast<size_t>(k) * tiles + tile,
+                    INCLUSIVE | static_cast<unsigned long long>(
+                                    excl + tile_hits));
+      tile_before = excl;
+    }
+  } else if (warp == 0 && lane == 0) {
+    tile_before = 0;
+  }
+  __syncthreads();
+  const int base = tile_before;
+  if (tile == tiles - 1 && threadIdx.x == 0) count[k] = base + tile_hits;
+  int* fidx = lists + static_cast<size_t>(k) * total;
+  int* gidx = lists + (static_cast<size_t>(gridDim.x / tiles) + k) * total;
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it) {
+    if (j[it] < 0) continue;
+    const int r = r0 + it * THREADS + threadIdx.x;
+    const int b = r / n_rows;
+    const int pos = base + warp_before[it][warp] +
+                    __popc(mask[it] & ((1u << lane) - 1u));
+    fidx[pos] = b * n_in + j[it];
+    gidx[pos] = r;
+  }
+}
+
+// Clear status, then build the lists.  status holds K * tiles + 1 words.
+template <class Source>
+cudaError_t launch_hit_lists(const Source& src, int* lists,
+                             unsigned long long* status, int* count, int k,
+                             int batch, int n_in, int n_rows,
+                             cudaStream_t stream) {
+  const int total = batch * n_rows;
+  if (k <= 0 || total <= 0) return cudaSuccess;
+  const int tiles = (total + TILE - 1) / TILE;
+  const size_t words = static_cast<size_t>(k) * tiles + 1;
+  cudaError_t err = cudaMemsetAsync(status, 0, words * sizeof(*status), stream);
+  if (err != cudaSuccess) return err;
+  hit_lists_kernel<Source><<<k * tiles, THREADS, 0, stream>>>(
+      src, lists, status, count, batch, n_in, n_rows, tiles);
+  return cudaGetLastError();
+}
+
+}  // namespace hitlist
+}  // namespace mrcc

@@ -16,12 +16,15 @@ stands in for ``conv_pallas._gather_gemm_call_hbm``.
 The weight gradients: ``csrc/conv_dw_sk.cu`` (:func:`dw_sk`) replaces
 ``conv_pallas._dw_call_sk`` and ``csrc/conv_dw_map.cu`` (:func:`dw_down`,
 :func:`dw_up`, :func:`dw_k3_map`) replaces ``conv_pallas._dw_call`` in its
-down, up and k3-table modes.  The autograd Functions :class:`SkConvFn`,
-:class:`K3MapConvFn`, :class:`DownConvFn` and :class:`UpConvFn` carry the
-JAX custom VJPs (``pallas_conv_sk_op``, ``pallas_conv_op``): data
-cotangents through the forward kernels over the reverse maps (the k3
-convs over their own level with ``W[26 - k]^T``), weight cotangents
-through the dW kernels.  Both k3 routes train: the self-keyed one and the
+down, up and k3-table modes.  Both run ``csrc/dw_gemm.cuh``: per-offset
+hit lists built once on the card (``csrc/hit_lists.cuh``, exposed as
+:func:`dw_hit_lists`), then a tensor-core gather-GEMM over the listed
+rows and a fixed-order sum of its partials.  The autograd Functions
+:class:`SkConvFn`, :class:`K3MapConvFn`, :class:`DownConvFn` and
+:class:`UpConvFn` carry the JAX custom VJPs (``pallas_conv_sk_op``,
+``pallas_conv_op``): data cotangents through the forward kernels over the
+reverse maps (the k3 convs over their own level with ``W[26 - k]^T``),
+weight cotangents through the dW kernels.  Both k3 routes train: the self-keyed one and the
 table one.
 
 Each wrapper launches its kernel for CUDA tensors (f32 or bf16 features,
@@ -57,16 +60,20 @@ MAP_LIB = KernelLibrary("conv_map", {
     "mrcc_conv_k3map_bf16": (P, P, P, P, P, P, I, I, I, I, P),
 })
 DW_SK_LIB = KernelLibrary("conv_dw_sk", {
-    "mrcc_dw_sk_f32": (P, P, P, P, P, P, I, I, I, I, I, P),
-    "mrcc_dw_sk_bf16": (P, P, P, P, P, P, I, I, I, I, I, P),
+    "mrcc_dw_sk_f32": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, P),
+    "mrcc_dw_sk_bf16": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, P),
+    "mrcc_dw_sk_lists": (P, P, P, P, P, I, I, P),
 })
 DW_MAP_LIB = KernelLibrary("conv_dw_map", {
-    "mrcc_dw_down_f32": (P, P, P, P, P, P, I, I, I, I, I, I, P),
-    "mrcc_dw_down_bf16": (P, P, P, P, P, P, I, I, I, I, I, I, P),
-    "mrcc_dw_up_f32": (P, P, P, P, P, P, P, I, I, I, I, I, I, P),
-    "mrcc_dw_up_bf16": (P, P, P, P, P, P, P, I, I, I, I, I, I, P),
-    "mrcc_dw_k3map_f32": (P, P, P, P, P, P, I, I, I, I, I, P),
-    "mrcc_dw_k3map_bf16": (P, P, P, P, P, P, I, I, I, I, I, P),
+    "mrcc_dw_down_f32": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P),
+    "mrcc_dw_down_bf16": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P),
+    "mrcc_dw_down_lists": (P, P, P, P, P, I, I, I, P),
+    "mrcc_dw_up_f32": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P),
+    "mrcc_dw_up_bf16": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P),
+    "mrcc_dw_up_lists": (P, P, P, P, P, P, I, I, I, P),
+    "mrcc_dw_k3map_f32": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, P),
+    "mrcc_dw_k3map_bf16": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, P),
+    "mrcc_dw_k3map_lists": (P, P, P, P, P, I, I, P),
 })
 LIBRARIES = (SK_LIB, MAP_LIB, DW_SK_LIB, DW_MAP_LIB)
 SK = LaunchCounter("conv_sk")
@@ -77,10 +84,13 @@ DW_SK = LaunchCounter("dw_sk")
 DW_DOWN = LaunchCounter("dw_down")
 DW_UP = LaunchCounter("dw_up")
 DW_K3MAP = LaunchCounter("dw_k3map")
+DW_LISTS = LaunchCounter("dw_lists")  # the hit-list stage of every dW call
 
-_DW_TILE = 64           # DW_TILE of csrc/dw_gemm.cuh
-_DW_TARGET_CTAS = 1056  # 8 CTAs per SM of an H100 (132 SMs)
-_DW_MIN_ROWS = 2048     # rows of one slice at least
+_DW_MI_SPLIT = 128        # DW_MI_SPLIT of csrc/dw_gemm.cuh
+_DW_LIST_TILE = 2048      # TILE of csrc/hit_lists.cuh
+_DW_RESIDENT = 2 * 132    # dW blocks resident at once (2 an SM, 132 SMs)
+_DW_WAVES = 8             # waves of dW blocks a launch aims at
+_DW_MIN_ROWS = 4096       # list rows of one slot at least
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -130,22 +140,53 @@ def _check_dw(name, feats, g, index_tensors):
                          f"{tuple(g.shape)} do not fit [B, N, C]")
 
 
-def _dw_slices(k, cin, cout, rows):
-    """Row slices of a dW launch: enough CTAs to fill the card, at least
-    ``_DW_MIN_ROWS`` rows each."""
-    tiles = -(-cin // _DW_TILE) * -(-cout // _DW_TILE)
-    return max(1, min(-(-_DW_TARGET_CTAS // (k * tiles)),
-                      -(-rows // _DW_MIN_ROWS)))
+def _dw_slots(k, cin, cout, rows):
+    """Slots of a dW launch (``csrc/dw_gemm.cuh``): at least one per offset,
+    the rest spread over the offsets by their hits on the card.  Enough
+    blocks for ``_DW_WAVES`` waves (blocks of about equal work, so that
+    the last wave is short), at most one slot per ``_DW_MIN_ROWS`` list
+    rows of an offset."""
+    wide, narrow = max(cin, cout), min(cin, cout)
+    block_m = 128 if wide > _DW_MI_SPLIT else 64
+    tiles = -(-wide // block_m) * -(-narrow // 128)
+    return max(k, min(_DW_WAVES * _DW_RESIDENT // tiles,
+                      k * -(-rows // _DW_MIN_ROWS)))
 
 
-def _dw_buffers(k, cin, cout, rows, device):
-    """``(slices, partial scratch or None, dW output)`` of one dW
-    launch."""
-    slices = _dw_slices(k, cin, cout, rows)
-    out = torch.empty((k, cin, cout), dtype=torch.float32, device=device)
-    part = (torch.empty((slices, k, cin, cout), dtype=torch.float32,
-                        device=device) if slices > 1 else None)
-    return slices, part, out
+def _list_buffers(k, rows, device):
+    """Scratch of the hit-list stage: ``(lists [2, k, rows] int32, status
+    words, count [k] int32)``."""
+    lists = torch.empty((2, k, rows), dtype=torch.int32, device=device)
+    status = torch.empty(k * -(-rows // _DW_LIST_TILE) + 1,
+                         dtype=torch.int64, device=device)
+    count = torch.empty(k, dtype=torch.int32, device=device)
+    return lists, status, count
+
+
+def _dw_launch(lib, fname, k, feats, g, maps, sizes):
+    """One dW launch: ``lib.fname(feats, g, *maps, lists, status, count,
+    part, out, *sizes, cin, cout, slots, stream)`` with its scratch carved
+    from one allocation (the list stage, and the partial sums where there
+    is more than one slot per offset).  Returns dW [k, cin, cout] f32."""
+    cin, cout = feats.shape[-1], g.shape[-1]
+    rows = g.shape[0] * g.shape[1]
+    slots = _dw_slots(k, cin, cout, rows)
+    out = torch.empty((k, cin, cout), dtype=torch.float32,
+                      device=feats.device)
+    nbytes = (8 * k * rows, 8 * (k * -(-rows // _DW_LIST_TILE) + 1), 4 * k,
+              4 * slots * cin * cout if slots > k else 0)
+    starts = [0]
+    for n in nbytes[:-1]:
+        starts.append(starts[-1] + -(-n // 256) * 256)
+    scratch = torch.empty(starts[-1] + nbytes[-1], dtype=torch.uint8,
+                          device=feats.device)
+    lists, status, count, part = (scratch.data_ptr() + o if n else None
+                                  for o, n in zip(starts, nbytes))
+    lib.call(fname, ptr(feats), ptr(g), *map(ptr, maps), lists, status,
+             count, part, ptr(out), *sizes, cin, cout, slots,
+             stream_ptr(feats))
+    DW_LISTS.launches += 1
+    return out
 
 
 def _k3_lists(b, n, cout, device):
@@ -398,10 +439,8 @@ def dw_sk(feats, g, key, kbits):
         raise ValueError("dw_sk: g must be [B, N, Cout], key/kbits [B, N]")
     feats, g = feats.contiguous(), g.contiguous()
     key, kbits = key.contiguous(), kbits.contiguous()
-    slices, part, out = _dw_buffers(27, cin, cout, b * n, feats.device)
-    DW_SK_LIB.call(f"mrcc_dw_sk_{_SUFFIX[feats.dtype]}", ptr(feats), ptr(g),
-                   ptr(key), ptr(kbits), ptr(part), ptr(out), b, n, cin, cout,
-                   slices, stream_ptr(feats))
+    out = _dw_launch(DW_SK_LIB, f"mrcc_dw_sk_{_SUFFIX[feats.dtype]}", 27,
+                     feats, g, (key, kbits), (b, n))
     DW_SK.launches += 1
     return out
 
@@ -447,10 +486,8 @@ def dw_down(feats, g, child_idx, child_hit):
         raise ValueError("dw_down: maps must be [8, B, N_coarse]")
     feats, g = feats.contiguous(), g.contiguous()
     child_idx, child_hit = child_idx.contiguous(), child_hit.contiguous()
-    slices, part, out = _dw_buffers(8, cin, cout, b * n_out, feats.device)
-    DW_MAP_LIB.call(f"mrcc_dw_down_{_SUFFIX[feats.dtype]}", ptr(feats), ptr(g),
-                    ptr(child_idx), ptr(child_hit), ptr(part), ptr(out), b,
-                    n_in, n_out, cin, cout, slices, stream_ptr(feats))
+    out = _dw_launch(DW_MAP_LIB, f"mrcc_dw_down_{_SUFFIX[feats.dtype]}", 8,
+                     feats, g, (child_idx, child_hit), (b, n_in, n_out))
     DW_DOWN.launches += 1
     return out
 
@@ -484,10 +521,8 @@ def dw_k3_map(feats, g, nbr_idx, nbr_hit):
                          "[27, B, N]")
     feats, g = feats.contiguous(), g.contiguous()
     nbr_idx, nbr_hit = nbr_idx.contiguous(), nbr_hit.contiguous()
-    slices, part, out = _dw_buffers(27, cin, cout, b * n, feats.device)
-    DW_MAP_LIB.call(f"mrcc_dw_k3map_{_SUFFIX[feats.dtype]}", ptr(feats),
-                    ptr(g), ptr(nbr_idx), ptr(nbr_hit), ptr(part), ptr(out),
-                    b, n, cin, cout, slices, stream_ptr(feats))
+    out = _dw_launch(DW_MAP_LIB, f"mrcc_dw_k3map_{_SUFFIX[feats.dtype]}",
+                     27, feats, g, (nbr_idx, nbr_hit), (b, n))
     DW_K3MAP.launches += 1
     return out
 
@@ -527,13 +562,109 @@ def dw_up(feats, g, parent_idx, row_ok, octant):
     feats, g = feats.contiguous(), g.contiguous()
     parent_idx, row_ok = parent_idx.contiguous(), row_ok.contiguous()
     octant = octant.contiguous()
-    slices, part, out = _dw_buffers(8, cin, cout, b * n_out, feats.device)
-    DW_MAP_LIB.call(f"mrcc_dw_up_{_SUFFIX[feats.dtype]}", ptr(feats), ptr(g),
-                    ptr(parent_idx), ptr(row_ok), ptr(octant), ptr(part),
-                    ptr(out), b, n_in, n_out, cin, cout, slices,
-                    stream_ptr(feats))
+    out = _dw_launch(DW_MAP_LIB, f"mrcc_dw_up_{_SUFFIX[feats.dtype]}", 8,
+                     feats, g, (parent_idx, row_ok, octant), (b, n_in, n_out))
     DW_UP.launches += 1
     return out
+
+
+# ------------------------------------------- the dW kernels' hit lists
+
+_LIST_TAPS = {"sk": 27, "down": 8, "up": 8, "k3map": 27}
+
+
+def _list_sources(kind, maps):
+    """``(hit [K, B, N] bool, source row j [K, B, N])`` of a dW kind's map:
+    the self-keyed search, the child map, the parent / octant map with
+    ``row_ok``, or the k3 tables."""
+    if kind == "sk":
+        key, kbits = maps
+        pairs = [_sk_neighbours(key.contiguous(), kbits, k, d)
+                 for k, d in enumerate(_K3_DELTAS)]
+        return (torch.stack([hit for _, hit in pairs]),
+                torch.stack([idx for idx, _ in pairs]))
+    if kind in ("down", "k3map"):
+        idx, hit = maps
+        return hit, idx
+    if kind == "up":
+        parent_idx, row_ok, octant = maps
+        return (torch.stack([row_ok & (octant == k) for k in range(8)]),
+                parent_idx.expand(8, -1, -1))
+    raise ValueError(f"dw_hit_lists: unknown kind {kind!r}")
+
+
+def dw_hit_lists_plain(kind, n_in, *maps):
+    """Plain twin of :func:`dw_hit_lists`."""
+    hit, j = _list_sources(kind, maps)
+    k_taps, b, n = hit.shape
+    hit = hit.reshape(k_taps, b * n)
+    base = n_in * torch.arange(b, device=hit.device)[:, None]
+    src = (j.long() + base).reshape(k_taps, b * n)
+    fidx = torch.full((k_taps, b * n), -1, dtype=torch.int32,
+                      device=hit.device)
+    gidx = fidx.clone()
+    for k in range(k_taps):
+        rows = torch.nonzero(hit[k]).flatten()
+        fidx[k, :len(rows)] = src[k, rows].int()
+        gidx[k, :len(rows)] = rows.int()
+    return fidx, gidx, hit.sum(1).int()
+
+
+def _launch_hit_lists(kind, n_in, maps):
+    """Launch the list kernel alone on checked, contiguous CUDA maps:
+    ``(lists [2, K, B * n_rows] int32, count [K] int32)``, the entries past
+    ``count[k]`` unwritten."""
+    b, n = maps[0].shape[-2:]
+    lists, status, count = _list_buffers(_LIST_TAPS[kind], b * n,
+                                         maps[0].device)
+    sizes = (b, n) if kind in ("sk", "k3map") else (b, n_in, n)
+    lib = DW_SK_LIB if kind == "sk" else DW_MAP_LIB
+    lib.call(f"mrcc_dw_{kind}_lists", *map(ptr, maps), ptr(lists),
+             ptr(status), ptr(count), *sizes, stream_ptr(maps[0]))
+    DW_LISTS.launches += 1
+    return lists, count
+
+
+def dw_hit_lists(kind, n_in, *maps):
+    """The first stage of every dW kernel: per offset k, the hits of the
+    map in row order ``r = b * n_rows + i``.
+
+    Args:
+      kind: "sk" (maps ``key, kbits``), "down" (``child_idx, child_hit``),
+        "up" (``parent_idx, row_ok, octant``) or "k3map" (``nbr_idx,
+        nbr_hit``), as the dW wrappers take them.
+      n_in: rows of the gathered level (the fine level for "down", the
+        coarse one for "up", the level itself for "sk" and "k3map").
+    Returns ``(fidx, gidx, count)``: int32 [K, B * n_rows] feature rows
+    ``b * n_in + j`` and g rows ``r`` of the hits of offset k in
+    ``[:count[k]]``, -1 after; count int32 [K].
+    """
+    if kind not in _LIST_TAPS:
+        raise ValueError(f"dw_hit_lists: unknown kind {kind!r}")
+    if not _route(*maps):
+        return dw_hit_lists_plain(kind, n_in, *maps)
+    k_taps = _LIST_TAPS[kind]
+    dtypes = {"sk": (torch.int32, torch.int32),
+              "down": (torch.int32, torch.bool),
+              "up": (torch.int32, torch.bool, torch.int32),
+              "k3map": (torch.int32, torch.bool)}[kind]
+    if len(maps) != len(dtypes) or any(m.dtype != d
+                                       for m, d in zip(maps, dtypes)):
+        raise ValueError(f"dw_hit_lists: {kind} maps must be {dtypes}")
+    maps = [m.contiguous() for m in maps]
+    b, n = maps[0].shape[-2:]
+    if any(m.shape != maps[0].shape for m in maps) or maps[0].dim() != (
+            2 if kind in ("sk", "up") else 3) or (
+            maps[0].dim() == 3 and maps[0].shape[0] != k_taps):
+        raise ValueError(f"dw_hit_lists: {kind} map shapes "
+                         f"{[tuple(m.shape) for m in maps]}")
+    if kind in ("sk", "k3map") and n_in != n:
+        raise ValueError(f"dw_hit_lists: {kind} gathers its own level")
+    lists, count = _launch_hit_lists(kind, n_in, maps)
+    listed = (torch.arange(lists.shape[2], device=count.device)[None]
+              < count[:, None])
+    return (torch.where(listed, lists[0], -1),
+            torch.where(listed, lists[1], -1), count)
 
 
 # ------------------------------------------------ differentiable convs

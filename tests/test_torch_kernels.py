@@ -20,7 +20,10 @@ tolerances above; the nearest-neighbour kernel's d2 is within 1e-5 of its
 twin and its indices equal except at near-ties (the two smallest d2 of a
 row within 1e-6 of |a|^2, the scale of the f32 rounding of
 |a|^2 - 2ab + |b|^2).  The k3-table dW kernel holds the dW tolerances and
-``K3MapConvFn`` the backward one.
+``K3MapConvFn`` the backward one.  The dW kernels' hit lists
+(``dw_hit_lists``) equal their plain twin integer for integer (border
+keys, overflowed parents, a level of padding rows), and the self-keyed
+and table dW give the same bits on one level.
 """
 
 import pytest
@@ -293,6 +296,124 @@ def test_dw_rejects(cuda, levels):
         conv.dw_k3_map(f, f, idx.long(), hit)
     with pytest.raises(ValueError):
         conv.dw_k3_map(f, f, idx[:8], hit[:8])
+
+
+def _list_hierarchy(cuda, case):
+    """Two clouds of C4's wide-span kinds: ``border`` (keys at offset
+    coords 0 and 1023 alias across the packed fields) and ``overflow`` (a
+    blob whose parents overflow the coarse capacities: ``row_ok`` false)."""
+    gen = torch.Generator().manual_seed(len(case))
+    if case == "border":
+        ax = torch.tensor([0, 1, 2, 3, 511, 512, 1020, 1021, 1022, 1023])
+        off = torch.cartesian_prod(ax, ax, ax).float()
+        cap, caps = 1024, (512, 256)
+    else:
+        off = torch.round(torch.randn((900, 3), generator=gen) * 6 + 512)
+        cap, caps = 512, (128, 64)
+    pts = ((off - 512 + 0.5) * 0.01)[None].expand(2, -1, -1).contiguous()
+    vox, _ = voxelize(pts.to(cuda), torch.rand(pts.shape, generator=gen)
+                      .to(cuda), torch.ones(pts.shape[:2], dtype=torch.bool,
+                                            device=cuda), 0.01, cap)
+    return build_hierarchy(vox, 2, capacities=caps)
+
+
+def _list_maps(lv_all, kind, padding=False):
+    """``(n_in, maps)`` of one dW kind on levels 0 / 1; ``padding``: the
+    maps of a level whose every row is padding (no hit anywhere)."""
+    fine, coarse = lv_all[0], lv_all[1]
+    if kind == "sk":
+        kbits = torch.zeros_like(fine.kbits) if padding else fine.kbits
+        return fine.key.shape[1], (fine.key, kbits)
+    if kind == "k3map":
+        idx, hit = neighbor_tables(fine)
+        return fine.key.shape[1], (idx, hit & (not padding))
+    if kind == "down":
+        return fine.key.shape[1], (coarse.child_idx,
+                                   coarse.child_hit & (not padding))
+    row_ok = fine.valid & fine.parent_ok & (not padding)
+    return coarse.key.shape[1], (fine.parent_idx, row_ok, fine.octant)
+
+
+@pytest.mark.parametrize("kind", ["sk", "down", "up", "k3map"])
+@pytest.mark.parametrize("case", ["levels", "border", "overflow", "padding"])
+def test_dw_hit_lists_exact(cuda, levels, case, kind):
+    """The list kernel equals its plain twin, integer for integer."""
+    lv_all = (levels if case in ("levels", "padding")
+              else _list_hierarchy(cuda, case))
+    n_in, maps = _list_maps(lv_all, kind, padding=case == "padding")
+    if case == "overflow" and kind == "up":
+        assert not bool(maps[1][lv_all[0].valid].all())
+    before = conv.DW_LISTS.launches
+    got = conv.dw_hit_lists(kind, n_in, *maps)
+    assert conv.DW_LISTS.launches == before + 1
+    want = conv.dw_hit_lists_plain(kind, n_in, *maps)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert torch.equal(conv.dw_hit_lists(kind, n_in, *maps)[0], got[0])
+    if case == "padding":
+        assert not bool(got[2].any())
+        fine, coarse = lv_all[0], lv_all[1]
+        src, dst = {"down": (fine, coarse), "up": (coarse, fine)}.get(
+            kind, (fine, fine))
+        fn = {"sk": conv.dw_sk, "k3map": conv.dw_k3_map,
+              "down": conv.dw_down, "up": conv.dw_up}[kind]
+        for dtype in (torch.float32, torch.bfloat16):
+            dw = fn(_feats(src, 40, dtype), _feats(dst, 72, dtype), *maps)
+            assert dw.shape == (got[0].shape[0], 40, 72) and not dw.any()
+    else:
+        assert bool(got[2].any())
+
+
+@pytest.fixture(scope="module")
+def train_level(cuda):
+    """A level 0 of 8 x 16384 rows, the training step's shape (8 scenes at
+    1 cm, ~15k voxels each)."""
+    pts, rgb, mask = build_batch(8, 24576, seed=6)
+    vox, _ = voxelize(torch.as_tensor(pts, device=cuda),
+                      torch.as_tensor(rgb, device=cuda),
+                      torch.as_tensor(mask, device=cuda), 0.01, 16384)
+    return build_hierarchy(vox, 1, capacities=(4096,))[0]
+
+
+@pytest.fixture(scope="module")
+def scene_level(cuda):
+    """A level 0 of 2 x 65536 rows (the scene-scale training level)."""
+    pts, rgb, mask = build_batch(2, 131072, seed=7)
+    vox, _ = voxelize(torch.as_tensor(pts, device=cuda),
+                      torch.as_tensor(rgb, device=cuda),
+                      torch.as_tensor(mask, device=cuda), 1 / 200.0, 65536)
+    return build_hierarchy(vox, 1, capacities=(16384,))[0]
+
+
+@pytest.mark.parametrize("which", ["levels", "big_levels", "train", "scene"])
+def test_dw_sk_equals_dw_k3_map(cuda, request, which):
+    """The self-keyed search and the level's k3 tables give the same
+    lists, so the two dW routes give the same bits."""
+    name = {"train": "train_level", "scene": "scene_level"}.get(which, which)
+    lv = request.getfixturevalue(name)
+    lv = lv if name.endswith("_level") else lv[0]
+    cin, cout = (416, 384) if name.endswith("_level") else (130, 70)
+    tables = neighbor_tables(lv)
+    for dtype in (torch.float32, torch.bfloat16):
+        f, g = _feats(lv, cin, dtype), _feats(lv, cout, dtype)
+        assert torch.equal(conv.dw_sk(f, g, lv.key, lv.kbits),
+                           conv.dw_k3_map(f, g, *tables))
+
+
+@pytest.mark.parametrize("kind", ["sk", "k3map"])
+@pytest.mark.parametrize("which", ["train", "scene"])
+def test_dw_kernels_wide(cuda, request, which, kind):
+    """The decoder's widest dW (416 x 384) at 8 x 16384 and 2 x 65536
+    rows: f32 1e-5 (a product dimension of ~10^5 hits a offset), bf16
+    2e-2, repeated calls bit-equal."""
+    lv = request.getfixturevalue(f"{which}_level")
+    f, g = _feats(lv, 416), _feats(lv, 384)
+    if kind == "sk":
+        _check_dw(conv.dw_sk, conv.dw_sk_plain, conv.DW_SK, f, g,
+                  (lv.key, lv.kbits))
+    else:
+        _check_dw(conv.dw_k3_map, conv.dw_k3_map_plain, conv.DW_K3MAP, f, g,
+                  neighbor_tables(lv))
 
 
 @pytest.mark.parametrize("kind", ["k3", "k3map", "down", "up"])
