@@ -34,14 +34,21 @@ last line):
    level 0; two launches bit-equal; their hit lists exactly equal to the
    plain twin's, the list kernel timed once per source; beside each, the
    3xTF32 bound and ``torch.mm`` over the same hits' operands gathered
-   beforehand, the GEMM alone), the rank kernel (exact) and the k3-table
+   beforehand, the GEMM alone), K3's down and up convs also at the
+   training step's level pairs in f32 (up 1 -> 0 416 -> 384 and 3 -> 2
+   512 -> 384, down 0 -> 1 384 -> 416) and the inference up 1 -> 0 128 ->
+   96 (two launches bit-equal; their list stage and child sum or zero pass
+   timed alone; the f32 error of kernel and twin against an f64 result;
+   the 3xTF32 and 4xTF32 bounds and ``torch.mm`` over the hits' gathered
+   per-octant operands), the rank kernel (exact) and the k3-table
    convs at the production levels' shapes and at the widest f32 training
    shape, the int8 one also at a two-group resident shape, the
    nearest-neighbour kernel (d2 1e-5, indices equal but for near-ties: the
    two smallest d2 within 1e-6 of |a|^2); then the backward of each
    autograd conv Function (the self-keyed and the table k3 convs, down,
-   up) on the card against autograd through the plain twins on the card
-   (f32, 1e-5); then one full 640 x 480 frame (B = 1,
+   up, also down / up at the level 0 <-> 1 pair at 384 <-> 416) on the
+   card against autograd through the plain twins on the card (f32, 1e-5);
+   then one full 640 x 480 frame (B = 1,
    P = 307200): ``measure_seg_caps``, ``voxelize`` and ``build_hierarchy``
    on the card against the CPU, every integer output equal;
 4. the inference slice on the card vs on the CPU: one engine pair with the
@@ -101,9 +108,14 @@ last line):
     events around each launch of one step).
 
 ``python3 chip_smoke.py --pose-k2`` builds the kernels and runs only that
-K2 breakdown; ``--dw`` builds them and times each dW launch of one phase-7
-step and one phase-10 b step by kernel and shape (CUDA events), to compare
-two versions of the dW kernels in one call.
+K2 breakdown; ``--dw`` (``--k3``) builds them and times each dW launch
+(each K3 down / up launch) of one phase-7 step and one phase-10 b step by
+kernel and shape (CUDA events), and ``--inference`` runs only phase 6, to
+compare two versions of the kernels in one call (copy this file into a
+checkout of the other version).  Phases 6-10 count K3's list stage and
+child sum beside its down / up launches and report ``k3_device_ms`` (its
+list kernel, list GEMM, child sum and zero pass) beside
+``dw_device_ms``.
 
 f32 phases run with TF32 off (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` False).  The last lines are the card's
@@ -375,11 +387,25 @@ def phase_kernels(levels, tlevels, plevels, slevels, device):
             dtype=kind, work=work, ms=cuda_ms(lambda: fn(*args)),
             plain_ms=cuda_ms(lambda: plain(*args)), library_ms=None,
             bound_ms=bms, bound_by=by))
-        if kernel == "conv_sk" and kind == "f32":
-            # K2's f32 route: three TF32 products a term on tensor cores
-            records[-1]["bound_3xtf32_ms"] = max(
-                1e3 * 3 * ops / PEAK_OPS["tf32"],
-                1e3 * nbytes / HBM_BYTES_PER_S)
+        if kernel in ("conv_sk", "conv_down", "conv_up"):
+            # the f32 routes on tensor cores: K2's three TF32 products a
+            # term, K3's four
+            for terms in (3, 4) if kernel != "conv_sk" else (3,):
+                records[-1][f"bound_{terms}xtf32_ms"] = max(
+                    1e3 * terms * ops / PEAK_OPS["tf32"],
+                    1e3 * nbytes / HBM_BYTES_PER_S) if kind == "f32" else None
+        if kernel in ("conv_down", "conv_up"):
+            if not torch.equal(fn(*args), got):
+                raise AssertionError(f"{name}: two launches differ")
+            records[-1].update(k3_stages(kernel.removeprefix("conv_"),
+                                         *args))
+            # the f32 kernel and the f32 twin against the f64 result
+            exact = k3_f64(kernel.removeprefix("conv_"), *args32)
+            records[-1]["rel_err_f64"] = {
+                "kernel_f32": float((got32.double() - exact).norm()
+                                    / exact.norm()),
+                "plain_f32": float((want.double() - exact).norm()
+                                   / exact.norm())}
 
     for li, cin, cout in ((0, 3, 32), (0, 128, 96), (3, 384, 256)):
         lv = levels[li]
@@ -413,7 +439,8 @@ def phase_kernels(levels, tlevels, plevels, slevels, device):
     for lvs, cin, cout, path, replaces in (
             (levels, 32, 32, "inference", K3_TPU),
             (tlevels, 32, 32, "training", HBM_TPU),
-            (tlevels, 384, 384, "training", HBM_TPU)):
+            (tlevels, 384, 384, "training", HBM_TPU),
+            (tlevels, 384, 416, "training", HBM_TPU)):
         fine, coarse = lvs[0], lvs[1]
         b, nf = fine.key.shape
         nc = coarse.key.shape[1]
@@ -423,13 +450,22 @@ def phase_kernels(levels, tlevels, plevels, slevels, device):
                   conv.gather_gemm_down_plain,
                   [feats(fine, cin), weights(8, cin, cout), coarse.child_idx,
                    coarse.child_hit], _down_work(coarse), 8, path=path)
-    fine, coarse = levels[3], levels[4]
-    b, nf = fine.key.shape
-    nc = coarse.key.shape[1]
-    conv_case(f"conv_up[{b}x{nc}->{nf} 256->256]", "conv_up", K3_TPU,
-              conv.gather_gemm_up, conv.gather_gemm_up_plain,
-              [feats(coarse, 256), weights(8, 256, 256), fine.parent_idx,
-               fine.row_ok, fine.octant], _up_work(fine), 8)
+    # K3 up at the inference path's deepest level pair (256 -> 256) and
+    # level 1 -> 0 (128 -> 96); at the training step's level 1 -> 0 (416 ->
+    # 384, the skip-concatenated decoder conv: a product 416 deep) and
+    # 3 -> 2 (512 -> 384)
+    for lvs, li, cin, cout, path in ((levels, 3, 256, 256, "inference"),
+                                     (levels, 0, 128, 96, "inference"),
+                                     (tlevels, 0, 416, 384, "training"),
+                                     (tlevels, 2, 512, 384, "training")):
+        fine, coarse = lvs[li], lvs[li + 1]
+        b, nf = fine.key.shape
+        nc = coarse.key.shape[1]
+        conv_case(f"conv_up[{b}x{nc}->{nf} {cin}->{cout}"
+                  + (" f32]" if path == "training" else "]"), "conv_up",
+                  K3_TPU, conv.gather_gemm_up, conv.gather_gemm_up_plain,
+                  [feats(coarse, cin), weights(8, cin, cout), fine.parent_idx,
+                   fine.row_ok, fine.octant], _up_work(fine), 8, path=path)
 
     def q8_case(name, kernel, replaces, mode, fn, plain, unquantised, f, w,
                 maps, n_table, work, path="int8"):
@@ -707,11 +743,64 @@ def phase_kernels(levels, tlevels, plevels, slevels, device):
     log("kernels", cases=[{k: r.get(k) for k in (
         "name", "path", "replaces", "ms", "quantise_ms", "plain_ms",
         "library_ms", "library_call", "bound_ms", "bound_by",
-        "bound_3xtf32_ms", "gemm_ms", "gemm_call", "work",
+        "bound_3xtf32_ms", "bound_4xtf32_ms", "gemm_ms", "gemm_call",
+        "stage_ms", "rel_err_f64", "work",
         "groups", "hits", "near_ties", "idx_differ_at_ties", "max_abs_err",
         "rel_err", "tolerance")}
         for r in records])
     return records
+
+
+def k3_f64(kind, f, w, *maps):
+    """K3's down or up conv in f64 on the card (the reference of the f32
+    kernel's and twin's rounding)."""
+    from mrcc_tpu_torch.ops.conv import _gather
+
+    f, w = f.double(), w.double()
+    if kind == "down":
+        idx, hit = maps
+        return sum(torch.where(hit[k][..., None], _gather(f, idx[k]), 0.0)
+                   @ w[k] for k in range(8))
+    parent, ok, octant = maps
+    g = torch.where(ok[..., None], _gather(f, parent), 0.0)
+    return sum(torch.where((octant == k)[..., None], g @ w[k], 0.0)
+               for k in range(8))
+
+
+def k3_stages(kind, f, w, *maps):
+    """K3's stages at one down / up case (``f``, ``w`` in the dtype the
+    path runs): the list stage and the child sum (down) or zero pass (up)
+    timed alone, and the yardstick of the GEMM alone: ``torch.mm`` over the
+    per-octant operands of the same hits, gathered beforehand, summed over
+    the octants (f32 with TF32 off, or bf16)."""
+    from mrcc_tpu_torch.ops import conv
+    from mrcc_tpu_torch.ops.build import ptr, stream_ptr
+
+    n_in = f.shape[1]
+    raw = [m.contiguous() for m in maps]
+    stage_ms = {"lists": cuda_ms(
+        lambda: conv._launch_hit_lists(kind, n_in, raw, k3=True))}
+    cout = w.shape[-1]
+    if kind == "down":
+        y = torch.randn(f.shape[:2] + (cout,), device=f.device)
+        stage_ms["child_sum"] = cuda_ms(
+            lambda: conv.child_sum(y, *raw, f.dtype))
+    else:
+        out = torch.empty(raw[0].shape + (cout,), dtype=f.dtype,
+                          device=f.device)
+        sfx = "f32" if f.dtype == torch.float32 else "bf16"
+        stage_ms["zero_rows"] = cuda_ms(lambda: conv.MAP_LIB.call(
+            f"mrcc_zero_rows_{sfx}", ptr(raw[1]), ptr(raw[2]), ptr(out),
+            out.shape[0] * out.shape[1], cout, stream_ptr(out)))
+    fidx, _, count = conv.dw_hit_lists(kind, n_in, *raw)
+    ff = f.reshape(-1, f.shape[-1])
+    pairs = [(ff[fidx[k, :c].long()], w[k])
+             for k, c in enumerate(count.tolist())]
+    return {"stage_ms": stage_ms,
+            "gemm_ms": cuda_ms(lambda: [torch.mm(a, b) for a, b in pairs]),
+            "gemm_call": "torch.mm(A_k, W_k) for each octant k, A_k the "
+                         f"hits' rows gathered beforehand, {f.dtype}, TF32 "
+                         "off"}
 
 
 def phase_backward(tlevels, device):
@@ -748,6 +837,17 @@ def phase_backward(tlevels, device):
             lambda f, w: C.conv_transpose_up(f, w, l4, l3),
             lambda f, w: conv.gather_gemm_up_plain(
                 f, w, l3.parent_idx, l3.row_ok, l3.octant)),
+        # the widest level pair: the data cotangent of each runs the other
+        # conv at 8 x 16384 rows
+        "down[level 0->1 384x416]": (
+            8, 384, 416, l0, l1, lambda f, w: C.conv_down(f, w, l0, l1),
+            lambda f, w: conv.gather_gemm_down_plain(f, w, l1.child_idx,
+                                                     l1.child_hit)),
+        "up[level 1->0 416x384]": (
+            8, 416, 384, l1, l0,
+            lambda f, w: C.conv_transpose_up(f, w, l1, l0),
+            lambda f, w: conv.gather_gemm_up_plain(
+                f, w, l0.parent_idx, l0.row_ok, l0.octant)),
     }
     errs = {}
     for name, (taps, cin, cout, src, dst, fn, plain) in cases.items():
@@ -1404,8 +1504,7 @@ def _inference_report(engine, inputs, out, iters):
     batch_ms = 1e3 * med
     top = dict(sorted(device_ms.items(), key=lambda kv: -kv[1])[:12])
     ported = {k: sum(v for n, v in device_ms.items() if k in n)
-              for k in ("radix_", "KeySearch",
-                        "conv_down_kernel", "conv_up_kernel",
+              for k in ("radix_", "KeySearch", *K3_NAMES,
                         "conv_sk_q8_kernel", "conv_down_q8_kernel",
                         "conv_up_q8_kernel", "rank_kernel",
                         "conv_k3map_kernel", "conv_k3map_q8_kernel")}
@@ -1429,7 +1528,28 @@ def _inference_report(engine, inputs, out, iters):
         stage_ms={k: 1e3 * v for k, v in stages.items()},
         device_busy_ms=busy, device_idle_share=1 - busy / batch_ms,
         ported_kernel_device_ms=ported, top_device_ms=top,
+        k3_device_ms=k3_device_ms(device_ms),
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **checks)
+
+
+# K3's down and up kernels: its instantiations of the list kernel (under
+# their own source names), the list GEMM, the child sum and the zero pass
+K3_NAMES = ("K3ChildMap", "K3ParentMap", "list_mma_kernel",
+            "child_sum_kernel", "zero_rows_kernel")
+
+
+def k3_device_ms(device_ms):
+    """K3's down and up device time of one profile."""
+    return sum(v for n, v in device_ms.items()
+               if any(k in n for k in K3_NAMES))
+
+
+def dw_device_ms(device_ms):
+    """The dW kernels' device time of one profile: their list kernel
+    instantiations (every one but K3's), the MMA kernel, the slot sum."""
+    return sum(v for n, v in device_ms.items()
+               if ("hit_lists_kernel" in n and "K3" not in n)
+               or "dw_mma_kernel" in n or "dw_reduce" in n)
 
 
 def profile_device_ms(fn):
@@ -1644,11 +1764,10 @@ def _train_run(step, batch, counters, warmup, timed, lr=1e-4):
     step_ms = 1e3 * med
     top = dict(sorted(device_ms.items(), key=lambda kv: -kv[1])[:14])
     ported = {k: sum(v for n, v in device_ms.items() if k in n)
-              for k in ("radix_", "KeySearch",
-                        "conv_down_kernel", "conv_up_kernel",
+              for k in ("radix_", "KeySearch", *K3_NAMES,
                         "NbrTable", "rank_kernel", "SkSource",
                         "DownSource", "UpSource", "TableSource",
-                        "hit_lists_kernel", "dw_mma_kernel", "dw_reduce")}
+                        "dw_mma_kernel", "dw_reduce")}
     checks = {"finite_losses": bool(np.isfinite(losses).all()),
               "loss_first": losses[0], "loss_last": losses[-1]}
     if not (checks["finite_losses"] and losses[-1] < losses[0]):
@@ -1662,8 +1781,8 @@ def _train_run(step, batch, counters, warmup, timed, lr=1e-4):
         stage_ms={k: 1e3 * v for k, v in stages.items()},
         device_busy_ms=busy, device_idle_share=1 - busy / step_ms,
         ported_kernel_device_ms=ported, top_device_ms=top,
-        dw_device_ms=sum(ported[k] for k in ("hit_lists_kernel",
-                                             "dw_mma_kernel", "dw_reduce")),
+        dw_device_ms=dw_device_ms(device_ms),
+        k3_device_ms=k3_device_ms(device_ms),
         launches_per_step=launches, peak_mem_gb=peak_gb, losses=losses,
         **checks)
 
@@ -1870,24 +1989,26 @@ def phase_pose_k2(seed=50):
 
 
 @contextlib.contextmanager
-def dw_timed():
-    """Time every dW launch of a run with CUDA events (the autograd
-    Functions look the wrappers up by module attribute): yields a list of
-    ``(kind, B, rows in, rows out, Cin, Cout, start event, end event)``."""
+def timed_wrappers(names, rows_out):
+    """Time every call of the ``ops.conv`` wrappers ``names`` in a run with
+    CUDA events (the autograd Functions look the wrappers up by module
+    attribute): yields a list of ``(name, B, rows in, rows out, Cin, Cout,
+    start event, end event)``; ``rows_out(args)`` reads the output rows
+    from a call's arguments."""
     from mrcc_tpu_torch.ops import conv
 
-    names = ("dw_sk", "dw_k3_map", "dw_down", "dw_up")
     calls, orig = [], {n: getattr(conv, n) for n in names}
 
     def timed(name):
-        def run(feats, g, *maps):
+        def run(feats, other, *maps):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = orig[name](feats, g, *maps)
+            out = orig[name](feats, other, *maps)
             end.record()
-            calls.append((name, feats.shape[0], feats.shape[1], g.shape[1],
-                          feats.shape[-1], g.shape[-1], start, end))
+            calls.append((name, feats.shape[0], feats.shape[1],
+                          rows_out(other, maps), feats.shape[-1],
+                          out.shape[-1], start, end))
             return out
         return run
 
@@ -1900,12 +2021,21 @@ def dw_timed():
             setattr(conv, n, orig[n])
 
 
-def dw_breakdown(step, batch, lr=1e-4):
-    """The dW kernels' device time in one train step, by kernel and shape,
-    from CUDA events around each launch (the step warmed first)."""
+# the dW wrappers (their g is the output level's cotangent) and K3's (the
+# map's last dimension is the output level)
+DW_WRAPPERS = (("dw_sk", "dw_k3_map", "dw_down", "dw_up"),
+               lambda g, maps: g.shape[1])
+K3_WRAPPERS = (("gather_gemm_down", "gather_gemm_up"),
+               lambda w, maps: maps[0].shape[-1])
+
+
+def wrapper_breakdown(step, batch, wrappers, label, lr=1e-4):
+    """The device time of one train step's calls of ``wrappers`` by
+    wrapper and shape, from CUDA events around each call (the step warmed
+    first): ``{label}_ms``, ``{label}_calls``, ``{label}_by_shape``."""
     step(batch, lr)
     torch.cuda.synchronize()
-    with dw_timed() as calls:
+    with timed_wrappers(*wrappers) as calls:
         step(batch, lr)
         torch.cuda.synchronize()
     by = {}
@@ -1915,26 +2045,28 @@ def dw_breakdown(step, batch, lr=1e-4):
                           {"calls": 0, "ms": 0.0})
         d["calls"] += 1
         d["ms"] += start.elapsed_time(end)
-    return {"dw_ms": sum(d["ms"] for d in by.values()),
-            "dw_calls": len(calls), "dw_by_shape": by}
+    return {f"{label}_ms": sum(d["ms"] for d in by.values()),
+            f"{label}_calls": len(calls), f"{label}_by_shape": by}
 
 
-def phase_dw():
-    """``--dw``: only the dW breakdown of one phase-7 step (minkunet 18D,
-    B = 8, capacity 16384, self-keyed) and one phase-10 b step (scene
-    scale, levels 0-2 on tables), for comparing kernel versions."""
+def phase_step_breakdown(wrappers, label):
+    """``--dw`` / ``--k3``: only the breakdown of one phase-7 step
+    (minkunet 18D, B = 8, capacity 16384, self-keyed) and one phase-10 b
+    step (scene scale, levels 0-2 on tables) over ``wrappers``, for
+    comparing kernel versions."""
     from mrcc_tpu_torch.models import RobotNetSegmentation
     from mrcc_tpu_torch.sparse.nn import init_parameters
 
     model = init_parameters(RobotNetSegmentation(backbone="minkunet"), 1)
-    log("dw_step", cell="training", card=smi_line(),
-        **dw_breakdown(_seg_step(model), train_batch()))
+    log(f"{label}_step", cell="training", card=smi_line(),
+        **wrapper_breakdown(_seg_step(model), train_batch(), wrappers,
+                            label))
     del model
     torch.cuda.empty_cache()
     model = init_parameters(RobotNetSegmentation(backbone="minkunet18D"), 2)
-    log("dw_step", cell="training_scene", card=smi_line(),
-        **dw_breakdown(_seg_step(model, capacity=SCENE_CAPACITY),
-                       scene_batch()))
+    log(f"{label}_step", cell="training_scene", card=smi_line(),
+        **wrapper_breakdown(_seg_step(model, capacity=SCENE_CAPACITY),
+                            scene_batch(), wrappers, label))
 
 
 def phase_pose_train(counters, warmup=2, timed=6):
@@ -1989,12 +2121,15 @@ def main():
 
     from mrcc_tpu_torch.ops import conv, conv_q8, nn, rank, sort
 
-    if sys.argv[1:] in (["--pose-k2"], ["--dw"]):
+    modes = {"--pose-k2": phase_pose_k2,
+             "--dw": lambda: phase_step_breakdown(DW_WRAPPERS, "dw"),
+             "--k3": lambda: phase_step_breakdown(K3_WRAPPERS, "k3"),
+             "--inference": lambda: phase_main_path(
+                 *bench_levels(torch.device("cuda"))[:2],
+                 [sort.SORT, conv.SK, conv.DOWN, conv.UP])}
+    if len(sys.argv) == 2 and sys.argv[1] in modes:
         phase_build()
-        if sys.argv[1] == "--pose-k2":
-            phase_pose_k2()
-        else:
-            phase_dw()
+        modes[sys.argv[1]]()
         return 0
 
     def phase(name, fn, *args):
@@ -2022,7 +2157,8 @@ def main():
     phase("train_card_vs_cpu", phase_train_card_vs_cpu)
     phase("train_tables_card_vs_cpu", phase_train_card_vs_cpu, False)
     phase("pose_card_vs_cpu", phase_pose_card_vs_cpu)
-    counters = [sort.SORT, conv.SK, conv.DOWN, conv.UP]
+    counters = [sort.SORT, conv.SK, conv.DOWN, conv.UP, conv.K3_LISTS,
+                conv.K3_SUM]
     launches, bf16_seg = phase("main_path", phase_main_path, inputs, caps,
                                counters)
     launches = {"inference": launches, "frame": frame}

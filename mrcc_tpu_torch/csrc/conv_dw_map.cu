@@ -36,29 +36,10 @@ using namespace mrcc;
 constexpr int K2 = 8;
 constexpr int K3 = 27;
 
-struct DownSource {
-  const int* child_idx;
-  const uint8_t* child_hit;
-  int batch;
-  int n_out;
-
-  __device__ __forceinline__ int operator()(int k, int b, int p) const {
-    const size_t o = (static_cast<size_t>(k) * batch + b) * n_out + p;
-    return child_hit[o] ? child_idx[o] : -1;
-  }
-};
-
-struct UpSource {
-  const int* parent_idx;
-  const uint8_t* row_ok;
-  const int* octant;
-  int n_out;
-
-  __device__ __forceinline__ int operator()(int k, int b, int c) const {
-    const size_t at = static_cast<size_t>(b) * n_out + c;
-    return (row_ok[at] && octant[at] == k) ? parent_idx[at] : -1;
-  }
-};
+// The dW kernels' names for the maps of hit_lists.cuh (K3's convs list the
+// same maps under names of their own, conv_map.cu).
+struct DownSource : hitlist::ChildMap {};
+struct UpSource : hitlist::ParentMap {};
 
 struct TableSource {
   const int* nbr_idx;
@@ -89,7 +70,7 @@ struct TableSource {
       int* count, float* part, float* out, int batch, int n_in, int n_out,   \
       int cin, int cout, int slots, cudaStream_t stream) {                  \
     return mrcc::dw_launch<T>(                                                \
-        DownSource{child_idx, child_hit, batch, n_out}, feats, g, lists,     \
+        DownSource{{child_idx, child_hit, batch, n_out}}, feats, g, lists,   \
         status, count, part, out, batch, n_in, n_out, K2, cin, cout, slots, \
         stream);                                                             \
   }
@@ -101,8 +82,9 @@ extern "C" int mrcc_dw_down_lists(const int* child_idx,
                                   unsigned long long* status, int* count,
                                   int batch, int n_in, int n_out,
                                   cudaStream_t stream) {
-  return mrcc::dw_lists(DownSource{child_idx, child_hit, batch, n_out}, lists,
-                        status, count, batch, n_in, n_out, K2, stream);
+  return mrcc::hitlist::build_lists(
+      DownSource{{child_idx, child_hit, batch, n_out}}, lists, status, count,
+      batch, n_in, n_out, K2, stream);
 }
 
 // up: feats [B, n_in, cin] (coarse), g [B, n_out, cout] (fine),
@@ -115,7 +97,7 @@ extern "C" int mrcc_dw_down_lists(const int* child_idx,
       int batch, int n_in, int n_out, int cin, int cout, int slots,         \
       cudaStream_t stream) {                                                 \
     return mrcc::dw_launch<T>(                                                \
-        UpSource{parent_idx, row_ok, octant, n_out}, feats, g, lists,        \
+        UpSource{{parent_idx, row_ok, octant, n_out}}, feats, g, lists,      \
         status, count, part, out, batch, n_in, n_out, K2, cin, cout, slots, \
         stream);                                                             \
   }
@@ -127,8 +109,9 @@ extern "C" int mrcc_dw_up_lists(const int* parent_idx, const uint8_t* row_ok,
                                 unsigned long long* status, int* count,
                                 int batch, int n_in, int n_out,
                                 cudaStream_t stream) {
-  return mrcc::dw_lists(UpSource{parent_idx, row_ok, octant, n_out}, lists,
-                        status, count, batch, n_in, n_out, K2, stream);
+  return mrcc::hitlist::build_lists(
+      UpSource{{parent_idx, row_ok, octant, n_out}}, lists, status, count,
+      batch, n_in, n_out, K2, stream);
 }
 
 // k3map: feats [B, n, cin], g [B, n, cout] (the same level),
@@ -150,6 +133,7 @@ extern "C" int mrcc_dw_k3map_lists(const int* nbr_idx, const uint8_t* nbr_hit,
                                    int* lists, unsigned long long* status,
                                    int* count, int batch, int n,
                                    cudaStream_t stream) {
-  return mrcc::dw_lists(TableSource{nbr_idx, nbr_hit, batch, n}, lists,
-                        status, count, batch, n, n, K3, stream);
+  return mrcc::hitlist::build_lists(TableSource{nbr_idx, nbr_hit, batch, n},
+                                    lists, status, count, batch, n, n, K3,
+                                    stream);
 }

@@ -118,6 +118,6 @@ extern "C" int mrcc_dw_sk_bf16(const void* feats, const void* g,
 extern "C" int mrcc_dw_sk_lists(const int* key, const int* kbits, int* lists,
                                 unsigned long long* status, int* count,
                                 int batch, int n, cudaStream_t stream) {
-  return dw_lists(SkSource{key, kbits, n}, lists, status, count, batch, n, n,
-                  27, stream);
+  return mrcc::hitlist::build_lists(SkSource{key, kbits, n}, lists, status,
+                                    count, batch, n, n, 27, stream);
 }

@@ -1,5 +1,5 @@
-// K3 — gather-GEMM over explicit kernel maps: the k=2 s=2 down conv, its
-// transpose, and the k=3 s=1 conv over neighbour tables.
+// K3 — gather-GEMMs over explicit kernel maps: the k=2 s=2 down conv, its
+// transpose (the up conv), and the k=3 s=1 conv over neighbour tables.
 //
 // Replaces: mrcc_tpu/ops/conv_pallas.py::_gather_gemm_call in its three
 // modes: the 8-child down map, the broadcast-k up map (bcast_k), and the
@@ -7,97 +7,52 @@
 // function over an HBM-resident table (these kernels read global memory at
 // any N).
 //
-//   down: out[b, p] = sum_{k<8} child_hit[k, b, p] * feats[b, child_idx[k, b, p]] @ W[k]
-//   k3:   out[b, i] = sum_{k<27} nbr_hit[k, b, i] * feats[b, nbr_idx[k, b, i]] @ W[k]
-//   up:   out[b, c] = row_ok[b, c] * feats[b, parent_idx[b, c]] @ W[octant[b, c]]
+//   down: out[b, p] = sum_{k<8} child_hit[k, b, p]
+//                               * feats[b, child_idx[k, b, p]] @ W[k]
+//   k3:   out[b, i] = sum_{k<27} nbr_hit[k, b, i]
+//                                * feats[b, nbr_idx[k, b, i]] @ W[k]
+//   up:   out[b, c] = row_ok[b, c]
+//                     * feats[b, parent_idx[b, c]] @ W[octant[b, c]]
 //
 // row_ok is valid & parent_ok: children of parents that overflowed the
-// coarse capacity alias slot capacity - 1 and must contribute nothing.  The
-// up conv is ONE gather per output row with the weight slice picked by the
-// row's octant, not eight masked passes.
+// coarse capacity alias slot capacity - 1 and must contribute nothing.
 //
-// Bound on the card: the down conv reads 8 child rows of Cin per parent,
-// the k3 conv up to 27 neighbour rows per row, the up conv one parent row
-// per child; all do 2 * Cin * Cout FLOPs per gathered row (operations at
-// the k3 conv's decoder widths, bytes at narrow ones).  Design: the down
-// map's CTA reads its 8 x 64 map entries once into shared memory, skips
-// offsets no row of the tile hits, stages gathered rows through shared
-// memory in f32 and accumulates with FMA (gather_gemm.cuh).  The up conv
-// keeps all eight weight slices of a channel stage in shared memory
-// (8 x 8 x 64 f32 = 16 KB) so that each output row multiplies by its own
-// octant's slice.  Both are CUDA-core first versions.  The k3 table conv
-// runs the self-keyed conv's tensor-core tile (gather_mma.cuh) with a table
-// load for the key search: its neighbour list is the same as K2's (the
-// identity offset's entry is the row itself where valid), so the two k3
-// routes give the same bits, forward and backward.
+// Bound on the card: a down or up hit is one fine row with a parent (about
+// 2 a coarse row at level 0 -> 1, 3-4 deeper) and costs 2 * Cin * Cout
+// operations against one gathered row.  The decoder's convs (256-512 ->
+// 384) are bound by operations, the narrow ones (32 -> 32) by bytes.
+// Design (list_mma.cuh): both are a list GEMM over per-octant hit lists
+// built once a call (hit_lists.cuh: a memset and one look-back kernel), so
+// the work is exactly the hits; a 64-row tile over the child map would
+// multiply all 8 octants for each coarse row.
+//   - up: the lists of the parent map (K3ParentMap); the GEMM gathers each
+//     fine row's parent, multiplies it by W[octant] and stores the fine
+//     row of out; zero_rows_kernel clears the rows no list names.
+//   - down: the lists of the child map (K3ChildMap); the GEMM stores
+//     feats[j] @ W[octant(j)] of every fine row j with a parent into an f32
+//     scratch Y, and child_sum_kernel sums each coarse row's children in
+//     octant order (bound by bytes) and casts once.
+// At most four launches a call, no host sync, no float atomics: the same
+// bits for the same inputs.  The k3 table conv runs the self-keyed conv's
+// tensor-core tile (gather_mma.cuh) with a table load for the key search:
+// its neighbour list is the same as K2's (the identity offset's entry is
+// the row itself where valid), so the two k3 routes give the same bits,
+// forward and backward.
 
-#include "gather_gemm.cuh"
 #include "gather_mma.cuh"
+#include "hit_lists.cuh"
+#include "list_mma.cuh"
 
 namespace {
 
 using namespace mrcc;
 
 constexpr int K2 = 8;
-constexpr int KC_DOWN = 16;
-constexpr int KC_UP = 8;
 
-// K-offset map conv (K = 8: the down conv).
-template <typename T, int K>
-__device__ __forceinline__ void conv_map_body(
-    const T* __restrict__ feats, const T* __restrict__ w,
-    const int* __restrict__ map_idx, const uint8_t* __restrict__ map_hit,
-    T* __restrict__ out, int batch, int n_in, int n_out, int cin, int cout) {
-  __shared__ int src[K][TM];
-  __shared__ int any_hit[K];
-  __shared__ float As[KC_DOWN][TM + 4];
-  __shared__ float Ws[KC_DOWN][TN];
-
-  const int b = blockIdx.z;
-  const int m0 = blockIdx.x * TM;
-  const int n0 = blockIdx.y * TN;
-  if (threadIdx.x < K) any_hit[threadIdx.x] = 0;
-  __syncthreads();
-  for (int e = threadIdx.x; e < K * TM; e += THREADS) {
-    const int k = e / TM;
-    const int r = e % TM;
-    const int row = m0 + r;
-    int j = -1;
-    if (row < n_out) {
-      const size_t o = (static_cast<size_t>(k) * batch + b) * n_out + row;
-      if (map_hit[o]) j = map_idx[o];
-    }
-    src[k][r] = j;
-    if (j >= 0) any_hit[k] = 1;
-  }
-  __syncthreads();
-
-  float acc[4][4] = {};
-  const T* fb = feats + static_cast<size_t>(b) * n_in * cin;
-  for (int k = 0; k < K; ++k) {
-    if (!any_hit[k]) continue;  // uniform over the CTA
-    const T* wk = w + static_cast<size_t>(k) * cin * cout;
-    for (int c0 = 0; c0 < cin; c0 += KC_DOWN) {
-      load_rows<KC_DOWN>(As, fb, src[k], cin, c0);
-      load_w<KC_DOWN>(Ws, wk, cin, cout, c0, n0);
-      __syncthreads();
-      fma_tile<KC_DOWN>(acc, As, Ws);
-      __syncthreads();
-    }
-  }
-  store_tile(out + static_cast<size_t>(b) * n_out * cout, acc, m0, n0, n_out,
-             cout);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-conv_down_kernel(const T* __restrict__ feats, const T* __restrict__ w,
-                 const int* __restrict__ child_idx,
-                 const uint8_t* __restrict__ child_hit, T* __restrict__ out,
-                 int batch, int n_in, int n_out, int cin, int cout) {
-  conv_map_body<T, K2>(feats, w, child_idx, child_hit, out, batch, n_in,
-                       n_out, cin, cout);
-}
+// K3's names for the maps of hit_lists.cuh (the dW kernels list the same
+// maps under names of their own, conv_dw_map.cu).
+struct K3ChildMap : hitlist::ChildMap {};
+struct K3ParentMap : hitlist::ParentMap {};
 
 // The k3 table conv's row source: the neighbour tables of the level,
 // nbr_idx / nbr_hit [27, B, n].
@@ -122,119 +77,97 @@ struct NbrTable {
   }
 };
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-conv_up_kernel(const T* __restrict__ feats, const T* __restrict__ w,
-               const int* __restrict__ parent_idx,
-               const uint8_t* __restrict__ row_ok,
-               const int* __restrict__ octant, T* __restrict__ out, int n_in,
-               int n_out, int cin, int cout) {
-  __shared__ int src[TM];
-  __shared__ int oct[TM];
-  __shared__ float As[KC_UP][TM + 4];
-  __shared__ float Ws[K2][KC_UP][TN];
-
-  const int b = blockIdx.z;
-  const int m0 = blockIdx.x * TM;
-  const int n0 = blockIdx.y * TN;
-  for (int r = threadIdx.x; r < TM; r += THREADS) {
-    const int row = m0 + r;
-    int j = -1;
-    int o = 0;
-    if (row < n_out) {
-      const size_t at = static_cast<size_t>(b) * n_out + row;
-      if (row_ok[at]) {
-        j = parent_idx[at];
-        o = octant[at];
-      }
-    }
-    src[r] = j;
-    oct[r] = o;
-  }
-  __syncthreads();
-
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-  int my_oct[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) my_oct[i] = oct[ty + 16 * i];
-
-  float acc[4][4] = {};
-  const T* fb = feats + static_cast<size_t>(b) * n_in * cin;
-  for (int c0 = 0; c0 < cin; c0 += KC_UP) {
-    load_rows<KC_UP>(As, fb, src, cin, c0);
-    for (int e = threadIdx.x; e < K2 * KC_UP * TN; e += THREADS) {
-      const int k = e / (KC_UP * TN);
-      const int kk = (e / TN) % KC_UP;
-      const int nn = e % TN;
-      const int c = c0 + kk;
-      const int col = n0 + nn;
-      Ws[k][kk][nn] =
-          (c < cin && col < cout)
-              ? to_f32(w[(static_cast<size_t>(k) * cin + c) * cout + col])
-              : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KC_UP; ++kk) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float a = As[kk][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[i][j] = fmaf(a, Ws[my_oct[i]][kk][tx + 16 * j], acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-  store_tile(out + static_cast<size_t>(b) * n_out * cout, acc, m0, n0, n_out,
-             cout);
-}
-
-template <typename T>
-int launch_down(const void* feats, const void* w, const int* child_idx,
-                const uint8_t* child_hit, void* out, int batch, int n_in,
-                int n_out, int cin, int cout, cudaStream_t stream) {
-  if (n_out > 0 && batch > 0 && cout > 0) {
-    conv_down_kernel<T><<<conv_grid(n_out, cout, batch), THREADS, 0, stream>>>(
-        static_cast<const T*>(feats), static_cast<const T*>(w), child_idx,
-        child_hit, static_cast<T*>(out), batch, n_in, n_out, cin, cout);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_up(const void* feats, const void* w, const int* parent_idx,
-              const uint8_t* row_ok, const int* octant, void* out, int batch,
-              int n_in, int n_out, int cin, int cout, cudaStream_t stream) {
-  if (n_out > 0 && batch > 0 && cout > 0) {
-    conv_up_kernel<T><<<conv_grid(n_out, cout, batch), THREADS, 0, stream>>>(
-        static_cast<const T*>(feats), static_cast<const T*>(w), parent_idx,
-        row_ok, octant, static_cast<T*>(out), n_in, n_out, cin, cout);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
-// down: feats [B, n_in, cin] (fine level), w [8, cin, cout],
-// child_idx [8, B, n_out] int32, child_hit [8, B, n_out] bool,
-// out [B, n_out, cout] (coarse level).  Returns cudaGetLastError().
-extern "C" int mrcc_conv_down_f32(const void* feats, const void* w,
-                                  const int* child_idx, const uint8_t* child_hit,
-                                  void* out, int batch, int n_in, int n_out,
-                                  int cin, int cout, cudaStream_t stream) {
-  return launch_down<float>(feats, w, child_idx, child_hit, out, batch, n_in,
-                            n_out, cin, cout, stream);
+// The per-octant hit lists of a down conv's child map (child_idx /
+// child_hit [8, B, n_out]) and of an up conv's parent map (parent_idx /
+// octant [B, n_out] int32, row_ok [B, n_out] bool): lists [2, 8, B *
+// n_out] int32 (source rows b * n_in + j, then map rows b * n_out + i),
+// status [8 * ceil(B * n_out / 2048) + 1] u64, count [8] int32.  Each
+// returns cudaGetLastError().
+extern "C" int mrcc_conv_down_lists(const int* child_idx,
+                                    const uint8_t* child_hit, int* lists,
+                                    unsigned long long* status, int* count,
+                                    int batch, int n_in, int n_out,
+                                    cudaStream_t stream) {
+  return hitlist::build_lists(
+      K3ChildMap{{child_idx, child_hit, batch, n_out}}, lists, status, count,
+      batch, n_in, n_out, K2, stream);
 }
 
-extern "C" int mrcc_conv_down_bf16(const void* feats, const void* w,
-                                   const int* child_idx,
+extern "C" int mrcc_conv_up_lists(const int* parent_idx, const uint8_t* row_ok,
+                                  const int* octant, int* lists,
+                                  unsigned long long* status, int* count,
+                                  int batch, int n_in, int n_out,
+                                  cudaStream_t stream) {
+  return hitlist::build_lists(
+      K3ParentMap{{parent_idx, row_ok, octant, n_out}}, lists, status, count,
+      batch, n_in, n_out, K2, stream);
+}
+
+// The list GEMM: out[dst[k][e]] = feats[src[k][e]] @ w[k] for e < count[k].
+// feats [rows_in, cin], w [taps, cin, cout] (the feature type), src / dst
+// [taps, total] int32, count [taps] int32, out [out_rows, cout]: f32 where
+// out_f32, else the feature type (f32 features take f32 out only).  Each
+// dst row lies in at most one list.  Returns cudaGetLastError().
+extern "C" int mrcc_list_gemm_f32(const void* feats, const void* w,
+                                  const int* src, const int* dst,
+                                  const int* count, void* out, int taps,
+                                  int total, int out_rows, int cin, int cout,
+                                  int out_f32, cudaStream_t stream) {
+  if (!out_f32) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(lm::launch_list_gemm<float, float>(
+      feats, w, src, dst, count, out, taps, total, out_rows, cin, cout,
+      stream));
+}
+
+extern "C" int mrcc_list_gemm_bf16(const void* feats, const void* w,
+                                   const int* src, const int* dst,
+                                   const int* count, void* out, int taps,
+                                   int total, int out_rows, int cin, int cout,
+                                   int out_f32, cudaStream_t stream) {
+  return static_cast<int>(
+      out_f32 ? lm::launch_list_gemm<__nv_bfloat16, float>(
+                    feats, w, src, dst, count, out, taps, total, out_rows,
+                    cin, cout, stream)
+              : lm::launch_list_gemm<__nv_bfloat16, __nv_bfloat16>(
+                    feats, w, src, dst, count, out, taps, total, out_rows,
+                    cin, cout, stream));
+}
+
+// The down conv's child sum: y [B * n_in, cout] f32 (the list GEMM's rows
+// of the fine level), child_idx / child_hit [8, B, n_out], out [B, n_out,
+// cout] in the suffix's type.  Returns cudaGetLastError().
+extern "C" int mrcc_child_sum_f32(const float* y, const int* child_idx,
+                                  const uint8_t* child_hit, void* out,
+                                  int batch, int n_in, int n_out, int cout,
+                                  cudaStream_t stream) {
+  return static_cast<int>(lm::launch_child_sum<float>(
+      y, child_idx, child_hit, out, batch, n_in, n_out, cout, stream));
+}
+
+extern "C" int mrcc_child_sum_bf16(const float* y, const int* child_idx,
                                    const uint8_t* child_hit, void* out,
-                                   int batch, int n_in, int n_out, int cin,
-                                   int cout, cudaStream_t stream) {
-  return launch_down<__nv_bfloat16>(feats, w, child_idx, child_hit, out, batch,
-                                    n_in, n_out, cin, cout, stream);
+                                   int batch, int n_in, int n_out, int cout,
+                                   cudaStream_t stream) {
+  return static_cast<int>(lm::launch_child_sum<__nv_bfloat16>(
+      y, child_idx, child_hit, out, batch, n_in, n_out, cout, stream));
+}
+
+// The up conv's zero pass: out [rows, cout] rows whose row_ok is false (or
+// whose octant is outside 0..7) set to 0.  Returns cudaGetLastError().
+extern "C" int mrcc_zero_rows_f32(const uint8_t* row_ok, const int* octant,
+                                  void* out, int rows, int cout,
+                                  cudaStream_t stream) {
+  return static_cast<int>(
+      lm::launch_zero_rows<float>(row_ok, octant, out, rows, cout, stream));
+}
+
+extern "C" int mrcc_zero_rows_bf16(const uint8_t* row_ok, const int* octant,
+                                   void* out, int rows, int cout,
+                                   cudaStream_t stream) {
+  return static_cast<int>(lm::launch_zero_rows<__nv_bfloat16>(
+      row_ok, octant, out, rows, cout, stream));
 }
 
 // k3 table: feats [B, n, cin], w [27, cin, cout], nbr_idx [27, B, n] int32,
@@ -260,25 +193,4 @@ extern "C" int mrcc_conv_k3map_bf16(const void* feats, const void* w,
       feats, w, NbrTable{nbr_idx, nbr_hit, batch}, lists, out, batch, n, cin,
       cout, stream);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
-}
-
-// up: feats [B, n_in, cin] (coarse level), w [8, cin, cout],
-// parent_idx/octant [B, n_out] int32, row_ok [B, n_out] bool,
-// out [B, n_out, cout] (fine level).  Returns cudaGetLastError().
-extern "C" int mrcc_conv_up_f32(const void* feats, const void* w,
-                                const int* parent_idx, const uint8_t* row_ok,
-                                const int* octant, void* out, int batch,
-                                int n_in, int n_out, int cin, int cout,
-                                cudaStream_t stream) {
-  return launch_up<float>(feats, w, parent_idx, row_ok, octant, out, batch,
-                          n_in, n_out, cin, cout, stream);
-}
-
-extern "C" int mrcc_conv_up_bf16(const void* feats, const void* w,
-                                 const int* parent_idx, const uint8_t* row_ok,
-                                 const int* octant, void* out, int batch,
-                                 int n_in, int n_out, int cin, int cout,
-                                 cudaStream_t stream) {
-  return launch_up<__nv_bfloat16>(feats, w, parent_idx, row_ok, octant, out,
-                                  batch, n_in, n_out, cin, cout, stream);
 }

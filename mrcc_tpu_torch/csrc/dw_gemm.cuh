@@ -548,16 +548,4 @@ int dw_launch(Source src, const void* feats, const void* g, int* lists,
   return static_cast<int>(err);
 }
 
-// The lists alone (stage 1), for dw_hit_lists.
-template <typename Source>
-int dw_lists(Source src, int* lists, unsigned long long* status, int* count,
-             int batch, int n_in, int n_rows, int k, cudaStream_t stream) {
-  if (k <= 0) return 0;
-  if (batch * n_rows <= 0)
-    return static_cast<int>(
-        cudaMemsetAsync(count, 0, k * sizeof(int), stream));
-  return static_cast<int>(hitlist::launch_hit_lists(
-      src, lists, status, count, k, batch, n_in, n_rows, stream));
-}
-
 }  // namespace mrcc

@@ -1,12 +1,9 @@
-// Shared tile machinery of the gather-GEMM convolutions (conv_sk.cu,
-// conv_map.cu; the key search also serves conv_dw_sk.cu): a CTA owns TM
-// output rows x TN output columns; 256 threads in a 16 x 16 grid each
-// accumulate 4 x 4 outputs in f32 registers.  Input
-// rows are gathered through a per-CTA row list in shared memory (-1 = zero
-// row), converted to f32 on load, and multiplied by a shared-memory slice
-// of the weights with FMA.  Rows i of a thread are ty + 16 * i and columns
-// tx + 16 * j, so shared-memory reads are broadcasts or conflict-free and
-// the global stores of one warp are two runs of 16 consecutive columns.
+// Shared helpers of the CUDA-core int8 convs (conv_sk_q8.cu,
+// conv_map_q8.cu through gather_gemm_q8.cuh; the key search also serves
+// conv_sk.cu and conv_dw_sk.cu): a CTA owns TM output rows x TN output
+// columns; 256 threads in a 16 x 16 grid each hold 4 x 4 outputs in f32
+// registers, rows ty + 16 * i and columns tx + 16 * j, so the global
+// stores of one warp are two runs of 16 consecutive columns.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -57,59 +54,6 @@ __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
-}
-
-// As[kk][r] = feats[src[r], c0 + kk] (0 for src[r] < 0 or c0 + kk >= cin).
-template <int KC, typename T>
-__device__ __forceinline__ void load_rows(float (*As)[TM + 4],
-                                          const T* __restrict__ feats,
-                                          const int* src, int cin, int c0) {
-  for (int e = threadIdx.x; e < TM * KC; e += THREADS) {
-    const int r = e / KC;
-    const int kk = e % KC;
-    const int s = src[r];
-    const int c = c0 + kk;
-    float v = 0.f;
-    if (s >= 0 && c < cin) v = to_f32(feats[static_cast<size_t>(s) * cin + c]);
-    As[kk][r] = v;
-  }
-}
-
-// Ws[kk][n] = w[c0 + kk, n0 + n] for one [cin, cout] weight slice.
-template <int KC, typename T>
-__device__ __forceinline__ void load_w(float (*Ws)[TN],
-                                       const T* __restrict__ w, int cin,
-                                       int cout, int c0, int n0) {
-  for (int e = threadIdx.x; e < KC * TN; e += THREADS) {
-    const int kk = e / TN;
-    const int n = e % TN;
-    const int c = c0 + kk;
-    const int col = n0 + n;
-    Ws[kk][n] = (c < cin && col < cout)
-                    ? to_f32(w[static_cast<size_t>(c) * cout + col])
-                    : 0.f;
-  }
-}
-
-template <int KC>
-__device__ __forceinline__ void fma_tile(float (&acc)[4][4],
-                                         float (*As)[TM + 4],
-                                         float (*Ws)[TN]) {
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-#pragma unroll
-  for (int kk = 0; kk < KC; ++kk) {
-    float a[4];
-    float b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = Ws[kk][tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
 }
 
 template <typename T>

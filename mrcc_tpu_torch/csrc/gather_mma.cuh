@@ -348,13 +348,14 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b,
   }
 }
 
-// Rows m0 + wm * 32 + mi * 16 + g (+ 8), columns n0 + wn * 32 + ni * 8 +
-// 2t (+ 1): the m16n8 accumulator layout.
-template <typename T>
-__device__ __forceinline__ void store_tile(T* __restrict__ ob,
-                                           const float (&acc)[2][4][4], int m0,
-                                           int n0, int n, int cout, int wm,
-                                           int wn) {
+// Tile rows lr = wm * 32 + mi * 16 + g (+ 8), columns n0 + wn * 32 + ni *
+// 8 + 2t (+ 1): the m16n8 accumulator layout.  row_of(lr) is the output row
+// of tile row lr, or -1 (not stored).
+template <typename T, class RowOf>
+__device__ __forceinline__ void store_rows(T* __restrict__ ob,
+                                           const float (&acc)[2][4][4],
+                                           const RowOf& row_of, int n0,
+                                           int cout, int wm, int wn) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
@@ -363,8 +364,8 @@ __device__ __forceinline__ void store_tile(T* __restrict__ ob,
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int r = m0 + wm * 32 + mi * 16 + g + h * 8;
-      if (r >= n) continue;
+      const int r = row_of(wm * 32 + mi * 16 + g + h * 8);
+      if (r < 0) continue;
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni) {
         const int c = n0 + wn * 32 + ni * 8 + 2 * t;
@@ -380,6 +381,17 @@ __device__ __forceinline__ void store_tile(T* __restrict__ ob,
         }
       }
     }
+}
+
+// Rows m0 + lr of the block's tile, those below n.
+template <typename T>
+__device__ __forceinline__ void store_tile(T* __restrict__ ob,
+                                           const float (&acc)[2][4][4], int m0,
+                                           int n0, int n, int cout, int wm,
+                                           int wn) {
+  store_rows(
+      ob, acc, [&](int lr) { return m0 + lr < n ? m0 + lr : -1; }, n0, cout,
+      wm, wn);
 }
 
 // ---------------------------------------------------------------- kernel

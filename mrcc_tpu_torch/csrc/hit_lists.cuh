@@ -1,5 +1,6 @@
 // Per-offset hit lists of a gather map, built once per call (the first
-// stage of the weight-gradient kernels, dw_gemm.cuh):
+// stage of the weight-gradient kernels, dw_gemm.cuh, and of K3's down and
+// up convs, list_mma.cuh):
 //
 //   for each offset k, in row order r = b * n_rows + i (b-major, then i),
 //   every row whose source src(k, b, i) = j is >= 0 (a hit) gives the pair
@@ -8,10 +9,12 @@
 //   and count[k] = the number of hits of k.
 //
 // Source is a device functor int operator()(int k, int b, int i) const:
-// the self-keyed key search, a down conv's child map, an up conv's parent
-// / octant map (row_ok folded in) or a level's neighbour tables; it may
-// also overload resolve() below.  Misses, gated-off offsets and padding
-// rows never enter a list.
+// the self-keyed key search, a down conv's child map (ChildMap), an up
+// conv's parent / octant map with row_ok folded in (ParentMap) or a
+// level's neighbour tables; it may also overload resolve() below.  Misses,
+// gated-off offsets and padding rows never enter a list.  A library that
+// builds lists names its own source type (derived from these), so that a
+// profile tells its list launches from another library's.
 //
 // Positions come from a scan of the hit flags in row order: one kernel, a
 // decoupled look-back.  Block t (a ticket taken in launch order, so every
@@ -85,6 +88,36 @@ __device__ __forceinline__ int look_back(const unsigned long long* st,
     if (incl) return excl;
   }
 }
+
+// The child map of a coarse level: child_idx / child_hit [8, B, n_out]; row
+// p of item b lists its fine child j in octant k.
+struct ChildMap {
+  const int* child_idx;
+  const uint8_t* child_hit;
+  int batch;
+  int n_out;
+
+  __device__ __forceinline__ int operator()(int k, int b, int p) const {
+    const size_t o = (static_cast<size_t>(k) * batch + b) * n_out + p;
+    return child_hit[o] ? child_idx[o] : -1;
+  }
+};
+
+// The parent map of a fine level: parent_idx / row_ok / octant [B, n_out];
+// row c of item b has parent parent_idx in octant octant where row_ok
+// (valid & parent_ok: children of overflowed parents alias slot capacity
+// - 1 and enter no list).
+struct ParentMap {
+  const int* parent_idx;
+  const uint8_t* row_ok;
+  const int* octant;
+  int n_out;
+
+  __device__ __forceinline__ int operator()(int k, int b, int c) const {
+    const size_t at = static_cast<size_t>(b) * n_out + c;
+    return (row_ok[at] && octant[at] == k) ? parent_idx[at] : -1;
+  }
+};
 
 // src(k, b, i) for ITEMS rows of one thread; a source may overload this
 // (found by argument-dependent lookup) to resolve its rows side by side.
@@ -197,6 +230,20 @@ cudaError_t launch_hit_lists(const Source& src, int* lists,
   hit_lists_kernel<Source><<<k * tiles, THREADS, 0, stream>>>(
       src, lists, status, count, batch, n_in, n_rows, tiles);
   return cudaGetLastError();
+}
+
+// The lists alone: launch_hit_lists, or count[k] = 0 where the map has no
+// rows.  Returns the first CUDA error as an int.
+template <class Source>
+int build_lists(const Source& src, int* lists, unsigned long long* status,
+                int* count, int batch, int n_in, int n_rows, int k,
+                cudaStream_t stream) {
+  if (k <= 0) return 0;
+  if (batch * n_rows <= 0)
+    return static_cast<int>(
+        cudaMemsetAsync(count, 0, k * sizeof(int), stream));
+  return static_cast<int>(launch_hit_lists(src, lists, status, count, k,
+                                           batch, n_in, n_rows, stream));
 }
 
 }  // namespace hitlist

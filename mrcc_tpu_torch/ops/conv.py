@@ -11,7 +11,12 @@ that ``build_hierarchy`` scatters, and in its k3-table mode
 (:func:`gather_gemm_k3_map`), the k=3 s=1 conv over the rank kernel's
 neighbour tables (K2's tile with a table load for the key search, so the
 two k3 routes give the same bits); reading global memory at any N, it also
-stands in for ``conv_pallas._gather_gemm_call_hbm``.
+stands in for ``conv_pallas._gather_gemm_call_hbm``.  The down and up convs
+are a list GEMM on tensor cores (``csrc/list_mma.cuh``) over per-octant
+hit lists built on the card by the dW kernels' list kernel: up stores each
+fine row's parent times ``W[octant]`` in place, down stores each fine
+row's product with its octant's slice in an f32 scratch and sums each
+coarse row's children (:func:`list_gemm`, :func:`child_sum`).
 
 The weight gradients: ``csrc/conv_dw_sk.cu`` (:func:`dw_sk`) replaces
 ``conv_pallas._dw_call_sk`` and ``csrc/conv_dw_map.cu`` (:func:`dw_down`,
@@ -52,10 +57,14 @@ SK_LIB = KernelLibrary("conv_sk", {
     "mrcc_conv_sk_bf16": (P, P, P, P, P, P, I, I, I, I, P),
 })
 MAP_LIB = KernelLibrary("conv_map", {
-    "mrcc_conv_down_f32": (P, P, P, P, P, I, I, I, I, I, P),
-    "mrcc_conv_down_bf16": (P, P, P, P, P, I, I, I, I, I, P),
-    "mrcc_conv_up_f32": (P, P, P, P, P, P, I, I, I, I, I, P),
-    "mrcc_conv_up_bf16": (P, P, P, P, P, P, I, I, I, I, I, P),
+    "mrcc_conv_down_lists": (P, P, P, P, P, I, I, I, P),
+    "mrcc_conv_up_lists": (P, P, P, P, P, P, I, I, I, P),
+    "mrcc_list_gemm_f32": (P, P, P, P, P, P, I, I, I, I, I, I, P),
+    "mrcc_list_gemm_bf16": (P, P, P, P, P, P, I, I, I, I, I, I, P),
+    "mrcc_child_sum_f32": (P, P, P, P, I, I, I, I, P),
+    "mrcc_child_sum_bf16": (P, P, P, P, I, I, I, I, P),
+    "mrcc_zero_rows_f32": (P, P, P, I, I, P),
+    "mrcc_zero_rows_bf16": (P, P, P, I, I, P),
     "mrcc_conv_k3map_f32": (P, P, P, P, P, P, I, I, I, I, P),
     "mrcc_conv_k3map_bf16": (P, P, P, P, P, P, I, I, I, I, P),
 })
@@ -85,6 +94,8 @@ DW_DOWN = LaunchCounter("dw_down")
 DW_UP = LaunchCounter("dw_up")
 DW_K3MAP = LaunchCounter("dw_k3map")
 DW_LISTS = LaunchCounter("dw_lists")  # the hit-list stage of every dW call
+K3_LISTS = LaunchCounter("k3_lists")  # ... and of every K3 down / up call
+K3_SUM = LaunchCounter("k3_child_sum")  # the down conv's child sum
 
 _DW_MI_SPLIT = 128        # DW_MI_SPLIT of csrc/dw_gemm.cuh
 _DW_LIST_TILE = 2048      # TILE of csrc/hit_lists.cuh
@@ -153,6 +164,12 @@ def _dw_slots(k, cin, cout, rows):
                       k * -(-rows // _DW_MIN_ROWS)))
 
 
+def _list_bytes(k, rows):
+    """Bytes of the hit-list stage's scratch: lists [2, k, rows] int32,
+    the status words, count [k] int32."""
+    return 8 * k * rows, 8 * (k * -(-rows // _DW_LIST_TILE) + 1), 4 * k
+
+
 def _list_buffers(k, rows, device):
     """Scratch of the hit-list stage: ``(lists [2, k, rows] int32, status
     words, count [k] int32)``."""
@@ -161,6 +178,18 @@ def _list_buffers(k, rows, device):
                          dtype=torch.int64, device=device)
     count = torch.empty(k, dtype=torch.int32, device=device)
     return lists, status, count
+
+
+def _scratch(device, nbytes):
+    """One allocation carved into 256-byte aligned pieces of ``nbytes``:
+    ``(the allocation, the pieces' addresses, None for an empty one)``."""
+    starts = [0]
+    for n in nbytes[:-1]:
+        starts.append(starts[-1] + -(-n // 256) * 256)
+    scratch = torch.empty(starts[-1] + nbytes[-1], dtype=torch.uint8,
+                          device=device)
+    return scratch, [scratch.data_ptr() + o if n else None
+                     for o, n in zip(starts, nbytes)]
 
 
 def _dw_launch(lib, fname, k, feats, g, maps, sizes):
@@ -173,15 +202,8 @@ def _dw_launch(lib, fname, k, feats, g, maps, sizes):
     slots = _dw_slots(k, cin, cout, rows)
     out = torch.empty((k, cin, cout), dtype=torch.float32,
                       device=feats.device)
-    nbytes = (8 * k * rows, 8 * (k * -(-rows // _DW_LIST_TILE) + 1), 4 * k,
-              4 * slots * cin * cout if slots > k else 0)
-    starts = [0]
-    for n in nbytes[:-1]:
-        starts.append(starts[-1] + -(-n // 256) * 256)
-    scratch = torch.empty(starts[-1] + nbytes[-1], dtype=torch.uint8,
-                          device=feats.device)
-    lists, status, count, part = (scratch.data_ptr() + o if n else None
-                                  for o, n in zip(starts, nbytes))
+    _, (lists, status, count, part) = _scratch(feats.device, (
+        *_list_bytes(k, rows), 4 * slots * cin * cout if slots > k else 0))
     lib.call(fname, ptr(feats), ptr(g), *map(ptr, maps), lists, status,
              count, part, ptr(out), *sizes, cin, cout, slots,
              stream_ptr(feats))
@@ -302,17 +324,13 @@ def gather_gemm_down(feats, weights, child_idx, child_hit):
         return gather_gemm_down_plain(feats, weights, child_idx, child_hit)
     _check("gather_gemm_down", feats, weights, 8,
            ((child_idx, torch.int32), (child_hit, torch.bool)))
-    b, n_in, cin = feats.shape
-    cout = weights.shape[-1]
+    b, n_in, _ = feats.shape
     n_out = child_idx.shape[2]
     if child_idx.shape != (8, b, n_out) or child_hit.shape != (8, b, n_out):
         raise ValueError("gather_gemm_down: maps must be [8, B, N_coarse]")
-    feats, weights = feats.contiguous(), weights.contiguous()
-    child_idx, child_hit = child_idx.contiguous(), child_hit.contiguous()
-    out = torch.empty((b, n_out, cout), dtype=feats.dtype, device=feats.device)
-    MAP_LIB.call(f"mrcc_conv_down_{_SUFFIX[feats.dtype]}", ptr(feats),
-                 ptr(weights), ptr(child_idx), ptr(child_hit), ptr(out), b,
-                 n_in, n_out, cin, cout, stream_ptr(feats))
+    out = _map_conv_launch("down", feats, weights,
+                           (child_idx.contiguous(), child_hit.contiguous()),
+                           n_out)
     DOWN.launches += 1
     return out
 
@@ -382,20 +400,138 @@ def gather_gemm_up(feats, weights, parent_idx, row_ok, octant):
     _check("gather_gemm_up", feats, weights, 8,
            ((parent_idx, torch.int32), (row_ok, torch.bool),
             (octant, torch.int32)))
-    b, n_in, cin = feats.shape
-    cout = weights.shape[-1]
+    b = feats.shape[0]
     n_out = parent_idx.shape[1]
     if (parent_idx.shape != (b, n_out) or row_ok.shape != (b, n_out)
             or octant.shape != (b, n_out)):
         raise ValueError("gather_gemm_up: maps must be [B, N_fine]")
-    feats, weights = feats.contiguous(), weights.contiguous()
-    parent_idx, row_ok = parent_idx.contiguous(), row_ok.contiguous()
-    octant = octant.contiguous()
-    out = torch.empty((b, n_out, cout), dtype=feats.dtype, device=feats.device)
-    MAP_LIB.call(f"mrcc_conv_up_{_SUFFIX[feats.dtype]}", ptr(feats),
-                 ptr(weights), ptr(parent_idx), ptr(row_ok), ptr(octant),
-                 ptr(out), b, n_in, n_out, cin, cout, stream_ptr(feats))
+    out = _map_conv_launch("up", feats, weights, (
+        parent_idx.contiguous(), row_ok.contiguous(), octant.contiguous()),
+        n_out)
     UP.launches += 1
+    return out
+
+
+def _map_conv_launch(kind, feats, weights, maps, n_out):
+    """K3's down or up conv on checked CUDA operands (``maps`` contiguous,
+    as the wrappers take them), at most four launches: the list stage (a
+    memset and the list kernel), the list GEMM, and the down conv's child
+    sum or the up conv's zero pass.  One scratch allocation holds the lists
+    and, for down, the f32 products of the fine rows."""
+    feats, weights = feats.contiguous(), weights.contiguous()
+    b, n_in, cin = feats.shape
+    cout = weights.shape[-1]
+    rows = b * n_out
+    down = kind == "down"
+    out = torch.empty((b, n_out, cout), dtype=feats.dtype, device=feats.device)
+    _, (lists, status, count, y) = _scratch(feats.device, (
+        *_list_bytes(8, rows), 4 * b * n_in * cout if down else 0))
+    stream = stream_ptr(feats)
+    _list_launch(kind, n_in, maps, lists, status, count, stream, k3=True)
+    sfx = _SUFFIX[feats.dtype]
+    # down: src = dst = the fine row (the lists' first half), into y; up:
+    # src the coarse parent, dst the fine row (the second half), into out
+    src = lists
+    dst = lists if down else lists + 4 * 8 * rows
+    MAP_LIB.call(f"mrcc_list_gemm_{sfx}", ptr(feats), ptr(weights), src, dst,
+                 count, y if down else ptr(out), 8, rows,
+                 b * n_in if down else rows, cin, cout,
+                 int(down or feats.dtype == torch.float32), stream)
+    if down:
+        MAP_LIB.call(f"mrcc_child_sum_{sfx}", y, *map(ptr, maps), ptr(out),
+                     b, n_in, n_out, cout, stream)
+        K3_SUM.launches += 1
+    else:
+        MAP_LIB.call(f"mrcc_zero_rows_{sfx}", ptr(maps[1]), ptr(maps[2]),
+                     ptr(out), rows, cout, stream)
+    return out
+
+
+def list_gemm_plain(feats, weights, src, dst, count, out_rows):
+    """Plain twin of :func:`list_gemm`."""
+    f = feats.reshape(-1, feats.shape[-1]).float()
+    w = weights.to(feats.dtype).float()
+    out = torch.zeros((out_rows, w.shape[-1]), dtype=torch.float32,
+                      device=feats.device)
+    for k, c in enumerate(count.tolist()):
+        out[dst[k, :c].long()] = f[src[k, :c].long()] @ w[k]
+    return out
+
+
+def list_gemm(feats, weights, src, dst, count, out_rows):
+    """The list GEMM of K3's down and up convs, alone.
+
+    ``out[dst[k, e]] = feats[src[k, e]] @ W[k]`` for ``e < count[k]``, in
+    f32 (f32 accumulation); rows no list names are 0.
+
+    Args:
+      feats: [..., Cin] f32/bf16, its rows flattened; weights: [K, Cin,
+        Cout] same dtype.
+      src, dst: int32 [K, L] rows of the flattened feats and of out; each
+        out row lies in at most one list (``dst``).  count: int32 [K].
+      out_rows: rows of out.
+    Returns [out_rows, Cout] f32.
+    """
+    if not _route(feats, weights, src, dst, count):
+        return list_gemm_plain(feats, weights, src, dst, count, out_rows)
+    _check_types("list_gemm", feats, weights, "weights",
+                 ((src, torch.int32), (dst, torch.int32),
+                  (count, torch.int32)))
+    k, cin, cout = weights.shape
+    if (feats.shape[-1] != cin or src.dim() != 2 or src.shape[0] != k
+            or dst.shape != src.shape or count.shape != (k,)):
+        raise ValueError(f"list_gemm: feats {tuple(feats.shape)}, weights "
+                         f"{tuple(weights.shape)}, lists {tuple(src.shape)} "
+                         f"/ {tuple(dst.shape)}, count {tuple(count.shape)}")
+    feats, weights = feats.contiguous(), weights.contiguous()
+    out = torch.zeros((out_rows, cout), dtype=torch.float32,
+                      device=feats.device)
+    MAP_LIB.call(f"mrcc_list_gemm_{_SUFFIX[feats.dtype]}", ptr(feats),
+                 ptr(weights), ptr(src.contiguous()), ptr(dst.contiguous()),
+                 ptr(count.contiguous()), ptr(out), k, src.shape[1],
+                 out_rows, cin, cout, 1, stream_ptr(feats))
+    return out
+
+
+def child_sum_plain(y, child_idx, child_hit, dtype):
+    """Plain twin of :func:`child_sum`."""
+    out = torch.zeros((y.shape[0], child_idx.shape[2], y.shape[-1]),
+                      dtype=torch.float32, device=y.device)
+    for k in range(8):
+        out = out + torch.where(child_hit[k][..., None],
+                                _gather(y, child_idx[k]), 0.0)
+    return out.to(dtype)
+
+
+def child_sum(y, child_idx, child_hit, dtype):
+    """The down conv's second pass, alone: ``out[b, p] = sum_k
+    child_hit[k, b, p] * y[b, child_idx[k, b, p]]`` in f32, octant by
+    octant, cast once to ``dtype`` (0 where no child hits).
+
+    Args:
+      y: [B, N_fine, C] f32 (each fine row's product with its octant's
+        weight slice); child_idx: int32 [8, B, N_coarse]; child_hit: bool
+        [8, B, N_coarse]; dtype: float32 or bfloat16.
+    Returns [B, N_coarse, C] in ``dtype``.
+    """
+    if not _route(y, child_idx, child_hit):
+        return child_sum_plain(y, child_idx, child_hit, dtype)
+    b, n_in, c = y.shape
+    n_out = child_idx.shape[2]
+    if (y.dtype != torch.float32 or dtype not in _SUFFIX
+            or child_idx.dtype != torch.int32
+            or child_hit.dtype != torch.bool
+            or child_idx.shape != (8, b, n_out)
+            or child_hit.shape != child_idx.shape):
+        raise ValueError(f"child_sum: y {y.dtype} {tuple(y.shape)}, maps "
+                         f"{child_idx.dtype} {tuple(child_idx.shape)} / "
+                         f"{child_hit.dtype}, out {dtype}")
+    y = y.contiguous()
+    out = torch.empty((b, n_out, c), dtype=dtype, device=y.device)
+    MAP_LIB.call(f"mrcc_child_sum_{_SUFFIX[dtype]}", ptr(y),
+                 ptr(child_idx.contiguous()), ptr(child_hit.contiguous()),
+                 ptr(out), b, n_in, n_out, c, stream_ptr(y))
+    K3_SUM.launches += 1
     return out
 
 
@@ -610,18 +746,31 @@ def dw_hit_lists_plain(kind, n_in, *maps):
     return fidx, gidx, hit.sum(1).int()
 
 
-def _launch_hit_lists(kind, n_in, maps):
+def _list_launch(kind, n_in, maps, lists, status, count, stream, k3=False):
+    """Launch the list stage (a memset and the list kernel) on checked,
+    contiguous CUDA maps into the scratch at the given addresses: the dW
+    kernels' instantiation (counted by ``DW_LISTS``) or, ``k3``, K3's own
+    ("down" / "up", counted by ``K3_LISTS``)."""
+    b, n = maps[0].shape[-2:]
+    sizes = (b, n) if kind in ("sk", "k3map") else (b, n_in, n)
+    if k3:
+        lib, fname, counter = MAP_LIB, f"mrcc_conv_{kind}_lists", K3_LISTS
+    else:
+        lib = DW_SK_LIB if kind == "sk" else DW_MAP_LIB
+        fname, counter = f"mrcc_dw_{kind}_lists", DW_LISTS
+    lib.call(fname, *map(ptr, maps), lists, status, count, *sizes, stream)
+    counter.launches += 1
+
+
+def _launch_hit_lists(kind, n_in, maps, k3=False):
     """Launch the list kernel alone on checked, contiguous CUDA maps:
     ``(lists [2, K, B * n_rows] int32, count [K] int32)``, the entries past
-    ``count[k]`` unwritten."""
+    ``count[k]`` unwritten; ``k3``: K3's instantiation ("down" / "up")."""
     b, n = maps[0].shape[-2:]
     lists, status, count = _list_buffers(_LIST_TAPS[kind], b * n,
                                          maps[0].device)
-    sizes = (b, n) if kind in ("sk", "k3map") else (b, n_in, n)
-    lib = DW_SK_LIB if kind == "sk" else DW_MAP_LIB
-    lib.call(f"mrcc_dw_{kind}_lists", *map(ptr, maps), ptr(lists),
-             ptr(status), ptr(count), *sizes, stream_ptr(maps[0]))
-    DW_LISTS.launches += 1
+    _list_launch(kind, n_in, maps, ptr(lists), ptr(status), ptr(count),
+                 stream_ptr(maps[0]), k3)
     return lists, count
 
 

@@ -10,11 +10,14 @@ Tolerances: the sort is exact (at any N: 2^18 and a 640 x 480 frame are
 past the first kernel's limit); f32 convs and dW kernels agree with the
 plain twin to relative norm 1e-5 (summation order; the self-keyed conv's
 f32 route is a 3xTF32 split on tensor cores), bf16 ones with the f32
-twin to 2e-2; the int8 convs agree with their plain twins to 1 ulp of the
-output type elementwise (their int32 sums are exact) and with the f32
-plain conv to 3e-2.  The dW kernels are deterministic (no float atomics): two
-launches give the same bits.  The autograd Functions' backward on the card
-agrees with autograd through the plain forward twins to 1e-5.  The rank
+twin to 2e-2 (K3's down and up also in their stages: the list kernel's
+K3 instantiation exact, the list GEMM at the conv tolerances, the child
+sum exact; two calls bit-equal); the int8 convs agree with their plain
+twins to 1 ulp of the output type elementwise (their int32 sums are
+exact) and with the f32 plain conv to 3e-2.  The dW kernels are
+deterministic (no float atomics): two launches give the same bits.  The
+autograd Functions' backward on the card agrees with autograd through
+the plain forward twins to 1e-5.  The rank
 kernel equals its plain twin exactly; the k3-table convs hold the conv
 tolerances above; the nearest-neighbour kernel's d2 is within 1e-5 of its
 twin and its indices equal except at near-ties (the two smallest d2 of a
@@ -196,24 +199,131 @@ def test_conv_sk_all_padding(cuda, ragged_level):
         assert got.dtype == dtype and not got.any()
 
 
-@pytest.mark.parametrize("cin,cout", [(32, 32), (20, 90)])
+def _counts():
+    return tuple(c.launches for c in (conv.DOWN, conv.UP, conv.K3_LISTS,
+                                      conv.K3_SUM))
+
+
+def _check_down_up(fine, coarse, cin, cout, row_ok=None, child_hit=None):
+    """K3 down over the coarse level's child map and up over the fine
+    level's parent map against their plain twins (f32 1e-5, bf16 2e-2 of
+    the f32 twin), two calls bit-equal, one launch a call on each counter
+    (the list stage and the child sum on theirs).  Returns the f32 down and
+    up outputs."""
+    row_ok = fine.valid & fine.parent_ok if row_ok is None else row_ok
+    child_hit = coarse.child_hit if child_hit is None else child_hit
+    w = torch.randn((8, cin, cout), device=fine.key.device) / cin**0.5
+    outs = []
+    for fn, plain, f, maps, add in (
+            (conv.gather_gemm_down, conv.gather_gemm_down_plain,
+             _feats(fine, cin), (coarse.child_idx, child_hit), (1, 0, 1, 1)),
+            (conv.gather_gemm_up, conv.gather_gemm_up_plain,
+             _feats(coarse, cin), (fine.parent_idx, row_ok, fine.octant),
+             (0, 1, 1, 0))):
+        want = plain(f, w, *maps)
+        before = _counts()
+        got = fn(f, w, *maps)
+        assert _counts() == tuple(a + b for a, b in zip(before, add))
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert _rel(got, want) <= 1e-5 if want.any() else not got.any()
+        assert torch.equal(fn(f, w, *maps), got)  # deterministic
+        f16, w16 = f.bfloat16(), w.bfloat16()
+        got16 = fn(f16, w16, *maps)
+        assert got16.dtype == torch.bfloat16
+        assert _rel(got16, want) <= 2e-2 if want.any() else not got16.any()
+        assert torch.equal(fn(f16, w16, *maps), got16)
+        outs.append(got)
+    return outs
+
+
+@pytest.mark.parametrize("cin,cout", [(32, 32), (20, 90), (130, 70)])
 @pytest.mark.parametrize("l", [0, 2])
 def test_conv_down_up(cuda, levels, l, cin, cout):
+    _check_down_up(levels[l], levels[l + 1], cin, cout)
+
+
+@pytest.mark.parametrize("l", [0, 2])
+def test_k3_stages(cuda, levels, l):
+    """K3's list stage (its own instantiation of the list kernel), the list
+    GEMM and the child sum, each against its plain twin: lists exact, the
+    GEMM 1e-5 (f32) / 2e-2 (bf16), the child sum exact (the same f32 adds
+    in the same order)."""
     fine, coarse = levels[l], levels[l + 1]
-    w = torch.randn((8, cin, cout), device=cuda) / 3
-    f = _feats(fine, cin)
-    args = (f, w, coarse.child_idx, coarse.child_hit)
-    want = conv.gather_gemm_down_plain(*args)
-    assert _rel(conv.gather_gemm_down(*args), want) <= 1e-5
-    assert _rel(conv.gather_gemm_down(f.bfloat16(), w.bfloat16(),
-                                      *args[2:]), want) <= 2e-2
-    f = _feats(coarse, cin)
-    row_ok = fine.valid & fine.parent_ok
-    args = (f, w, fine.parent_idx, row_ok, fine.octant)
-    want = conv.gather_gemm_up_plain(*args)
-    assert _rel(conv.gather_gemm_up(*args), want) <= 1e-5
-    assert _rel(conv.gather_gemm_up(f.bfloat16(), w.bfloat16(), *args[2:]),
-                want) <= 2e-2
+    b, nf = fine.key.shape
+    nc = coarse.key.shape[1]
+    for kind, n_in, maps in (
+            ("down", nf, (coarse.child_idx, coarse.child_hit)),
+            ("up", nc, (fine.parent_idx, fine.valid & fine.parent_ok,
+                        fine.octant))):
+        maps = [m.contiguous() for m in maps]
+        before = (conv.K3_LISTS.launches, conv.DW_LISTS.launches)
+        lists, count = conv._launch_hit_lists(kind, n_in, maps, k3=True)
+        assert (conv.K3_LISTS.launches, conv.DW_LISTS.launches) == (
+            before[0] + 1, before[1])
+        fidx, gidx, want = conv.dw_hit_lists_plain(kind, n_in, *maps)
+        assert torch.equal(count, want)
+        for k, c in enumerate(want.tolist()):
+            assert torch.equal(lists[0, k, :c], fidx[k, :c])
+            assert torch.equal(lists[1, k, :c], gidx[k, :c])
+        f = _feats(fine if kind == "down" else coarse, 72)
+        w = torch.randn((8, 72, 40), device=cuda) / 8
+        dst = fidx if kind == "down" else gidx
+        rows = b * (nf if kind == "down" else fine.key.shape[1])
+        plain = conv.list_gemm_plain(f, w, fidx, dst, want, rows)
+        got = conv.list_gemm(f, w, fidx, dst, want, rows)
+        assert got.dtype == torch.float32 and _rel(got, plain) <= 1e-5
+        got16 = conv.list_gemm(f.bfloat16(), w.bfloat16(), fidx, dst, want,
+                               rows)
+        assert got16.dtype == torch.float32 and _rel(got16, plain) <= 2e-2
+        if kind == "down":
+            y = got.reshape(b, nf, -1)
+            before = conv.K3_SUM.launches
+            for dtype in (torch.float32, torch.bfloat16):
+                s = conv.child_sum(y, coarse.child_idx, coarse.child_hit,
+                                   dtype)
+                assert s.dtype == dtype and torch.equal(
+                    s, conv.child_sum_plain(y, coarse.child_idx,
+                                            coarse.child_hit, dtype))
+            assert conv.K3_SUM.launches == before + 2
+
+
+@pytest.fixture(scope="module")
+def train_pair(cuda):
+    """Levels 0 and 1 of the training step's shape: 8 scenes at 1 cm,
+    8 x 16384 rows each."""
+    pts, rgb, mask = build_batch(8, 24576, seed=6)
+    vox, _ = voxelize(torch.as_tensor(pts, device=cuda),
+                      torch.as_tensor(rgb, device=cuda),
+                      torch.as_tensor(mask, device=cuda), 0.01, 16384)
+    return build_hierarchy(vox, 1, capacities=(16384,))
+
+
+@pytest.mark.parametrize("cin,cout", [(416, 384), (384, 416)])
+def test_conv_down_up_wide(cuda, train_pair, cin, cout):
+    """The decoder's widest K3 shapes on a level pair of 8 x 16384 rows
+    each (a product 416 deep, Y 416 wide)."""
+    fine, coarse = train_pair
+    assert fine.key.shape == coarse.key.shape == (8, 16384)
+    _check_down_up(fine, coarse, cin, cout)
+
+
+@pytest.mark.parametrize("case", ["overflow", "padding"])
+def test_conv_down_up_zero_rows(cuda, levels, case):
+    """Overflowed parents' children (row_ok false) come out of the up conv
+    as zero rows; a level of padding rows (no hit) gives zero outputs."""
+    if case == "overflow":
+        fine, coarse = _list_hierarchy(cuda, "overflow")[:2]
+        dropped = fine.valid & ~fine.parent_ok
+        assert bool(dropped.any())
+        _, up = _check_down_up(fine, coarse, 40, 72)
+        assert not up[dropped].any()
+        assert bool(up[fine.valid & fine.parent_ok].abs().sum(-1).gt(0).all())
+    else:
+        fine, coarse = levels[1], levels[2]
+        down, up = _check_down_up(fine, coarse, 40, 72,
+                                  row_ok=fine.valid & False,
+                                  child_hit=coarse.child_hit & False)
+        assert not down.any() and not up.any()
 
 
 def test_conv_rejects(cuda, levels):
