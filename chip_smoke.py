@@ -22,8 +22,11 @@ last line):
    source, all started together), with ptxas register / smem lines;
 3. kernels vs their plain PyTorch twins at the main paths' shapes (exact
    for the sort; relative norm 2e-2 for bf16 against the f32 twin, 1e-5 for
-   f32; the int8 convs within 1 bf16 ulp of their plain twins and 3e-2 of
-   the unquantised f32 plain conv), timed with CUDA events: the sort at
+   f32; the int8 convs bit-equal to their plain twins and within 3e-2 of
+   the unquantised f32 plain conv, their quantised operands bit-equal to
+   the quantisation's twin; beside each int8 case its quantisation pass,
+   B7's list stage and ``torch._int_mm`` over the hits' pre-gathered int8
+   rows, each timed alone), timed with CUDA events: the sort at
    the inference, training and production point sorts and past 2^17 rows
    ([1, 307200], [1, 2^20]), beside ``torch.argsort(stable=True)``; the
    self-keyed conv also at Cin 3 and 416 -> 384 in f32 and on a level of
@@ -110,12 +113,16 @@ last line):
 ``python3 chip_smoke.py --pose-k2`` builds the kernels and runs only that
 K2 breakdown; ``--dw`` (``--k3``) builds them and times each dW launch
 (each K3 down / up launch) of one phase-7 step and one phase-10 b step by
-kernel and shape (CUDA events), and ``--inference`` runs only phase 6, to
-compare two versions of the kernels in one call (copy this file into a
-checkout of the other version).  Phases 6-10 count K3's list stage and
+kernel and shape (CUDA events), ``--inference`` runs only phase 6 and
+``--q8`` only phase 3's int8 cases and phase 8, ``--int8`` only phases 6
+and 8, to compare two versions of the kernels in one call (copy this file
+into a checkout of the other version).  Phases 6-10 count K3's list stage and
 child sum beside its down / up launches and report ``k3_device_ms`` (its
 list kernel, list GEMM, child sum and zero pass) beside
-``dw_device_ms``.
+``dw_device_ms``; phases 8 and 9 count the int8 convs' quantisation, list
+and child-sum launches, and report ``q8_device_ms`` (every int8 kernel),
+the CUDA kernel launches of a profiled batch and the launches per int8
+conv call by kind.
 
 f32 phases run with TF32 off (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` False).  The last lines are the card's
@@ -160,6 +167,7 @@ SOURCES = {
     "rank": "mrcc_tpu_torch/csrc/rank.cu",
     "conv_k3map": "mrcc_tpu_torch/csrc/conv_map.cu",
     "conv_k3map_q8": "mrcc_tpu_torch/csrc/conv_map_q8.cu",
+    "q8_quantize": "mrcc_tpu_torch/csrc/q8_quantize.cuh",
     "nn_search": "mrcc_tpu_torch/csrc/nn_search.cu",
     "dw_k3map": "mrcc_tpu_torch/csrc/conv_dw_map.cu",
     "dw_lists": "mrcc_tpu_torch/csrc/hit_lists.cuh",
@@ -169,6 +177,9 @@ K3_TPU = "mrcc_tpu/ops/conv_pallas.py:120"    # _gather_gemm_call
 HBM_TPU = "mrcc_tpu/ops/conv_pallas.py:1495"  # _gather_gemm_call_hbm
 SK_Q8_TPU = "mrcc_tpu/ops/conv_pallas.py:845"    # _gather_gemm_call_sk_q8
 MAP_Q8_TPU = "mrcc_tpu/ops/conv_pallas.py:1235"  # _gather_gemm_call_q8
+# the quantisation of the int8 wrappers (gather_gemm_conv_sk_q8, and
+# gather_gemm_conv_tiled_q8 around _gather_gemm_call_q8)
+Q8_QUANT_TPU = "mrcc_tpu/ops/conv_pallas.py:1017"
 RANK_TPU = "mrcc_tpu/ops/rank_pallas.py:89"     # _rank_call
 NN_TPU = "mrcc_tpu/ops/nn_pallas.py:42"         # nn_search_pallas
 PROD_POINTS = 131072  # bench.py's production profile (BENCH_POINTS)
@@ -305,20 +316,12 @@ def phase_kernels(levels, tlevels, plevels, slevels, device):
     of the inference path, ``tlevels`` of the training path, ``plevels`` of
     the production path (tables on its levels 0 and 1), ``slevels`` of the
     scene-scale training path (tables on its levels 0-2)."""
-    from mrcc_tpu_torch.ops import conv, conv_q8, nn, rank, sort
+    from mrcc_tpu_torch.ops import conv, nn, rank, sort
     from mrcc_tpu_torch.sparse import neighbor_tables
     from mrcc_tpu_torch.sparse.hierarchy import K3_DELTAS
 
-    gen = torch.Generator(device="cpu").manual_seed(7)
+    gen, feats, weights = case_inputs(7, device)
     records = []
-
-    def feats(level, c):
-        x = torch.randn(level.key.shape + (c,), generator=gen).to(device)
-        return torch.where(level.valid[..., None], x, 0.0)
-
-    def weights(k, cin, cout):
-        return (torch.randn((k, cin, cout), generator=gen)
-                / np.sqrt(k * cin)).to(device)
 
     # K1: duplicate-heavy [8, 16384] (many points per voxel) and [8, 12544]
     # on the inference path; the train step's [8, 65536] point keys; the
@@ -467,74 +470,7 @@ def phase_kernels(levels, tlevels, plevels, slevels, device):
                   [feats(coarse, cin), weights(8, cin, cout), fine.parent_idx,
                    fine.row_ok, fine.octant], _up_work(fine), 8, path=path)
 
-    def q8_case(name, kernel, replaces, mode, fn, plain, unquantised, f, w,
-                maps, n_table, work, path="int8"):
-        """An int8 conv on bf16 features: within 1 bf16 ulp of its plain
-        twin, within TOL_Q8 of the unquantised f32 plain conv.  ``ms`` is
-        the wrapper (quantisation and kernel, what the path pays);
-        ``quantise_ms`` its elementwise PyTorch part alone."""
-        want = plain(f, w, *maps)
-        got = fn(f, w, *maps)
-        err = {"ulps_vs_plain": ulps(got, want),
-               "rel_vs_f32": rel_err(got, unquantised(f.float(), w, *maps))}
-        if err["ulps_vs_plain"] > 1 or err["rel_vs_f32"] > TOL_Q8:
-            raise AssertionError(f"{name}: {err} over (1 ulp, {TOL_Q8})")
-        k, cin, cout = w.shape
-        octant = mode == "up"
-        groups = conv_q8.q8_channel_groups(mode, n_table, cin)
-
-        def quantise():
-            prep = conv_q8._quantize(mode, f, w, n_table, None, octant)
-            return conv_q8._kernel_operands(*prep[1:], prep[0])
-
-        # int8 rows the hits gather, int8 weights, f32 scales, the bf16
-        # output (padding rows included) and the map entries of valid rows
-        nbytes = (work["read"] * cin + k * cin * cout
-                  + 4 * len(groups) * (8 if octant else 1) * cout
-                  + 2 * want.numel() + work["map_bytes"])
-        bms, by = bound_ms(nbytes, 2 * work["hits"] * cin * cout, "int8")
-        records.append(dict(
-            name=name, kernel=kernel, path=path, route="cuda",
-            source=SOURCES[kernel], replaces=replaces,
-            max_abs_err=float((got.float() - want.float()).abs().max()),
-            rel_err=err, tolerance={"ulps": 1, "rel_vs_f32": TOL_Q8},
-            dtype="bf16 -> int8", groups=len(groups), work=work,
-            ms=cuda_ms(lambda: fn(f, w, *maps)),
-            quantise_ms=cuda_ms(quantise),
-            plain_ms=cuda_ms(lambda: plain(f, w, *maps)), library_ms=None,
-            bound_ms=bms, bound_by=by))
-
-    # the int8 path's shapes: the seg net's stem, level-0 decoder and
-    # level-3 decoder k3 convs (384 channels: three groups), its first down
-    # conv and the 4 -> 3 up conv; a down conv over a 16384-row table at
-    # 384 channels, which splits 256 + 128 (a 5 MiB table budget group)
-    for li, cin, cout in ((0, 3, 32), (0, 128, 96), (3, 384, 256)):
-        lv = levels[li]
-        b, n = lv.key.shape
-        q8_case(f"conv_sk_q8[{b}x{n} {cin}->{cout}]", "conv_sk_q8", SK_Q8_TPU,
-                "k3", conv_q8.gather_gemm_sk_q8,
-                conv_q8.gather_gemm_sk_q8_plain, conv.gather_gemm_sk_plain,
-                feats(lv, cin).bfloat16(), weights(27, cin, cout),
-                (lv.key, lv.kbits), n, _sk_work(lv))
-    for lvs, cin, cout in ((levels, 32, 32), (tlevels, 384, 256)):
-        fine, coarse = lvs[0], lvs[1]
-        b, nf = fine.key.shape
-        nc = coarse.key.shape[1]
-        q8_case(f"conv_down_q8[{b}x{nf}->{nc} {cin}->{cout}]",
-                "conv_down_q8", MAP_Q8_TPU, "down",
-                conv_q8.gather_gemm_down_q8,
-                conv_q8.gather_gemm_down_q8_plain,
-                conv.gather_gemm_down_plain, feats(fine, cin).bfloat16(),
-                weights(8, cin, cout), (coarse.child_idx, coarse.child_hit),
-                nf, _down_work(coarse))
-    fine, coarse = levels[3], levels[4]
-    b, nf = fine.key.shape
-    nc = coarse.key.shape[1]
-    q8_case(f"conv_up_q8[{b}x{nc}->{nf} 256->256]", "conv_up_q8", MAP_Q8_TPU,
-            "up", conv_q8.gather_gemm_up_q8, conv_q8.gather_gemm_up_q8_plain,
-            conv.gather_gemm_up_plain, feats(coarse, 256).bfloat16(),
-            weights(8, 256, 256), (fine.parent_idx, fine.row_ok, fine.octant),
-            nc, _up_work(fine))
+    q8_cases(levels, tlevels, plevels, feats, weights, records)
 
     # B8: the rank kernel builds the 27 tables of production seg levels 0
     # and 1; its library yardstick is torch.searchsorted over the same
@@ -566,12 +502,9 @@ def phase_kernels(levels, tlevels, plevels, slevels, device):
                                 "f32")))))
 
     # the k3-table convs at the production seg levels (bf16 over the TPU's
-    # budget: _gather_gemm_call_hbm there), at a resident shape (the bench
-    # level 0, as k3_self_keyed=False runs it: _gather_gemm_call), and the
-    # int8 one at level 0 (128-channel groups) and at a resident two-group
-    # shape
-    lv_bench = dataclasses.replace(levels[0], **dict(zip(
-        ("nbr_idx", "nbr_hit"), neighbor_tables(levels[0]))))
+    # budget: _gather_gemm_call_hbm there) and at a resident shape (the
+    # bench level 0, as k3_self_keyed=False runs it: _gather_gemm_call)
+    lv_bench = _with_tables(levels[0])
     for lv, cin, cout, replaces in ((plevels[0], 3, 32, HBM_TPU),
                                     (plevels[0], 128, 96, HBM_TPU),
                                     (plevels[1], 128, 96, HBM_TPU),
@@ -582,23 +515,6 @@ def phase_kernels(levels, tlevels, plevels, slevels, device):
                   conv.gather_gemm_k3_map_plain,
                   [feats(lv, cin), weights(27, cin, cout), lv.nbr_idx,
                    lv.nbr_hit], _table_work(lv), 27, path="production")
-    lv = plevels[0]
-    b, n = lv.key.shape
-    q8_case(f"conv_k3map_q8[{b}x{n} 128->96]", "conv_k3map_q8", HBM_TPU,
-            "k3_table", conv_q8.gather_gemm_k3_map_q8,
-            conv_q8.gather_gemm_k3_map_q8_plain, conv.gather_gemm_k3_map_plain,
-            feats(lv, 128).bfloat16(), weights(27, 128, 96),
-            (lv.nbr_idx, lv.nbr_hit), n, _table_work(lv),
-            path="production_int8")
-    lv = lv_bench
-    b, n = lv.key.shape
-    q8_case(f"conv_k3map_q8[{b}x{n} 384->256]", "conv_k3map_q8", MAP_Q8_TPU,
-            "k3_table", conv_q8.gather_gemm_k3_map_q8,
-            conv_q8.gather_gemm_k3_map_q8_plain, conv.gather_gemm_k3_map_plain,
-            feats(lv, 384).bfloat16(), weights(27, 384, 256),
-            (lv.nbr_idx, lv.nbr_hit), n, _table_work(lv),
-            path="production_int8")
-
     # B10 at the ICP's shapes: 1024 template points over an EE crop
     for b, m, n in ((2, 1024, 8192), (8, 1024, 2048)):
         tmpl = (torch.randn((b, m, 3), generator=gen) * 0.05 + 0.8).to(device)
@@ -740,15 +656,227 @@ def phase_kernels(levels, tlevels, plevels, slevels, device):
               [feats(lv_train, 384), weights(27, 384, 384), lv_train.nbr_idx,
                lv_train.nbr_hit], _table_work(lv_train), 27,
               path="training_tables")
-    log("kernels", cases=[{k: r.get(k) for k in (
-        "name", "path", "replaces", "ms", "quantise_ms", "plain_ms",
-        "library_ms", "library_call", "bound_ms", "bound_by",
-        "bound_3xtf32_ms", "bound_4xtf32_ms", "gemm_ms", "gemm_call",
-        "stage_ms", "rel_err_f64", "work",
-        "groups", "hits", "near_ties", "idx_differ_at_ties", "max_abs_err",
-        "rel_err", "tolerance")}
-        for r in records])
+    log("kernels", cases=[{k: r.get(k) for k in CASE_KEYS}
+                          for r in records])
     return records
+
+
+# what the kernel phase logs of each case
+CASE_KEYS = ("name", "path", "replaces", "ms", "quantise_ms", "lists_ms",
+             "plain_ms", "library_ms", "library_call", "bound_ms", "bound_by",
+             "bound_3xtf32_ms", "bound_4xtf32_ms", "gemm_ms", "gemm_call",
+             "stage_ms", "rel_err_f64", "work", "groups", "hits", "near_ties",
+             "idx_differ_at_ties", "max_abs_err", "rel_err", "tolerance")
+
+
+def case_inputs(seed, device):
+    """``(generator, feats(level, c), weights(k, cin, cout))`` of the kernel
+    cases: features zero on padding rows, weights scaled by
+    1 / sqrt(k cin)."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+
+    def feats(level, c):
+        x = torch.randn(level.key.shape + (c,), generator=gen).to(device)
+        return torch.where(level.valid[..., None], x, 0.0)
+
+    def weights(k, cin, cout):
+        return (torch.randn((k, cin, cout), generator=gen)
+                / np.sqrt(k * cin)).to(device)
+
+    return gen, feats, weights
+
+
+def phase_int8_paths():
+    """``--int8``: phase 6 (bf16) and phase 8 (int8) alone, on the same
+    batch, for comparing kernel versions end to end (the counters a
+    version lacks are left out)."""
+    from mrcc_tpu_torch.ops import conv, conv_q8, sort
+
+    inputs, caps, _ = bench_levels(torch.device("cuda"))
+    counters = [sort.SORT, conv.SK, conv.DOWN, conv.UP, conv.K3_LISTS,
+                conv.K3_SUM]
+    _, bf16_seg = phase_main_path(inputs, caps, counters)
+    phase_int8_main_path(inputs, caps, counters + [
+        getattr(conv_q8, n) for n in ("SK_Q8", "DOWN_Q8", "UP_Q8",
+                                      "Q8_QUANT", "Q8_LISTS", "Q8_SUM")
+        if hasattr(conv_q8, n)], bf16_seg)
+
+
+def phase_q8_only():
+    """``--q8``: the int8 convs' kernel cases and phase 8 alone (without
+    its agreement with phase 6's labels), for comparing kernel versions."""
+    from mrcc_tpu_torch.ops import conv, conv_q8, sort
+
+    dev = torch.device("cuda")
+    inputs, caps, levels = bench_levels(dev)
+    plevels = bench_levels(dev, batch=2, points=PROD_POINTS, tables=True)[2]
+    tlevels = train_levels(train_batch(), dev)
+    records = []
+    q8_cases(levels, tlevels, plevels, *case_inputs(7, dev)[1:], records)
+    log("q8_kernels", card=smi_line(),
+        cases=[{k: r.get(k) for k in CASE_KEYS} for r in records])
+    phase_int8_main_path(inputs, caps, [
+        sort.SORT, conv.SK, conv.DOWN, conv.UP, conv.K3_LISTS, conv.K3_SUM,
+        conv_q8.SK_Q8, conv_q8.DOWN_Q8, conv_q8.UP_Q8, conv_q8.Q8_QUANT,
+        conv_q8.Q8_LISTS, conv_q8.Q8_SUM], None)
+
+
+def _with_tables(level):
+    """``level`` with its neighbour tables (the rank kernel's)."""
+    from mrcc_tpu_torch.sparse import neighbor_tables
+
+    return dataclasses.replace(level, **dict(zip(("nbr_idx", "nbr_hit"),
+                                                 neighbor_tables(level))))
+
+
+def q8_cases(levels, tlevels, plevels, feats, weights, records):
+    """The int8 convs' phase-3 cases (appended to ``records``): at the int8
+    path's shapes and at the production int8 path's table levels, each with
+    its stages timed alone and the ``torch._int_mm`` yardstick;
+    ``feats(level, c)`` and ``weights(k, cin, cout)`` make the inputs."""
+    from mrcc_tpu_torch.ops import conv, conv_q8
+
+    def q8_case(name, kernel, replaces, mode, fn, plain, unquantised, f, w,
+                maps, n_table, work, path="int8"):
+        """An int8 conv on bf16 features: bit-equal to its plain twin (its
+        int32 sums are exact), within TOL_Q8 of the unquantised f32 plain
+        conv, two launches bit-equal, its quantised operands bit-equal to
+        the twin's.  ``ms`` is the wrapper (quantisation and kernels, what
+        the path pays); ``quantise_ms`` the quantisation pass alone,
+        ``lists_ms`` (down / up) the list stage alone, ``gemm_ms`` the
+        yardstick of the integer product alone: ``torch._int_mm`` over each
+        offset's hits, gathered beforehand."""
+        want = plain(f, w, *maps)
+        got = fn(f, w, *maps)
+        err = {"ulps_vs_plain": ulps(got, want),
+               "rel_vs_f32": rel_err(got, unquantised(f.float(), w, *maps))}
+        if not torch.equal(got, want) or err["rel_vs_f32"] > TOL_Q8:
+            raise AssertionError(f"{name}: {err} over (0 ulp, {TOL_Q8})")
+        if not torch.equal(fn(f, w, *maps), got):
+            raise AssertionError(f"{name}: two launches differ")
+        k, cin, cout = w.shape
+        octant = mode == "up"
+        ops = conv_q8.quantize_operands(mode, f, w, n_table,
+                                        per_octant=octant)
+        twin = conv_q8.quantize_operands_plain(mode, f, w, n_table,
+                                               per_octant=octant)
+        if not all(torch.equal(a, b) for a, b in zip(ops[:3], twin[:3])):
+            raise AssertionError(f"{name}: quantised operands differ from "
+                                 "the twin's")
+        stages = {"quantise_ms": cuda_ms(lambda: conv_q8.quantize_operands(
+            mode, f, w, n_table, per_octant=octant))}
+        kind = {"k3": "sk", "k3_table": "k3map"}.get(mode, mode)
+        if kind in ("down", "up"):
+            stages["lists_ms"] = cuda_ms(lambda: q8_lists(kind, f.shape[1],
+                                                          maps))
+        fidx, _, count = conv.dw_hit_lists(kind, f.shape[1], *maps)
+        rows = ops.q.reshape(-1, ops.cpad)
+        pairs = []
+        for j, c in enumerate(count.tolist()):
+            idx = fidx[j, :c].long()
+            if c <= 16:  # torch._int_mm takes more than 16 rows
+                idx = torch.nn.functional.pad(idx, (0, 32 - c))
+            pairs.append((rows[idx], ops.wq[j].t()))
+        stages["gemm_ms"] = cuda_ms(
+            lambda: [torch._int_mm(a, b) for a, b in pairs])
+        del pairs, fidx, rows
+        groups = ops.groups
+        # int8 rows the hits gather, int8 weights, f32 scales, the bf16
+        # output (padding rows included) and the map entries of valid rows
+        nbytes = (work["read"] * cin + k * cin * cout
+                  + 4 * len(groups) * (8 if octant else 1) * cout
+                  + 2 * want.numel() + work["map_bytes"])
+        bms, by = bound_ms(nbytes, 2 * work["hits"] * cin * cout, "int8")
+        records.append(dict(
+            name=name, kernel=kernel, path=path, route="cuda",
+            source=SOURCES[kernel], replaces=replaces,
+            max_abs_err=float((got.float() - want.float()).abs().max()),
+            rel_err=err, tolerance={"ulps": 0, "rel_vs_f32": TOL_Q8},
+            dtype="bf16 -> int8", groups=len(groups), work=work,
+            ms=cuda_ms(lambda: fn(f, w, *maps)), **stages,
+            gemm_call="torch._int_mm(A_k, Wq_k^T) for each offset k, A_k "
+                      "the hits' int8 rows gathered beforehand",
+            plain_ms=cuda_ms(lambda: plain(f, w, *maps)), library_ms=None,
+            bound_ms=bms, bound_by=by))
+        if mode == "k3" and cin == 384:
+            # the quantisation pass on its own record: x read, q written,
+            # W read twice, wq and m written
+            records.append(dict(
+                name=f"q8_quantize[{name.split('[', 1)[1]}", kernel=
+                "q8_quantize", path=path, route="cuda",
+                source=SOURCES["q8_quantize"], replaces=Q8_QUANT_TPU,
+                max_abs_err=0.0, tolerance="exact", ms=stages["quantise_ms"],
+                plain_ms=cuda_ms(lambda: conv_q8.quantize_operands_plain(
+                    mode, f, w, n_table)), library_ms=None,
+                **dict(zip(("bound_ms", "bound_by"), bound_ms(
+                    f.numel() * (2 + 1) + w.numel() * (4 + 1)
+                    + 4 * len(groups) * cout, 0, "int8")))))
+
+    # the int8 path's shapes: the seg net's stem, level-0 decoder and
+    # level-3 decoder k3 convs (384 channels: three groups), its first down
+    # conv and the 4 -> 3 up conv; a down conv over a 16384-row table at
+    # 384 channels, which splits 256 + 128 (a 5 MiB table budget group)
+    for li, cin, cout in ((0, 3, 32), (0, 128, 96), (3, 384, 256)):
+        lv = levels[li]
+        b, n = lv.key.shape
+        q8_case(f"conv_sk_q8[{b}x{n} {cin}->{cout}]", "conv_sk_q8", SK_Q8_TPU,
+                "k3", conv_q8.gather_gemm_sk_q8,
+                conv_q8.gather_gemm_sk_q8_plain, conv.gather_gemm_sk_plain,
+                feats(lv, cin).bfloat16(), weights(27, cin, cout),
+                (lv.key, lv.kbits), n, _sk_work(lv))
+    for lvs, cin, cout in ((levels, 32, 32), (tlevels, 384, 256)):
+        fine, coarse = lvs[0], lvs[1]
+        b, nf = fine.key.shape
+        nc = coarse.key.shape[1]
+        q8_case(f"conv_down_q8[{b}x{nf}->{nc} {cin}->{cout}]",
+                "conv_down_q8", MAP_Q8_TPU, "down",
+                conv_q8.gather_gemm_down_q8,
+                conv_q8.gather_gemm_down_q8_plain,
+                conv.gather_gemm_down_plain, feats(fine, cin).bfloat16(),
+                weights(8, cin, cout), (coarse.child_idx, coarse.child_hit),
+                nf, _down_work(coarse))
+    fine, coarse = levels[3], levels[4]
+    b, nf = fine.key.shape
+    nc = coarse.key.shape[1]
+    q8_case(f"conv_up_q8[{b}x{nc}->{nf} 256->256]", "conv_up_q8", MAP_Q8_TPU,
+            "up", conv_q8.gather_gemm_up_q8, conv_q8.gather_gemm_up_q8_plain,
+            conv.gather_gemm_up_plain, feats(coarse, 256).bfloat16(),
+            weights(8, 256, 256), (fine.parent_idx, fine.row_ok, fine.octant),
+            nc, _up_work(fine))
+
+    # the table conv at the production int8 path's level 0 (128-channel
+    # groups) and at a resident two-group shape
+    lv = plevels[0]
+    b, n = lv.key.shape
+    q8_case(f"conv_k3map_q8[{b}x{n} 128->96]", "conv_k3map_q8", HBM_TPU,
+            "k3_table", conv_q8.gather_gemm_k3_map_q8,
+            conv_q8.gather_gemm_k3_map_q8_plain, conv.gather_gemm_k3_map_plain,
+            feats(lv, 128).bfloat16(), weights(27, 128, 96),
+            (lv.nbr_idx, lv.nbr_hit), n, _table_work(lv),
+            path="production_int8")
+    lv = _with_tables(levels[0])
+    b, n = lv.key.shape
+    q8_case(f"conv_k3map_q8[{b}x{n} 384->256]", "conv_k3map_q8", MAP_Q8_TPU,
+            "k3_table", conv_q8.gather_gemm_k3_map_q8,
+            conv_q8.gather_gemm_k3_map_q8_plain, conv.gather_gemm_k3_map_plain,
+            feats(lv, 384).bfloat16(), weights(27, 384, 256),
+            (lv.nbr_idx, lv.nbr_hit), n, _table_work(lv),
+            path="production_int8")
+
+
+def q8_lists(kind, n_in, maps):
+    """B7's list stage alone ("down" / "up"): its instantiation of the hit
+    list kernel (Q8ChildMap / Q8ParentMap) into fresh buffers."""
+    from mrcc_tpu_torch.ops import conv, conv_q8
+    from mrcc_tpu_torch.ops.build import ptr, stream_ptr
+
+    raw = [m.contiguous() for m in maps]
+    b, n = raw[0].shape[-2:]
+    lists, status, count = conv._list_buffers(8, b * n, raw[0].device)
+    conv_q8.MAP_Q8_LIB.call(f"mrcc_conv_{kind}_lists_q8", *map(ptr, raw),
+                            ptr(lists), ptr(status), ptr(count), b, n_in, n,
+                            stream_ptr(raw[0]))
+    return lists, count
 
 
 def k3_f64(kind, f, w, *maps):
@@ -1236,18 +1364,11 @@ def _sk_q8_groups(f, w, level, groups):
     """B6 on its kernel with the given channel groups (its wrapper takes
     ``_sk_plan``'s, which has none for levels over 40960 rows)."""
     from mrcc_tpu_torch.ops import conv_q8
-    from mrcc_tpu_torch.ops.build import ptr, stream_ptr
 
-    q, s_c = conv_q8.quantize_activations(f)
-    wq, m = conv_q8.quantize_weights(w, s_c, groups)
-    q, w32, m, cw, gw, ng = conv_q8._kernel_operands(q, wq, m, groups)
-    b, n, _ = f.shape
-    out = torch.empty((b, n, w.shape[-1]), dtype=f.dtype, device=f.device)
-    conv_q8.SK_Q8_LIB.call("mrcc_conv_sk_q8_bf16", ptr(q), ptr(w32), ptr(m),
-                           ptr(level.key.contiguous()),
-                           ptr(level.kbits.contiguous()), ptr(out), b, n, cw,
-                           w.shape[-1], gw, ng, stream_ptr(f))
-    return out
+    return conv_q8._tile_launch(
+        conv_q8.SK_Q8_LIB, "mrcc_conv_sk_q8", f, w,
+        (level.key.contiguous(), level.kbits.contiguous()), "k3", None,
+        groups=groups)
 
 
 def compare_k3_routes(engine, p, c, m, shapes, q8):
@@ -1342,6 +1463,9 @@ def phase_production(inputs, caps, counters, paths, iters=8):
         report = _inference_report(engine, (p, c, m), out, iters)
         ab = compare_k3_routes(engine, p, c, m, seg0,
                                impl == "pallas-int8")
+        if impl == "pallas-int8":
+            extra["launches_per_q8_call"] = q8_launches_per_call(
+                launches[path], report)
         log(path, batch=int(pts.shape[0]), points=int(pts.shape[1]),
             seg_caps=list(caps), level_caps=engine.level_caps,
             k3_tables=engine.k3_tables, k3_routes=routes,
@@ -1436,7 +1560,8 @@ def phase_int8_main_path(inputs, caps, counters, bf16_seg, iters=12):
         out = engine.predict_batch_arrays(p, c, m)
         torch.cuda.synchronize()
     launches = {ctr.name: ctr.launches for ctr in counters}
-    q8 = (conv_q8.SK_Q8, conv_q8.DOWN_Q8, conv_q8.UP_Q8)
+    q8 = tuple(c for c in counters if c.name.startswith(("conv_", "q8_"))
+               and "q8" in c.name)
     bf16 = (conv.SK, conv.DOWN, conv.UP)
     # the bf16 conv kernels run in the rotation stage and nowhere else
     for ctr in counters:
@@ -1456,13 +1581,36 @@ def phase_int8_main_path(inputs, caps, counters, bf16_seg, iters=12):
         raise AssertionError(f"int8 path routing: launches {launches}, seg + "
                              f"kp {seg_kp}, rotation {rot}, plain {plain}")
     report = _inference_report(engine, (p, c, m), out, iters)
-    agree = float((out["segmentation"] == bf16_seg)[m].float().mean())
+    agree = (None if bf16_seg is None else
+             float((out["segmentation"] == bf16_seg)[m].float().mean()))
     log("int8_main_path", batch=int(pts.shape[0]), points=int(pts.shape[1]),
         seg_caps=list(caps), calibrate_ms=calibrate_ms,
         seg_labels_equal_to_bf16=agree, launches=launches,
         launches_seg_kp=seg_kp, launches_rotation=rot,
+        launches_per_q8_call=q8_launches_per_call(launches, report),
         plain_twin_calls=plain, **report)
     return launches
+
+
+def q8_launches_per_call(launches, report):
+    """Launches per int8 conv call by kind, from one batch's counts: the
+    conv kernel (one a call), the quantisation pass, the list kernel (down
+    and up), the child sum (down), and every int8 kernel of the profiled
+    batch (the split k3 tiles' resolve launches and the up conv's zero pass
+    included) per call."""
+    n = {k: launches.get(k, 0) for k in (
+        "conv_sk_q8", "conv_k3map_q8", "conv_down_q8", "conv_up_q8",
+        "q8_quantize", "q8_lists", "q8_child_sum")}
+    calls = sum(n[k] for k in ("conv_sk_q8", "conv_k3map_q8", "conv_down_q8",
+                               "conv_up_q8"))
+    if not calls:
+        return {"calls": 0}
+    return {"calls": calls, "conv": 1.0,
+            "quantise": n["q8_quantize"] / calls,
+            "lists": n["q8_lists"] / max(n["conv_down_q8"] + n["conv_up_q8"],
+                                         1),
+            "child_sum": n["q8_child_sum"] / max(n["conv_down_q8"], 1),
+            "all_q8_kernels_profiled": report["q8_kernel_launches"] / calls}
 
 
 def _inference_report(engine, inputs, out, iters):
@@ -1498,16 +1646,16 @@ def _inference_report(engine, inputs, out, iters):
     torch.cuda.synchronize()
     stages["icp"] = time.perf_counter() - t
 
+    kernel_launches = {}
     device_ms = profile_device_ms(lambda: engine.predict_batch_arrays(p, c,
-                                                                      m))
+                                                                      m),
+                                  kernel_launches)
     busy = sum(device_ms.values())
     batch_ms = 1e3 * med
     top = dict(sorted(device_ms.items(), key=lambda kv: -kv[1])[:12])
     ported = {k: sum(v for n, v in device_ms.items() if k in n)
-              for k in ("radix_", "KeySearch", *K3_NAMES,
-                        "conv_sk_q8_kernel", "conv_down_q8_kernel",
-                        "conv_up_q8_kernel", "rank_kernel",
-                        "conv_k3map_kernel", "conv_k3map_q8_kernel")}
+              for k in ("radix_", "KeySearch", "NbrTable", *K3_NAMES,
+                        *Q8_NAMES, "rank_kernel")}
 
     poses = torch.cat([out["ee_pose"], out["kp_pose"]])
     qnorm = poses[:, 3:].norm(dim=-1)
@@ -1529,6 +1677,10 @@ def _inference_report(engine, inputs, out, iters):
         device_busy_ms=busy, device_idle_share=1 - busy / batch_ms,
         ported_kernel_device_ms=ported, top_device_ms=top,
         k3_device_ms=k3_device_ms(device_ms),
+        q8_device_ms=q8_device_ms(device_ms),
+        cuda_kernel_launches=sum(kernel_launches.values()),
+        q8_kernel_launches=sum(v for n, v in kernel_launches.items()
+                               if "q8" in n.lower()),
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **checks)
 
 
@@ -1536,6 +1688,20 @@ def _inference_report(engine, inputs, out, iters):
 # their own source names), the list GEMM, the child sum and the zero pass
 K3_NAMES = ("K3ChildMap", "K3ParentMap", "list_mma_kernel",
             "child_sum_kernel", "zero_rows_kernel")
+
+
+# the int8 convs' kernels (B6, B7 and their quantisation, lists, child sum
+# and zero pass): each name holds "q8" or "Q8" (the tiles' and the lists'
+# row sources Q8Keys, Q8Table, Q8ChildMap, Q8ParentMap)
+Q8_NAMES = ("Q8Keys", "Q8Table", "Q8ChildMap", "Q8ParentMap",
+            "list_mma_q8_kernel", "child_sum_q8_kernel",
+            "zero_rows_q8_kernel", "act_absmax_q8_kernel",
+            "quantize_q8_kernel", "quantize_w_q8_kernel")
+
+
+def q8_device_ms(device_ms):
+    """The int8 convs' device time of one profile."""
+    return sum(v for n, v in device_ms.items() if "q8" in n.lower())
 
 
 def k3_device_ms(device_ms):
@@ -1546,16 +1712,19 @@ def k3_device_ms(device_ms):
 
 def dw_device_ms(device_ms):
     """The dW kernels' device time of one profile: their list kernel
-    instantiations (every one but K3's), the MMA kernel, the slot sum."""
+    instantiations (every one but K3's and B7's), the MMA kernel, the slot
+    sum."""
     return sum(v for n, v in device_ms.items()
-               if ("hit_lists_kernel" in n and "K3" not in n)
+               if ("hit_lists_kernel" in n and "K3" not in n
+                   and "Q8" not in n)
                or "dw_mma_kernel" in n or "dw_reduce" in n)
 
 
-def profile_device_ms(fn):
+def profile_device_ms(fn, launches=None):
     """Device time (ms) by kernel over one profiled call of ``fn``:
     device-side events only (an operator's own row repeats its kernels'
-    time)."""
+    time); ``launches``, if given, gets the kernel launches by name
+    (memsets and copies left out)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1570,6 +1739,9 @@ def profile_device_ms(fn):
         name = e.key.replace("(anonymous namespace)::", "")
         name = name.removeprefix("void ")[:120]
         out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3
+        if launches is not None and not name.startswith(("Memset",
+                                                          "Memcpy")):
+            launches[name] = launches.get(name, 0) + e.count
     return out
 
 
@@ -2124,6 +2296,8 @@ def main():
     modes = {"--pose-k2": phase_pose_k2,
              "--dw": lambda: phase_step_breakdown(DW_WRAPPERS, "dw"),
              "--k3": lambda: phase_step_breakdown(K3_WRAPPERS, "k3"),
+             "--q8": phase_q8_only,
+             "--int8": phase_int8_paths,
              "--inference": lambda: phase_main_path(
                  *bench_levels(torch.device("cuda"))[:2],
                  [sort.SORT, conv.SK, conv.DOWN, conv.UP])}
@@ -2167,14 +2341,15 @@ def main():
                                  conv.DW_LISTS]
     launches["training"] = phase("train", phase_train, train_counters)
     torch.cuda.empty_cache()
+    q8_counters = [conv_q8.SK_Q8, conv_q8.DOWN_Q8, conv_q8.UP_Q8,
+                   conv_q8.Q8_QUANT, conv_q8.Q8_LISTS, conv_q8.Q8_SUM]
     launches["int8"] = phase(
         "int8_main_path", phase_int8_main_path, inputs, caps,
-        counters + [conv_q8.SK_Q8, conv_q8.DOWN_Q8, conv_q8.UP_Q8], bf16_seg)
+        counters + q8_counters, bf16_seg)
     torch.cuda.empty_cache()
     launches.update(phase(
-        "production", phase_production, pinputs, pcaps, counters + [
-            conv_q8.SK_Q8, conv_q8.DOWN_Q8, conv_q8.UP_Q8, rank.RANK,
-            conv.K3MAP, conv_q8.K3MAP_Q8, nn.NN],
+        "production", phase_production, pinputs, pcaps, counters
+        + q8_counters + [rank.RANK, conv.K3MAP, conv_q8.K3MAP_Q8, nn.NN],
         ("production", "production_int8")))
     torch.cuda.empty_cache()
     table_counters = train_counters + [rank.RANK, conv.K3MAP, conv.DW_K3MAP]

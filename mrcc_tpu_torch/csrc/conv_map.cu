@@ -41,6 +41,7 @@
 
 #include "gather_mma.cuh"
 #include "hit_lists.cuh"
+#include "k3_sources.cuh"
 #include "list_mma.cuh"
 
 namespace {
@@ -54,28 +55,8 @@ constexpr int K2 = 8;
 struct K3ChildMap : hitlist::ChildMap {};
 struct K3ParentMap : hitlist::ParentMap {};
 
-// The k3 table conv's row source: the neighbour tables of the level,
-// nbr_idx / nbr_hit [27, B, n].
-struct NbrTable {
-  const int* idx;
-  const uint8_t* hit;
-  int batch;
-
-  __device__ __forceinline__ void resolve(int b, int m0, int n,
-                                          int* nbr) const {
-    for (int e = threadIdx.x; e < tc::K3 * tc::BM; e += tc::THREADS) {
-      const int k = e / tc::BM;
-      const int row = m0 + e % tc::BM;
-      int j = -1;
-      if (row < n) {
-        const size_t o = (static_cast<size_t>(k) * batch + b) * n + row;
-        if (hit[o]) j = idx[o];
-      }
-      nbr[e] = j;
-    }
-    __syncthreads();
-  }
-};
+// The k3 table conv's row source (k3_sources.cuh) under K3's name.
+struct NbrTable : tc::NbrTable {};
 
 }  // namespace
 
@@ -179,7 +160,7 @@ extern "C" int mrcc_conv_k3map_f32(const void* feats, const void* w,
                                    int* lists, void* out, int batch, int n,
                                    int cin, int cout, cudaStream_t stream) {
   const cudaError_t err = tc::launch_gather_mma<float>(
-      feats, w, NbrTable{nbr_idx, nbr_hit, batch}, lists, out, batch, n, cin,
+      feats, w, NbrTable{{nbr_idx, nbr_hit, batch}}, lists, out, batch, n, cin,
       cout, stream);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
@@ -190,7 +171,7 @@ extern "C" int mrcc_conv_k3map_bf16(const void* feats, const void* w,
                                     void* out, int batch, int n, int cin,
                                     int cout, cudaStream_t stream) {
   const cudaError_t err = tc::launch_gather_mma<__nv_bfloat16>(
-      feats, w, NbrTable{nbr_idx, nbr_hit, batch}, lists, out, batch, n, cin,
+      feats, w, NbrTable{{nbr_idx, nbr_hit, batch}}, lists, out, batch, n, cin,
       cout, stream);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

@@ -1,10 +1,11 @@
-// B7 — int8 gather-GEMM over explicit kernel maps (k=2 s=2 down conv, its
+// B7 — int8 gather-GEMMs over explicit kernel maps (k=2 s=2 down conv, its
 // transpose, and the k=3 s=1 conv over neighbour tables).
 //
 // Replaces: mrcc_tpu/ops/conv_pallas.py::_gather_gemm_call_q8 in its
-// k2-down, broadcast-k up and k3-table (identity_k = 13) modes (the integer
-// part of gather_gemm_conv_tiled_q8), and the int8 variant of
-// _gather_gemm_call_hbm: these kernels read global memory at any N.
+// k2-down, broadcast-k up and k3-table (identity_k = 13) modes with the
+// quantisation of its wrapper gather_gemm_conv_tiled_q8, and the int8
+// variant of _gather_gemm_call_hbm: these kernels read global memory at
+// any N.
 //
 //   down: out[b, p] = sum_g T( f32( sum_{k<8} child_hit[k, b, p]
 //                 * q[b, child_idx[k, b, p], group g] . Wq[k, group g] )
@@ -15,308 +16,215 @@
 //                 * m[g, octant[b, c]] )
 //
 // q the int8 activations, Wq the per-group int8 weights, m the f32 column
-// scales (ops/conv_q8.py): one per output column for the down conv, one per
-// octant and output column for the up conv, whose octants do not share a
-// scale.  The sum over groups g is taken in the output type T in group
-// order.  row_ok is valid & parent_ok (children of overflowed parents alias
-// slot capacity - 1 and contribute nothing).
+// scales (q8_quantize.cuh): one per output column for the down and k3
+// convs, one per octant and output column for the up conv, whose octants
+// do not share a scale.  The sum over groups g is taken in the output type
+// T in group order.  row_ok is valid & parent_ok (children of overflowed
+// parents alias slot capacity - 1 and contribute nothing).
 //
-// Bound on the card: 2 * Cin * Cout int8 operations per gathered row
-// against the gathered rows, the weights and the output; bytes at the main
-// path's shapes.  Design: K3's (conv_map.cu) in int8 words and __dp4a
-// (gather_gemm_q8.cuh); the down and k3 maps share one kernel body,
-// templated on the offset count, with all channel groups in one launch.  The up conv gathers each parent row once and
-// multiplies it by its own octant's weights, with that octant's scales:
-// equal to the TPU's wide [C, 8 * Cout] product and octant select, without
-// the seven unused octants.  First version: CUDA cores, no tensor cores.
+// Bound on the card: 2 * Cin * Cout int8 operations per hit (1,979 TOP/s)
+// against the gathered rows, the weights and the output; bytes at the
+// main path's shapes.  A 64-row tile over the child map would multiply
+// all 8 offsets of every coarse row, most of them misses, and an up conv
+// tile would need all 8 octants' weights per step.  Design (q8_mma.cuh):
+//   - down / up: K3's (conv_map.cu) in int8: per-octant hit lists built
+//     once a call (hit_lists.cuh, under B7's names Q8ChildMap /
+//     Q8ParentMap), then the int8 list GEMM (mma.sync m16n8k32).  Up
+//     dequantises each group with its octant's scales and stores the fine
+//     rows (zero_rows_q8_kernel clears the rest); down stores each fine
+//     row's int32 product per group in a scratch and child_sum_q8_kernel
+//     sums each coarse row's children in int32, then dequantises.
+//   - k3 table: B6's int8 tile (gather_mma_q8_kernel) with the table row
+//     source, so both int8 k3 routes give the same bits at equal groups.
+// No host sync, no float atomics: the same bits for the same inputs.
 
-#include "gather_gemm_q8.cuh"
+#include "hit_lists.cuh"
+#include "k3_sources.cuh"
+#include "q8_mma.cuh"
+#include "q8_quantize.cuh"
 
 namespace {
 
 using namespace mrcc;
 
 constexpr int K2 = 8;
-constexpr int K3 = 27;
 
-// K-offset int8 map conv (K = 8: down, K = 27: k3 table).
-template <typename T, int K>
-__device__ __forceinline__ void conv_map_q8_body(
-    const int* __restrict__ feats, const int* __restrict__ w,
-    const float* __restrict__ scale, const int* __restrict__ map_idx,
-    const uint8_t* __restrict__ map_hit, T* __restrict__ out, int batch,
-    int n_in, int n_out, int cw, int cout, int gw, int groups) {
-  __shared__ int src[K][TM];
-  __shared__ int any_hit[K];
-  __shared__ int As[KW][TM + 4];
-  __shared__ int Ws[KW][TN];
+// B7's names for the maps of hit_lists.cuh and the k3 tables.
+struct Q8ChildMap : hitlist::ChildMap {};
+struct Q8ParentMap : hitlist::ParentMap {};
+struct Q8Table : tc::NbrTable {};
 
-  const int b = blockIdx.z;
-  const int m0 = blockIdx.x * TM;
-  const int n0 = blockIdx.y * TN;
-  if (threadIdx.x < K) any_hit[threadIdx.x] = 0;
-  __syncthreads();
-  for (int e = threadIdx.x; e < K * TM; e += THREADS) {
-    const int k = e / TM;
-    const int r = e % TM;
-    const int row = m0 + r;
-    int j = -1;
-    if (row < n_out) {
-      const size_t o = (static_cast<size_t>(k) * batch + b) * n_out + row;
-      if (map_hit[o]) j = map_idx[o];
-    }
-    src[k][r] = j;
-    if (j >= 0) any_hit[k] = 1;
-  }
-  __syncthreads();
-
-  float res[4][4] = {};
-  const int* fb = feats + static_cast<size_t>(b) * n_in * cw;
-  for (int g = 0; g < groups; ++g) {
-    const int c_lo = g * gw;
-    const int c_hi = min(c_lo + gw, cw);
-    int acc[4][4] = {};
-    for (int k = 0; k < K; ++k) {
-      if (!any_hit[k]) continue;  // uniform over the CTA
-      const int* wk = w + static_cast<size_t>(k) * cw * cout;
-      for (int c0 = c_lo; c0 < c_hi; c0 += KW) {
-        load_words(As, fb, src[k], cw, c0, c_hi);
-        load_w_words(Ws, wk, cout, c0, c_hi, n0);
-        __syncthreads();
-        dp4a_tile(acc, As, Ws);
-        __syncthreads();
-      }
-    }
-    const float* s = scale + static_cast<size_t>(g) * cout;
-    const float* const srow[4] = {s, s, s, s};
-    dequant_add<T>(res, acc, srow, n0, cout, g == 0);
-  }
-  store_tile(out + static_cast<size_t>(b) * n_out * cout, res, m0, n0, n_out,
-             cout);
+template <typename T>
+int k3map(const void* q, const void* wq, const float* scale,
+          const int* nbr_idx, const uint8_t* nbr_hit, int* lists, void* out,
+          int batch, int n, int cin, int cpad, int cout, int gw, int ng,
+          cudaStream_t stream) {
+  const cudaError_t err = q8::launch_gather_mma<T>(
+      q, wq, scale, Q8Table{{nbr_idx, nbr_hit, batch}}, lists, out, batch, n,
+      q8::Groups{cin, cpad, gw, ng}, cout, stream);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-conv_down_q8_kernel(const int* __restrict__ feats, const int* __restrict__ w,
-                    const float* __restrict__ scale,
-                    const int* __restrict__ child_idx,
-                    const uint8_t* __restrict__ child_hit,
-                    T* __restrict__ out, int batch, int n_in, int n_out,
-                    int cw, int cout, int gw, int groups) {
-  conv_map_q8_body<T, K2>(feats, w, scale, child_idx, child_hit, out, batch,
-                          n_in, n_out, cw, cout, gw, groups);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-conv_k3map_q8_kernel(const int* __restrict__ feats, const int* __restrict__ w,
-                     const float* __restrict__ scale,
-                     const int* __restrict__ nbr_idx,
-                     const uint8_t* __restrict__ nbr_hit,
-                     T* __restrict__ out, int batch, int n, int cw, int cout,
-                     int gw, int groups) {
-  conv_map_q8_body<T, K3>(feats, w, scale, nbr_idx, nbr_hit, out, batch, n,
-                          n, cw, cout, gw, groups);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-conv_up_q8_kernel(const int* __restrict__ feats, const int* __restrict__ w,
-                  const float* __restrict__ scale,
-                  const int* __restrict__ parent_idx,
-                  const uint8_t* __restrict__ row_ok,
-                  const int* __restrict__ octant, T* __restrict__ out,
-                  int n_in, int n_out, int cw, int cout, int gw,
-                  int groups) {
-  __shared__ int src[TM];
-  __shared__ int oct[TM];
-  __shared__ int As[KW][TM + 4];
-  __shared__ int Ws[K2][KW][TN];
-
-  const int b = blockIdx.z;
-  const int m0 = blockIdx.x * TM;
-  const int n0 = blockIdx.y * TN;
-  for (int r = threadIdx.x; r < TM; r += THREADS) {
-    const int row = m0 + r;
-    int j = -1;
-    int o = 0;
-    if (row < n_out) {
-      const size_t at = static_cast<size_t>(b) * n_out + row;
-      if (row_ok[at]) {
-        j = parent_idx[at];
-        o = octant[at];
-      }
-    }
-    src[r] = j;
-    oct[r] = o;
-  }
-  __syncthreads();
-
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-  int my_oct[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) my_oct[i] = oct[ty + 16 * i];
-
-  float res[4][4] = {};
-  const int* fb = feats + static_cast<size_t>(b) * n_in * cw;
-  for (int g = 0; g < groups; ++g) {
-    const int c_lo = g * gw;
-    const int c_hi = min(c_lo + gw, cw);
-    int acc[4][4] = {};
-    for (int c0 = c_lo; c0 < c_hi; c0 += KW) {
-      load_words(As, fb, src, cw, c0, c_hi);
-      for (int e = threadIdx.x; e < K2 * KW * TN; e += THREADS) {
-        const int k = e / (KW * TN);
-        const int kk = (e / TN) % KW;
-        const int nn = e % TN;
-        const int c = c0 + kk;
-        const int col = n0 + nn;
-        Ws[k][kk][nn] =
-            (c < c_hi && col < cout)
-                ? __ldg(w + (static_cast<size_t>(k) * cw + c) * cout + col)
-                : 0;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < KW; ++kk) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int a = As[kk][ty + 16 * i];
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            acc[i][j] = __dp4a(a, Ws[my_oct[i]][kk][tx + 16 * j], acc[i][j]);
-        }
-      }
-      __syncthreads();
-    }
-    const float* const srow[4] = {
-        scale + (static_cast<size_t>(g) * K2 + my_oct[0]) * cout,
-        scale + (static_cast<size_t>(g) * K2 + my_oct[1]) * cout,
-        scale + (static_cast<size_t>(g) * K2 + my_oct[2]) * cout,
-        scale + (static_cast<size_t>(g) * K2 + my_oct[3]) * cout};
-    dequant_add<T>(res, acc, srow, n0, cout, g == 0);
-  }
-  store_tile(out + static_cast<size_t>(b) * n_out * cout, res, m0, n0, n_out,
-             cout);
-}
-
-template <typename T>
-int launch_down(const void* feats, const void* w, const void* scale,
-                const int* child_idx, const uint8_t* child_hit, void* out,
-                int batch, int n_in, int n_out, int cw, int cout, int gw,
-                int groups, cudaStream_t stream) {
-  if (n_out > 0 && batch > 0 && cout > 0) {
-    conv_down_q8_kernel<T>
-        <<<conv_grid(n_out, cout, batch), THREADS, 0, stream>>>(
-            static_cast<const int*>(feats), static_cast<const int*>(w),
-            static_cast<const float*>(scale), child_idx, child_hit,
-            static_cast<T*>(out), batch, n_in, n_out, cw, cout, gw, groups);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_k3map(const void* feats, const void* w, const void* scale,
-                 const int* nbr_idx, const uint8_t* nbr_hit, void* out,
-                 int batch, int n, int cw, int cout, int gw, int groups,
-                 cudaStream_t stream) {
-  if (n > 0 && batch > 0 && cout > 0) {
-    conv_k3map_q8_kernel<T>
-        <<<conv_grid(n, cout, batch), THREADS, 0, stream>>>(
-            static_cast<const int*>(feats), static_cast<const int*>(w),
-            static_cast<const float*>(scale), nbr_idx, nbr_hit,
-            static_cast<T*>(out), batch, n, cw, cout, gw, groups);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_up(const void* feats, const void* w, const void* scale,
-              const int* parent_idx, const uint8_t* row_ok,
-              const int* octant, void* out, int batch, int n_in, int n_out,
-              int cw, int cout, int gw, int groups, cudaStream_t stream) {
-  if (n_out > 0 && batch > 0 && cout > 0) {
-    conv_up_q8_kernel<T><<<conv_grid(n_out, cout, batch), THREADS, 0,
-                           stream>>>(
-        static_cast<const int*>(feats), static_cast<const int*>(w),
-        static_cast<const float*>(scale), parent_idx, row_ok, octant,
-        static_cast<T*>(out), n_in, n_out, cw, cout, gw, groups);
-  }
-  return static_cast<int>(cudaGetLastError());
+int list_gemm(const void* q, const void* wq, const float* scale,
+              const int* src, const int* dst, const int* count, void* out,
+              int taps, int total, int out_rows, int cin, int cpad, int cout,
+              int gw, int ng, int up, cudaStream_t stream) {
+  const q8::Groups gr{cin, cpad, gw, ng};
+  return static_cast<int>(
+      up ? q8::launch_list_gemm<T, true>(q, wq, scale, src, dst, count, out,
+                                         nullptr, taps, total, out_rows, gr,
+                                         cout, stream)
+         : q8::launch_list_gemm<T, false>(q, wq, scale, src, dst, count,
+                                          nullptr, static_cast<int*>(out),
+                                          taps, total, out_rows, gr, cout,
+                                          stream));
 }
 
 }  // namespace
 
-// down: feats [B, n_in, cw] int8 words (fine level), w [8, cw, cout] int8
-// words, scale [groups, cout] f32, child_idx [8, B, n_out] int32,
-// child_hit [8, B, n_out] bool, out [B, n_out, cout] (coarse level).
-// Returns cudaGetLastError().
-extern "C" int mrcc_conv_down_q8_f32(const void* feats, const void* w,
-                                     const void* scale, const int* child_idx,
-                                     const uint8_t* child_hit, void* out,
-                                     int batch, int n_in, int n_out, int cw,
-                                     int cout, int gw, int groups,
+// The quantisation pass of every int8 conv (q8_quantize.cuh): x [rows,
+// cin] (the suffix's type), act_absmax [cin] f32 or null (the dynamic
+// absmax), w [taps, cin, cout] f32 -> q [rows, cpad], wq [taps, cout, cpad]
+// int8, m [ng, cout] f32 ([ng, taps, cout] per_octant); scratch: cin + ng
+// * (per_octant ? taps : 1) * cout floats.  Returns cudaGetLastError().
+extern "C" int mrcc_quantize_q8_f32(const void* x, const float* act_absmax,
+                                    const float* w, float* scratch, void* q,
+                                    void* wq, float* m, int rows, int cin,
+                                    int cpad, int taps, int cout, int gw,
+                                    int ng, int per_octant,
+                                    cudaStream_t stream) {
+  return static_cast<int>(q8::launch_quantize<float>(
+      x, act_absmax, w, scratch, q, wq, m, rows, cin, cpad, taps, cout, gw,
+      ng, per_octant, stream));
+}
+
+extern "C" int mrcc_quantize_q8_bf16(const void* x, const float* act_absmax,
+                                     const float* w, float* scratch, void* q,
+                                     void* wq, float* m, int rows, int cin,
+                                     int cpad, int taps, int cout, int gw,
+                                     int ng, int per_octant,
                                      cudaStream_t stream) {
-  return launch_down<float>(feats, w, scale, child_idx, child_hit, out, batch,
-                            n_in, n_out, cw, cout, gw, groups, stream);
+  return static_cast<int>(q8::launch_quantize<__nv_bfloat16>(
+      x, act_absmax, w, scratch, q, wq, m, rows, cin, cpad, taps, cout, gw,
+      ng, per_octant, stream));
 }
 
-extern "C" int mrcc_conv_down_q8_bf16(const void* feats, const void* w,
-                                      const void* scale, const int* child_idx,
-                                      const uint8_t* child_hit, void* out,
-                                      int batch, int n_in, int n_out, int cw,
-                                      int cout, int gw, int groups,
-                                      cudaStream_t stream) {
-  return launch_down<__nv_bfloat16>(feats, w, scale, child_idx, child_hit,
-                                    out, batch, n_in, n_out, cw, cout, gw,
-                                    groups, stream);
-}
-
-// k3 table: feats [B, n, cw] int8 words, w [27, cw, cout] int8 words,
-// scale [groups, cout] f32, nbr_idx [27, B, n] int32, nbr_hit [27, B, n]
-// bool, out [B, n, cout].  Returns cudaGetLastError().
-extern "C" int mrcc_conv_k3map_q8_f32(const void* feats, const void* w,
-                                      const void* scale, const int* nbr_idx,
-                                      const uint8_t* nbr_hit, void* out,
-                                      int batch, int n, int cw, int cout,
-                                      int gw, int groups,
-                                      cudaStream_t stream) {
-  return launch_k3map<float>(feats, w, scale, nbr_idx, nbr_hit, out, batch, n,
-                             cw, cout, gw, groups, stream);
-}
-
-extern "C" int mrcc_conv_k3map_q8_bf16(const void* feats, const void* w,
-                                       const void* scale, const int* nbr_idx,
-                                       const uint8_t* nbr_hit, void* out,
-                                       int batch, int n, int cw, int cout,
-                                       int gw, int groups,
+// The per-octant hit lists of a down conv's child map (child_idx /
+// child_hit [8, B, n_out]) and of an up conv's parent map (parent_idx /
+// octant [B, n_out] int32, row_ok [B, n_out] bool): lists [2, 8, B *
+// n_out] int32 (source rows b * n_in + j, then map rows b * n_out + i),
+// status [8 * ceil(B * n_out / 2048) + 1] u64, count [8] int32.  Each
+// returns cudaGetLastError().
+extern "C" int mrcc_conv_down_lists_q8(const int* child_idx,
+                                       const uint8_t* child_hit, int* lists,
+                                       unsigned long long* status, int* count,
+                                       int batch, int n_in, int n_out,
                                        cudaStream_t stream) {
-  return launch_k3map<__nv_bfloat16>(feats, w, scale, nbr_idx, nbr_hit, out,
-                                     batch, n, cw, cout, gw, groups, stream);
+  return hitlist::build_lists(
+      Q8ChildMap{{child_idx, child_hit, batch, n_out}}, lists, status, count,
+      batch, n_in, n_out, K2, stream);
 }
 
-// up: feats [B, n_in, cw] int8 words (coarse level), w [8, cw, cout] int8
-// words, scale [groups, 8, cout] f32, parent_idx/octant [B, n_out] int32,
-// row_ok [B, n_out] bool, out [B, n_out, cout] (fine level).  Returns
-// cudaGetLastError().
-extern "C" int mrcc_conv_up_q8_f32(const void* feats, const void* w,
-                                   const void* scale, const int* parent_idx,
-                                   const uint8_t* row_ok, const int* octant,
-                                   void* out, int batch, int n_in, int n_out,
-                                   int cw, int cout, int gw, int groups,
-                                   cudaStream_t stream) {
-  return launch_up<float>(feats, w, scale, parent_idx, row_ok, octant, out,
-                          batch, n_in, n_out, cw, cout, gw, groups, stream);
+extern "C" int mrcc_conv_up_lists_q8(const int* parent_idx,
+                                     const uint8_t* row_ok, const int* octant,
+                                     int* lists, unsigned long long* status,
+                                     int* count, int batch, int n_in,
+                                     int n_out, cudaStream_t stream) {
+  return hitlist::build_lists(
+      Q8ParentMap{{parent_idx, row_ok, octant, n_out}}, lists, status, count,
+      batch, n_in, n_out, K2, stream);
 }
 
-extern "C" int mrcc_conv_up_q8_bf16(const void* feats, const void* w,
-                                    const void* scale, const int* parent_idx,
-                                    const uint8_t* row_ok, const int* octant,
-                                    void* out, int batch, int n_in,
-                                    int n_out, int cw, int cout, int gw,
-                                    int groups, cudaStream_t stream) {
-  return launch_up<__nv_bfloat16>(feats, w, scale, parent_idx, row_ok,
-                                  octant, out, batch, n_in, n_out, cw, cout,
-                                  gw, groups, stream);
+// The int8 list GEMM: for e < count[k], row src[k][e] of q [rows_in, cpad]
+// times wq[k] ([taps, cout, cpad]), per group.  up: dequantised with
+// scale [ng, taps, cout] and stored to row dst[k][e] of out [out_rows,
+// cout] (the suffix's type); else the group's int32 sums to row dst[k][e]
+// of out = y [ng, out_rows, cout] int32.  Each dst row lies in at most one
+// list.  Returns cudaGetLastError().
+extern "C" int mrcc_list_gemm_q8_f32(const void* q, const void* wq,
+                                     const float* scale, const int* src,
+                                     const int* dst, const int* count,
+                                     void* out, int taps, int total,
+                                     int out_rows, int cin, int cpad,
+                                     int cout, int gw, int ng, int up,
+                                     cudaStream_t stream) {
+  return list_gemm<float>(q, wq, scale, src, dst, count, out, taps, total,
+                          out_rows, cin, cpad, cout, gw, ng, up, stream);
+}
+
+extern "C" int mrcc_list_gemm_q8_bf16(const void* q, const void* wq,
+                                      const float* scale, const int* src,
+                                      const int* dst, const int* count,
+                                      void* out, int taps, int total,
+                                      int out_rows, int cin, int cpad,
+                                      int cout, int gw, int ng, int up,
+                                      cudaStream_t stream) {
+  return list_gemm<__nv_bfloat16>(q, wq, scale, src, dst, count, out, taps,
+                                  total, out_rows, cin, cpad, cout, gw, ng,
+                                  up, stream);
+}
+
+// The down conv's child sum: y [ng, B * n_in, cout] int32, scale [ng, cout]
+// f32, child_idx / child_hit [8, B, n_out], out [B, n_out, cout] in the
+// suffix's type.  Returns cudaGetLastError().
+extern "C" int mrcc_child_sum_q8_f32(const int* y, const float* scale,
+                                     const int* child_idx,
+                                     const uint8_t* child_hit, void* out,
+                                     int batch, int n_in, int n_out, int cout,
+                                     int ng, cudaStream_t stream) {
+  return static_cast<int>(q8::launch_child_sum<float>(
+      y, scale, child_idx, child_hit, out, batch, n_in, n_out, cout, ng,
+      stream));
+}
+
+extern "C" int mrcc_child_sum_q8_bf16(const int* y, const float* scale,
+                                      const int* child_idx,
+                                      const uint8_t* child_hit, void* out,
+                                      int batch, int n_in, int n_out,
+                                      int cout, int ng, cudaStream_t stream) {
+  return static_cast<int>(q8::launch_child_sum<__nv_bfloat16>(
+      y, scale, child_idx, child_hit, out, batch, n_in, n_out, cout, ng,
+      stream));
+}
+
+// The up conv's zero pass: out [rows, cout] rows whose row_ok is false (or
+// whose octant is outside 0..7) set to 0.  Returns cudaGetLastError().
+extern "C" int mrcc_zero_rows_q8_f32(const uint8_t* row_ok, const int* octant,
+                                     void* out, int rows, int cout,
+                                     cudaStream_t stream) {
+  return static_cast<int>(
+      q8::launch_zero_rows<float>(row_ok, octant, out, rows, cout, stream));
+}
+
+extern "C" int mrcc_zero_rows_q8_bf16(const uint8_t* row_ok,
+                                      const int* octant, void* out, int rows,
+                                      int cout, cudaStream_t stream) {
+  return static_cast<int>(q8::launch_zero_rows<__nv_bfloat16>(
+      row_ok, octant, out, rows, cout, stream));
+}
+
+// k3 table: q [B, n, cpad] int8, wq [27, cout, cpad] int8, scale [ng,
+// cout] f32, nbr_idx [27, B, n] int32, nbr_hit [27, B, n] bool, out [B, n,
+// cout].  lists: int32 scratch of B * ceil(n / 64) * (27 * 64 + 28) where
+// cout > 128, else may be null.  Returns cudaGetLastError().
+extern "C" int mrcc_conv_k3map_q8_f32(const void* q, const void* wq,
+                                      const float* scale, const int* nbr_idx,
+                                      const uint8_t* nbr_hit, int* lists,
+                                      void* out, int batch, int n, int cin,
+                                      int cpad, int cout, int gw, int ng,
+                                      cudaStream_t stream) {
+  return k3map<float>(q, wq, scale, nbr_idx, nbr_hit, lists, out, batch, n,
+                      cin, cpad, cout, gw, ng, stream);
+}
+
+extern "C" int mrcc_conv_k3map_q8_bf16(const void* q, const void* wq,
+                                       const float* scale,
+                                       const int* nbr_idx,
+                                       const uint8_t* nbr_hit, int* lists,
+                                       void* out, int batch, int n, int cin,
+                                       int cpad, int cout, int gw, int ng,
+                                       cudaStream_t stream) {
+  return k3map<__nv_bfloat16>(q, wq, scale, nbr_idx, nbr_hit, lists, out,
+                              batch, n, cin, cpad, cout, gw, ng, stream);
 }

@@ -34,74 +34,13 @@
 // the tile hits are skipped, and the MMAs of 16-row groups without a hit.
 // A tile of padding rows hits nothing and only writes zeros.
 
-#include "gather_gemm.cuh"  // k3_delta
 #include "gather_mma.cuh"
+#include "k3_sources.cuh"
 
 namespace {
 
-using mrcc::tc::BM;
-using mrcc::tc::K3;
-using mrcc::tc::THREADS;
-
-// First row of the sorted key row krow[lo, n) whose key is >= q.
-__device__ __forceinline__ int lower_bound(const int* __restrict__ krow,
-                                           int lo, int n, int q) {
-  int hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (__ldg(krow + mid) < q) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-constexpr int kRun = 8;  // rows of one search run
-constexpr int kWalk = 8;  // forward steps before a run searches again
-
-// The row source of the self-keyed conv: key + delta_k in the item's
-// sorted key row, gated by the row's offset bit.  The queries of one
-// offset rise with the row, and so do their places in the key row: a
-// thread takes one offset over a run of 8 rows, binary-searches the first
-// query and walks forward from there for the rest (a few steps: the
-// neighbours of consecutive voxels sit close together in key order), so a
-// 64-row tile resolves its 27 x 64 neighbours in one round of 216 threads.
-struct KeySearch {
-  const int* key;
-  const int* kbits;
-
-  __device__ __forceinline__ void resolve(int b, int m0, int n,
-                                          int* nbr) const {
-    static_assert(K3 * (BM / kRun) <= THREADS, "one run a thread");
-    const int* krow = key + static_cast<size_t>(b) * n;
-    const int* brow = kbits + static_cast<size_t>(b) * n;
-    if (threadIdx.x < K3 * (BM / kRun)) {
-      const int k = threadIdx.x / (BM / kRun);
-      const int r0 = (threadIdx.x % (BM / kRun)) * kRun;
-      const int delta = mrcc::k3_delta(k);
-      int p = -1;
-      for (int r = r0; r < r0 + kRun; ++r) {
-        const int row = m0 + r;
-        int j = -1;
-        if (row < n && ((__ldg(brow + row) >> k) & 1)) {
-          if (k == 13) {
-            j = row;
-          } else {
-            const int q = __ldg(krow + row) + delta;
-            if (p < 0) {
-              p = lower_bound(krow, 0, n, q);
-            } else {
-              for (int w = 0; w < kWalk && p < n && __ldg(krow + p) < q; ++w)
-                ++p;
-              if (p < n && __ldg(krow + p) < q) p = lower_bound(krow, p, n, q);
-            }
-            if (p < n && __ldg(krow + p) == q) j = p;
-          }
-        }
-        nbr[k * BM + r] = j;
-      }
-    }
-    __syncthreads();
-  }
-};
+// K2's name for the key search (conv_sk_q8.cu names its own).
+struct KeySearch : mrcc::tc::KeySearch {};
 
 }  // namespace
 
@@ -114,7 +53,7 @@ extern "C" int mrcc_conv_sk_f32(const void* feats, const void* w,
                                 void* out, int batch, int n, int cin, int cout,
                                 cudaStream_t stream) {
   const cudaError_t err = mrcc::tc::launch_gather_mma<float>(
-      feats, w, KeySearch{key, kbits}, lists, out, batch, n, cin, cout,
+      feats, w, KeySearch{{key, kbits}}, lists, out, batch, n, cin, cout,
       stream);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
@@ -124,7 +63,7 @@ extern "C" int mrcc_conv_sk_bf16(const void* feats, const void* w,
                                  void* out, int batch, int n, int cin,
                                  int cout, cudaStream_t stream) {
   const cudaError_t err = mrcc::tc::launch_gather_mma<__nv_bfloat16>(
-      feats, w, KeySearch{key, kbits}, lists, out, batch, n, cin, cout,
+      feats, w, KeySearch{{key, kbits}}, lists, out, batch, n, cin, cout,
       stream);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

@@ -116,6 +116,44 @@ __device__ __forceinline__ void mma_stage(float (&acc)[2][4][4],
   }
 }
 
+// The prologue of a list GEMM block: find slice `slice` of the lists
+// (slices of BM entries, numbered octant by octant, from count[] on the
+// device: head = octant, first entry, entries) and load its src and dst
+// rows into rows (-1 past the slice).  False (uniform over the block) for
+// a slice past the lists.
+__device__ __forceinline__ bool load_slice(const int* __restrict__ src,
+                                           const int* __restrict__ dst,
+                                           const int* __restrict__ count,
+                                           int taps, int total, int slice,
+                                           int (&rows)[2][BM],
+                                           int (&head)[3]) {
+  if (threadIdx.x == 0) {
+    int k = 0;
+    int start = 0;
+    int cnt = 0;
+    for (; k < taps; ++k) {
+      cnt = __ldg(count + k);
+      const int s = (cnt + BM - 1) / BM;
+      if (slice < start + s) break;
+      start += s;
+    }
+    head[0] = k;
+    head[1] = (slice - start) * BM;
+    head[2] = min(BM, cnt - (slice - start) * BM);
+  }
+  __syncthreads();
+  const int k = head[0];
+  if (k >= taps) return false;
+  if (threadIdx.x < 2 * BM) {
+    const int side = threadIdx.x / BM;
+    const int r = threadIdx.x % BM;
+    const int* list = (side ? dst : src) + static_cast<size_t>(k) * total;
+    rows[side][r] = r < head[2] ? __ldg(list + head[1] + r) : -1;
+  }
+  __syncthreads();
+  return true;
+}
+
 // grid (slices * ceil(cout / BN)), THREADS threads, smem_bytes<T>() dynamic
 // shared memory.  feats [rows_in, cin], w [taps, cin, cout]; src / dst
 // [taps, total] int32 (entry e of list k at k * total + e), count [taps];
@@ -136,34 +174,13 @@ list_mma_kernel(const T* __restrict__ feats, const T* __restrict__ w,
   T* ring = reinterpret_cast<T*>(smem);
 
   const int tiles_n = (cout + BN - 1) / BN;
-  const int slice = blockIdx.x / tiles_n;
   const int n0 = (blockIdx.x % tiles_n) * BN;
-  if (threadIdx.x == 0) {
-    int k = 0;
-    int start = 0;
-    int cnt = 0;
-    for (; k < taps; ++k) {
-      cnt = __ldg(count + k);
-      const int s = (cnt + BM - 1) / BM;
-      if (slice < start + s) break;
-      start += s;
-    }
-    head[0] = k;
-    head[1] = (slice - start) * BM;
-    head[2] = min(BM, cnt - (slice - start) * BM);
-  }
-  __syncthreads();
+  // a slice past the lists (uniform over the block)
+  if (!load_slice(src, dst, count, taps, total, blockIdx.x / tiles_n, rows,
+                  head))
+    return;
   const int k = head[0];
-  if (k >= taps) return;  // a slice past the lists (uniform over the block)
-  const int e0 = head[1];
   const int m = head[2];
-  if (threadIdx.x < 2 * BM) {
-    const int side = threadIdx.x / BM;
-    const int r = threadIdx.x % BM;
-    const int* list = (side ? dst : src) + static_cast<size_t>(k) * total;
-    rows[side][r] = r < m ? __ldg(list + e0 + r) : -1;
-  }
-  __syncthreads();
 
   const int warp = threadIdx.x >> 5;
   const int wm = warp >> 2;

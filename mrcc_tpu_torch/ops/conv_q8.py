@@ -27,10 +27,19 @@ quantisation included, since it is part of the result.  On features ``x``
    ``int32 -> f32 * m[col] -> feature dtype``; the groups are summed in the
    feature dtype in group order.
 
-Bias and the validity mask stay outside (``sparse/conv.py``).  The
-quantisation is elementwise PyTorch on either device; for CUDA tensors the
-integer part launches the kernel, for CPU tensors the plain twin (a float64
-emulation of the int32 sums, exact below 2^53).
+Bias and the validity mask stay outside (``sparse/conv.py``).  For CUDA
+tensors every step runs the port's kernels: the quantisation pass
+(:func:`quantize_operands`: ``csrc/q8_quantize.cuh``, a memset and two
+launches with a calibrated absmax, three with the dynamic one) writes the operands in the
+layout the int8 tensor-core tiles read (``csrc/q8_mma.cuh``): q [B, N,
+cpad] and wq [K, Cout, cpad] int8, the channels of a row contiguous and
+padded with zeros to ``cpad`` (Cin rounded up to 16).  The k3 convs run one
+tile launch (a resolve launch before it where Cout > 128); down and up run
+K3's decomposition in int8: per-octant hit lists, the int8 list GEMM, then
+the down conv's int32 child sum or the up conv's zero pass.  For CPU
+tensors the plain twins run (a float64 emulation of the int32 sums, exact
+below 2^53); :func:`quantize_operands_plain` is the quantisation's twin,
+:func:`list_gemm_q8_plain` and :func:`child_sum_q8_plain` the stages'.
 
 The two ``/ 127`` are what the JAX engine computes: it runs the wrappers
 under ``jit``, where XLA folds a division by a constant into a product with
@@ -42,30 +51,47 @@ The other two divisions are true ones, by device tensors: CUDA computes
 
 from __future__ import annotations
 
+from typing import NamedTuple, Tuple
+
 import torch
 import torch.nn.functional as F
 
 from ..sparse.hierarchy import TABLE_BUDGET as _TABLE_BUDGET
 from .build import I, KernelLibrary, LaunchCounter, P, ptr, stream_ptr
-from .conv import _K3_DELTAS, _gather, _route, _sk_neighbours
+from .conv import (_K3_DELTAS, _gather, _k3_lists, _list_bytes, _route,
+                   _scratch, _sk_neighbours)
 
+_QUANTIZE = (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P)
+_TILE = (P, P, P, P, P, P, P, I, I, I, I, I, I, I, P)
 SK_Q8_LIB = KernelLibrary("conv_sk_q8", {
-    "mrcc_conv_sk_q8_f32": (P, P, P, P, P, P, I, I, I, I, I, I, P),
-    "mrcc_conv_sk_q8_bf16": (P, P, P, P, P, P, I, I, I, I, I, I, P),
+    "mrcc_conv_sk_q8_f32": _TILE,
+    "mrcc_conv_sk_q8_bf16": _TILE,
 })
 MAP_Q8_LIB = KernelLibrary("conv_map_q8", {
-    "mrcc_conv_down_q8_f32": (P, P, P, P, P, P, I, I, I, I, I, I, I, P),
-    "mrcc_conv_down_q8_bf16": (P, P, P, P, P, P, I, I, I, I, I, I, I, P),
-    "mrcc_conv_up_q8_f32": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, P),
-    "mrcc_conv_up_q8_bf16": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, P),
-    "mrcc_conv_k3map_q8_f32": (P, P, P, P, P, P, I, I, I, I, I, I, P),
-    "mrcc_conv_k3map_q8_bf16": (P, P, P, P, P, P, I, I, I, I, I, I, P),
+    "mrcc_quantize_q8_f32": _QUANTIZE,
+    "mrcc_quantize_q8_bf16": _QUANTIZE,
+    "mrcc_conv_down_lists_q8": (P, P, P, P, P, I, I, I, P),
+    "mrcc_conv_up_lists_q8": (P, P, P, P, P, P, I, I, I, P),
+    "mrcc_list_gemm_q8_f32": (P, P, P, P, P, P, P) + (I,) * 9 + (P,),
+    "mrcc_list_gemm_q8_bf16": (P, P, P, P, P, P, P) + (I,) * 9 + (P,),
+    "mrcc_child_sum_q8_f32": (P, P, P, P, P, I, I, I, I, I, P),
+    "mrcc_child_sum_q8_bf16": (P, P, P, P, P, I, I, I, I, I, P),
+    "mrcc_zero_rows_q8_f32": (P, P, P, I, I, P),
+    "mrcc_zero_rows_q8_bf16": (P, P, P, I, I, P),
+    "mrcc_conv_k3map_q8_f32": _TILE,
+    "mrcc_conv_k3map_q8_bf16": _TILE,
 })
 LIBRARIES = (SK_Q8_LIB, MAP_Q8_LIB)
+# the conv kernels, one launch a wrapper call each
 SK_Q8 = LaunchCounter("conv_sk_q8")
 DOWN_Q8 = LaunchCounter("conv_down_q8")
 UP_Q8 = LaunchCounter("conv_up_q8")
 K3MAP_Q8 = LaunchCounter("conv_k3map_q8")
+# ... and their other stages: the quantisation pass's kernels (2, or 3 with
+# the dynamic absmax), the list kernel of down / up, the down child sum
+Q8_QUANT = LaunchCounter("q8_quantize")
+Q8_LISTS = LaunchCounter("q8_lists")
+Q8_SUM = LaunchCounter("q8_child_sum")
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -172,11 +198,131 @@ def quantize_weights(weights, s_c, groups, per_octant=False):
     return wq, torch.stack(scales)
 
 
-def _quantize(mode, feats, weights, n_table, act_absmax, per_octant=False):
-    groups = q8_channel_groups(mode, n_table, feats.shape[-1])
+def _cpad(cin: int) -> int:
+    """Bytes of one operand row: Cin rounded up to whole 16-byte chunks."""
+    return -(-cin // 16) * 16
+
+
+def _over_127(x):
+    """``x * f32(1 / 127)``: the jitted JAX wrappers' ``x / 127``."""
+    return x * torch.full((), 1.0 / 127.0, dtype=torch.float32,
+                          device=x.device)
+
+
+def quantize_activations(feats, act_absmax=None):
+    """``(q int8 [B, N, C], s_c f32 [C])``: per-channel scales from the
+    calibrated ``act_absmax`` or the dynamic absmax over all rows."""
+    f = feats.float()
+    amax = (f.abs().amax(dim=(0, 1)) if act_absmax is None
+            else act_absmax.float())
+    s_c = _over_127(torch.clamp_min(amax, 1e-8))
+    q = torch.clamp(torch.round(f / s_c), -127, 127).to(torch.int8)
+    return q, s_c
+
+
+def quantize_weights(weights, s_c, groups, per_octant=False):
+    """``(wq int8 [K, Cin, Cout], m f32)``: ``W * s_c`` quantised per
+    channel group with f32 column scales ``m`` of shape [G, Cout], or
+    [G, K, Cout] with ``per_octant`` (the up conv: octants keep their own
+    scales)."""
+    w = weights.float() * s_c[None, :, None]
+    wq = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    scales = []
+    for a, b in groups:
+        wg = w[:, a:b]
+        m = wg.abs().amax(dim=1 if per_octant else (0, 1), keepdim=True)
+        m = _over_127(torch.clamp_min(m, 1e-12))
+        wq[:, a:b] = torch.clamp(torch.round(wg / m), -127, 127).to(
+            torch.int8)
+        scales.append(m[:, 0] if per_octant else m[0, 0])
+    return wq, torch.stack(scales)
+
+
+def _quantize(mode, feats, weights, n_table, act_absmax, per_octant=False,
+              groups=None):
+    if groups is None:
+        groups = q8_channel_groups(mode, n_table, feats.shape[-1])
     q, s_c = quantize_activations(feats, act_absmax)
     wq, m = quantize_weights(weights, s_c, groups, per_octant)
     return groups, q, wq, m
+
+
+class Q8Operands(NamedTuple):
+    """The int8 operands in the kernels' layout: ``q`` [B, N, cpad] and
+    ``wq`` [K, Cout, cpad] int8 (zeros past Cin), ``m`` f32 [G, Cout] (or
+    [G, K, Cout] per octant), the channel ``groups``; ``gw`` the width the
+    kernels step groups by (the first group's, or cpad for one group)."""
+
+    q: torch.Tensor
+    wq: torch.Tensor
+    m: torch.Tensor
+    groups: Tuple[Tuple[int, int], ...]
+    cpad: int
+    gw: int
+
+
+def _operands(q, wq, m, groups):
+    cpad = _cpad(q.shape[-1])
+    gw = cpad if len(groups) == 1 else groups[0][1] - groups[0][0]
+    if gw % 16:
+        raise ValueError(f"int8 channel groups {groups}: widths must be "
+                         "whole 16-channel chunks")
+    return Q8Operands(q, wq, m, tuple(groups), cpad, gw)
+
+
+def quantize_operands_plain(mode, feats, weights, n_table, act_absmax=None,
+                            per_octant=False, groups=None):
+    """Plain twin of :func:`quantize_operands`: ``_quantize`` and the
+    kernels' layout."""
+    groups, q, wq, m = _quantize(mode, feats, weights, n_table, act_absmax,
+                                 per_octant, groups)
+    pad = _cpad(q.shape[-1]) - q.shape[-1]
+    return _operands(F.pad(q, (0, pad)).contiguous(),
+                     F.pad(wq.transpose(1, 2), (0, pad)).contiguous(),
+                     m.contiguous(), groups)
+
+
+def quantize_operands(mode, feats, weights, n_table, act_absmax=None,
+                      per_octant=False, groups=None):
+    """The int8 convs' quantisation pass (steps 1-4 of the module doc) into
+    the kernels' layout: :class:`Q8Operands`.
+
+    Args:
+      mode, n_table: the conv's :func:`q8_channel_groups` (``groups``, if
+        given, instead); feats: [B, N, Cin] f32/bf16; weights: [K, Cin,
+        Cout] f32; act_absmax: optional calibrated [Cin] f32 (else the
+        dynamic absmax); per_octant: the up conv's scales [G, K, Cout].
+    """
+    if not _route(feats, weights, *(() if act_absmax is None
+                                    else (act_absmax,))):
+        return quantize_operands_plain(mode, feats, weights, n_table,
+                                       act_absmax, per_octant, groups)
+    if feats.dtype not in _SUFFIX or weights.dtype != torch.float32:
+        raise ValueError(f"quantize_operands: feats {feats.dtype} / weights "
+                         f"{weights.dtype}")
+    b, n, cin = feats.shape
+    k, _, cout = weights.shape
+    if groups is None:
+        groups = q8_channel_groups(mode, n_table, cin)
+    dev = feats.device
+    cpad = _cpad(cin)
+    ops = _operands(torch.empty((b, n, cpad), dtype=torch.int8, device=dev),
+                    torch.empty((k, cout, cpad), dtype=torch.int8,
+                                device=dev),
+                    torch.empty((len(groups),) + ((k,) if per_octant else ())
+                                + (cout,), dtype=torch.float32, device=dev),
+                    groups)
+    # the dynamic absmax [cin], then the weights' column maxima
+    scratch = torch.empty(cin + ops.m.numel(), dtype=torch.float32,
+                          device=dev)
+    cal = None if act_absmax is None else act_absmax.float().contiguous()
+    MAP_Q8_LIB.call(
+        f"mrcc_quantize_q8_{_SUFFIX[feats.dtype]}", ptr(feats.contiguous()),
+        ptr(cal), ptr(weights.contiguous()), ptr(scratch), ptr(ops.q),
+        ptr(ops.wq), ptr(ops.m), b * n, cin, cpad, k, cout, ops.gw,
+        len(groups), int(per_octant), stream_ptr(feats))
+    Q8_QUANT.launches += 2 if act_absmax is not None else 3
+    return ops
 
 
 def _dequant_sum(parts, dtype):
@@ -205,21 +351,20 @@ def _check(name, feats, weights, k, index_tensors):
             raise ValueError(f"{name}: map dtype {t.dtype} != {dtype}")
 
 
-def _kernel_operands(q, wq, m, groups):
-    """The kernels' layout: activations padded to whole 4-channel words
-    (int8 [B, N, 4 * cw]), weights as int32 words of 4 consecutive input
-    channels ([K, cw, Cout]), scales contiguous, the group width in words
-    (every group but the last is a multiple of 128 channels)."""
-    cin = q.shape[-1]
-    cw = -(-cin // 4)
-    if 4 * cw != cin:
-        q = F.pad(q, (0, 4 * cw - cin))
-        wq = F.pad(wq, (0, 0, 0, 4 * cw - cin))
-    k, _, cout = wq.shape
-    w32 = (wq.reshape(k, cw, 4, cout).permute(0, 1, 3, 2).contiguous()
-           .view(torch.int32).reshape(k, cw, cout))
-    gw = -(-(groups[0][1] - groups[0][0]) // 4)
-    return q.contiguous(), w32, m.contiguous(), cw, gw, len(groups)
+def _tile_launch(lib, fname, feats, weights, maps, mode, act_absmax,
+                 groups=None):
+    """A k3 conv (B6, or B7's table mode) on checked CUDA operands: the
+    quantisation pass, then the int8 tile (``maps`` contiguous)."""
+    b, n, cin = feats.shape
+    cout = weights.shape[-1]
+    ops = quantize_operands(mode, feats, weights, n, act_absmax,
+                            groups=groups)
+    out = torch.empty((b, n, cout), dtype=feats.dtype, device=feats.device)
+    lists = _k3_lists(b, n, cout, feats.device)
+    lib.call(f"{fname}_{_SUFFIX[feats.dtype]}", ptr(ops.q), ptr(ops.wq),
+             ptr(ops.m), *map(ptr, maps), ptr(lists), ptr(out), b, n, cin,
+             ops.cpad, cout, ops.gw, len(ops.groups), stream_ptr(feats))
+    return out
 
 
 # ------------------------------------------------------------------- B6
@@ -260,14 +405,9 @@ def gather_gemm_sk_q8(feats, weights, key, kbits, act_absmax=None):
     b, n, _ = feats.shape
     if key.shape != (b, n) or kbits.shape != (b, n):
         raise ValueError("gather_gemm_sk_q8: key/kbits must be [B, N]")
-    groups, q, wq, m = _quantize("k3", feats, weights, n, act_absmax)
-    q, w32, m, cw, gw, ng = _kernel_operands(q, wq, m, groups)
-    cout = w32.shape[-1]
-    out = torch.empty((b, n, cout), dtype=feats.dtype, device=feats.device)
-    SK_Q8_LIB.call(f"mrcc_conv_sk_q8_{_SUFFIX[feats.dtype]}", ptr(q),
-                   ptr(w32), ptr(m), ptr(key.contiguous()),
-                   ptr(kbits.contiguous()), ptr(out), b, n, cw, cout, gw, ng,
-                   stream_ptr(feats))
+    out = _tile_launch(SK_Q8_LIB, "mrcc_conv_sk_q8", feats, weights,
+                       (key.contiguous(), kbits.contiguous()), "k3",
+                       act_absmax)
     SK_Q8.launches += 1
     return out
 
@@ -315,20 +455,34 @@ def gather_gemm_down_q8(feats, weights, child_idx, child_hit,
                                          child_hit, act_absmax)
     _check("gather_gemm_down_q8", feats, weights, 8,
            ((child_idx, torch.int32), (child_hit, torch.bool)))
-    b, n_in, _ = feats.shape
+    b, n_in, cin = feats.shape
     n_out = child_idx.shape[2]
     if child_idx.shape != (8, b, n_out) or child_hit.shape != (8, b, n_out):
         raise ValueError("gather_gemm_down_q8: maps must be [8, B, N_coarse]")
-    groups, q, wq, m = _quantize("down", feats, weights, n_in, act_absmax)
-    q, w32, m, cw, gw, ng = _kernel_operands(q, wq, m, groups)
-    cout = w32.shape[-1]
+    child_idx, child_hit = child_idx.contiguous(), child_hit.contiguous()
+    ops = quantize_operands("down", feats, weights, n_in, act_absmax)
+    cout = weights.shape[-1]
+    ng = len(ops.groups)
+    rows = b * n_out
     out = torch.empty((b, n_out, cout), dtype=feats.dtype,
                       device=feats.device)
-    MAP_Q8_LIB.call(f"mrcc_conv_down_q8_{_SUFFIX[feats.dtype]}", ptr(q),
-                    ptr(w32), ptr(m), ptr(child_idx.contiguous()),
-                    ptr(child_hit.contiguous()), ptr(out), b, n_in, n_out,
-                    cw, cout, gw, ng, stream_ptr(feats))
+    # the lists, then y: each listed fine row's int32 product per group
+    _, (lists, status, count, y) = _scratch(feats.device, (
+        *_list_bytes(8, rows), 4 * ng * b * n_in * cout))
+    stream = stream_ptr(feats)
+    sfx = _SUFFIX[feats.dtype]
+    MAP_Q8_LIB.call("mrcc_conv_down_lists_q8", ptr(child_idx),
+                    ptr(child_hit), lists, status, count, b, n_in, n_out,
+                    stream)
+    Q8_LISTS.launches += 1
+    MAP_Q8_LIB.call(f"mrcc_list_gemm_q8_{sfx}", ptr(ops.q), ptr(ops.wq),
+                    ptr(ops.m), lists, lists, count, y, 8, rows, b * n_in,
+                    cin, ops.cpad, cout, ops.gw, ng, 0, stream)
     DOWN_Q8.launches += 1
+    MAP_Q8_LIB.call(f"mrcc_child_sum_q8_{sfx}", y, ptr(ops.m),
+                    ptr(child_idx), ptr(child_hit), ptr(out), b, n_in, n_out,
+                    cout, ng, stream)
+    Q8_SUM.launches += 1
     return out
 
 
@@ -369,23 +523,34 @@ def gather_gemm_up_q8(feats, weights, parent_idx, row_ok, octant,
     _check("gather_gemm_up_q8", feats, weights, 8,
            ((parent_idx, torch.int32), (row_ok, torch.bool),
             (octant, torch.int32)))
-    b, n_in, _ = feats.shape
+    b, n_in, cin = feats.shape
     n_out = parent_idx.shape[1]
     if (parent_idx.shape != (b, n_out) or row_ok.shape != (b, n_out)
             or octant.shape != (b, n_out)):
         raise ValueError("gather_gemm_up_q8: maps must be [B, N_fine]")
-    groups, q, wq, m = _quantize("up", feats, weights, n_in, act_absmax,
-                                 per_octant=True)
-    q, w32, m, cw, gw, ng = _kernel_operands(q, wq, m, groups)
-    cout = w32.shape[-1]
+    parent_idx, row_ok = parent_idx.contiguous(), row_ok.contiguous()
+    octant = octant.contiguous()
+    ops = quantize_operands("up", feats, weights, n_in, act_absmax,
+                            per_octant=True)
+    cout = weights.shape[-1]
+    rows = b * n_out
     out = torch.empty((b, n_out, cout), dtype=feats.dtype,
                       device=feats.device)
-    MAP_Q8_LIB.call(f"mrcc_conv_up_q8_{_SUFFIX[feats.dtype]}", ptr(q),
-                    ptr(w32), ptr(m), ptr(parent_idx.contiguous()),
-                    ptr(row_ok.contiguous()), ptr(octant.contiguous()),
-                    ptr(out), b, n_in, n_out, cw, cout, gw, ng,
-                    stream_ptr(feats))
+    _, (lists, status, count) = _scratch(feats.device, _list_bytes(8, rows))
+    stream = stream_ptr(feats)
+    sfx = _SUFFIX[feats.dtype]
+    MAP_Q8_LIB.call("mrcc_conv_up_lists_q8", ptr(parent_idx), ptr(row_ok),
+                    ptr(octant), lists, status, count, b, n_in, n_out,
+                    stream)
+    Q8_LISTS.launches += 1
+    # src: the coarse parent rows (the lists' first half); dst: the fine rows
+    MAP_Q8_LIB.call(f"mrcc_list_gemm_q8_{sfx}", ptr(ops.q), ptr(ops.wq),
+                    ptr(ops.m), lists, lists + 4 * 8 * rows, count, ptr(out),
+                    8, rows, rows, cin, ops.cpad, cout, ops.gw,
+                    len(ops.groups), 1, stream)
     UP_Q8.launches += 1
+    MAP_Q8_LIB.call(f"mrcc_zero_rows_q8_{sfx}", ptr(row_ok), ptr(octant),
+                    ptr(out), rows, cout, stream)
     return out
 
 
@@ -415,13 +580,51 @@ def gather_gemm_k3_map_q8(feats, weights, nbr_idx, nbr_hit, act_absmax=None):
     b, n, _ = feats.shape
     if nbr_idx.shape != (27, b, n) or nbr_hit.shape != (27, b, n):
         raise ValueError("gather_gemm_k3_map_q8: tables must be [27, B, N]")
-    groups, q, wq, m = _quantize("k3_table", feats, weights, n, act_absmax)
-    q, w32, m, cw, gw, ng = _kernel_operands(q, wq, m, groups)
-    cout = w32.shape[-1]
-    out = torch.empty((b, n, cout), dtype=feats.dtype, device=feats.device)
-    MAP_Q8_LIB.call(f"mrcc_conv_k3map_q8_{_SUFFIX[feats.dtype]}", ptr(q),
-                    ptr(w32), ptr(m), ptr(nbr_idx.contiguous()),
-                    ptr(nbr_hit.contiguous()), ptr(out), b, n, cw, cout, gw,
-                    ng, stream_ptr(feats))
+    out = _tile_launch(MAP_Q8_LIB, "mrcc_conv_k3map_q8", feats, weights,
+                       (nbr_idx.contiguous(), nbr_hit.contiguous()),
+                       "k3_table", act_absmax)
     K3MAP_Q8.launches += 1
     return out
+
+
+# ------------------------------------------- B7 down / up, by stages
+
+def list_gemm_q8_plain(ops, src, dst, count, out_rows):
+    """What the int8 list GEMM computes (``list_mma_q8_kernel``) on the
+    operands ``ops`` (:class:`Q8Operands`, the kernels' layout): per group
+    g, ``y[g, dst[k, e]] = q[src[k, e], group g] . wq[k, :, group g]`` for
+    ``e < count[k]``, exact (float64), 0 in rows no list names.  The down
+    conv keeps y for the child sum; the up conv dequantises it with the
+    octants' scales.
+
+    Args:
+      ops: the operands, q's rows flattened; src, dst: int32 [K, L]; count:
+        int32 [K].
+    Returns float64 [G, out_rows, Cout].
+    """
+    qf = ops.q.reshape(-1, ops.cpad).double()
+    wd = ops.wq.double()
+    out = torch.zeros((len(ops.groups), out_rows, wd.shape[1]),
+                      dtype=torch.float64, device=qf.device)
+    for g, (a, c) in enumerate(ops.groups):
+        for k, n in enumerate(count.tolist()):
+            out[g, dst[k, :n].long()] = (qf[src[k, :n].long(), a:c]
+                                         @ wd[k, :, a:c].T)
+    return out
+
+
+def child_sum_q8_plain(y, m, child_idx, child_hit, dtype):
+    """What the down conv's child sum computes (``child_sum_q8_kernel``):
+    per group, each coarse row's children of ``y`` [G, B, N_fine, Cout]
+    summed exactly, then ``int32 -> f32 * m[g] -> dtype``, the groups added
+    in ``dtype`` in group order.  Returns [B, N_coarse, Cout] in ``dtype``.
+    """
+    parts = []
+    for g in range(y.shape[0]):
+        acc = torch.zeros((y.shape[1], child_idx.shape[2], y.shape[-1]),
+                          dtype=torch.float64, device=y.device)
+        for k in range(8):
+            acc = acc + torch.where(child_hit[k][..., None],
+                                    _gather(y[g], child_idx[k]), 0.0)
+        parts.append((acc, m[g]))
+    return _dequant_sum(parts, dtype)

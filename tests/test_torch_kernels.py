@@ -13,8 +13,11 @@ f32 route is a 3xTF32 split on tensor cores), bf16 ones with the f32
 twin to 2e-2 (K3's down and up also in their stages: the list kernel's
 K3 instantiation exact, the list GEMM at the conv tolerances, the child
 sum exact; two calls bit-equal); the int8 convs agree with their plain
-twins to 1 ulp of the output type elementwise (their int32 sums are
-exact) and with the f32 plain conv to 3e-2.  The dW kernels are
+twins bit for bit (their int32 sums are exact; two calls give the same
+bits, and so do the k3-table and the self-keyed int8 routes at equal
+groups), their quantised operands equal the quantisation's twin bit for
+bit, each call launches its kernels by kind (conv, quantisation, lists,
+child sum) as counted, and they agree with the f32 plain conv to 3e-2.  The dW kernels are
 deterministic (no float atomics): two launches give the same bits.  The
 autograd Functions' backward on the card agrees with autograd through
 the plain forward twins to 1e-5.  The rank
@@ -605,23 +608,59 @@ def _ulps(got, want):
     return float(((g - w).abs() / ulp).max())
 
 
+_Q8_KINDS = (conv_q8.SK_Q8, conv_q8.K3MAP_Q8, conv_q8.DOWN_Q8, conv_q8.UP_Q8,
+             conv_q8.Q8_QUANT, conv_q8.Q8_LISTS, conv_q8.Q8_SUM)
+_Q8_MODE = {"conv_sk_q8": "k3", "conv_k3map_q8": "k3_table",
+            "conv_down_q8": "down", "conv_up_q8": "up"}
+
+
+def _q8_launches(fn, *args, **kw):
+    before = {c.name: c.launches for c in _Q8_KINDS}
+    out = fn(*args, **kw)
+    return out, {c.name: c.launches - before[c.name] for c in _Q8_KINDS
+                 if c.launches != before[c.name]}
+
+
 def _check_q8(fn, plain, counter, unquantised, f, w, maps):
+    """The kernel equals its plain twin bit for bit (exact int32 sums), is
+    within 3e-2 of the f32 conv, gives the same bits twice and with a
+    calibrated absmax equal to the dynamic one; its launches by kind; the
+    quantisation kernels equal their twin bit for bit (dynamic and a
+    clipping calibrated absmax)."""
+    mode = _Q8_MODE[counter.name]
     want = plain(f, w, *maps)
-    before = counter.launches
-    got = fn(f, w, *maps)
-    assert counter.launches == before + 1
+    got, launched = _q8_launches(fn, f, w, *maps)
+    expect = {counter.name: 1, "q8_quantize": 3}
+    if mode in ("down", "up"):
+        expect["q8_lists"] = 1
+    if mode == "down":
+        expect["q8_child_sum"] = 1
+    assert launched == expect
     assert got.dtype == f.dtype and got.shape == want.shape
-    assert _ulps(got, want) <= 1.0
+    assert torch.equal(got, want), _ulps(got, want)
     assert _rel(got, unquantised(f.float(), w, *maps)) <= 3e-2
+    assert torch.equal(fn(f, w, *maps), got)
     amax = f.float().abs().amax(dim=(0, 1))  # calibrated == dynamic
-    assert torch.equal(fn(f, w, *maps, act_absmax=amax), got)
+    again, launched = _q8_launches(fn, f, w, *maps, act_absmax=amax)
+    assert launched["q8_quantize"] == 2 and torch.equal(again, got)
+    n_table = f.shape[1]
+    for cal in (None, amax * 0.75):
+        ops = conv_q8.quantize_operands(mode, f, w, n_table, cal,
+                                        per_octant=mode == "up")
+        twin = conv_q8.quantize_operands_plain(
+            mode, f.cpu(), w.cpu(), n_table,
+            None if cal is None else cal.cpu(), per_octant=mode == "up")
+        assert ops.groups == twin.groups and ops.gw == twin.gw
+        for a, b in zip(ops[:3], twin[:3]):
+            assert torch.equal(a.cpu(), b)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("cin,cout", [(3, 32), (48, 64), (256, 40),
-                                      (416, 96)])
+                                      (416, 96), (20, 90), (130, 70)])
 def test_conv_sk_q8(cuda, levels, cin, cout, dtype):
-    """Cin 3 is the stem; 256 and 416 split into 128-channel groups."""
+    """Cin 3 is the stem (packed K); 256 and 416 split into 128-channel
+    groups; 20 and 130 are not whole 16-channel chunks."""
     lv = levels[0]
     assert len(conv_q8.q8_channel_groups("k3", lv.key.shape[1], cin)) == \
         -(-cin // 128)
@@ -631,10 +670,12 @@ def test_conv_sk_q8(cuda, levels, cin, cout, dtype):
               (lv.key, lv.kbits))
 
 
-@pytest.mark.parametrize("cin,cout", [(32, 32), (20, 90), (896, 40)])
+@pytest.mark.parametrize("cin,cout", [(32, 32), (20, 90), (896, 40),
+                                      (130, 70), (416, 256)])
 @pytest.mark.parametrize("l", [0, 2])
 def test_conv_down_up_q8(cuda, levels, l, cin, cout):
-    """896 channels split 768 + 128 (the int8 k-lane cap)."""
+    """896 channels split 768 + 128 (the int8 k-lane cap); Cout 256 spans
+    two column tiles."""
     fine, coarse = levels[l], levels[l + 1]
     w = torch.randn((8, cin, cout), device=cuda) / 3
     _check_q8(conv_q8.gather_gemm_down_q8, conv_q8.gather_gemm_down_q8_plain,
@@ -662,19 +703,42 @@ def test_conv_down_q8_table_split(cuda, big_levels):
               (coarse.child_idx, coarse.child_hit))
 
 
-def test_conv_up_q8_lane_packed_groups(cuda, levels, monkeypatch):
-    """An up conv from a table over the (shrunk) budget: 64-channel
-    groups, as the JAX wrapper's lane-packed plan."""
+@pytest.mark.parametrize("pack", [2, 4])
+def test_conv_up_q8_lane_packed_groups(cuda, levels, monkeypatch, pack):
+    """An up conv from a table over the (shrunk) budget: 64-channel (pack
+    2) or 32-channel (pack 4) groups, as the JAX wrapper's lane-packed
+    plan."""
     fine, coarse = levels[1], levels[2]
     n = coarse.key.shape[1]
-    monkeypatch.setattr(conv_q8, "_TABLE_BUDGET", n * 64)
-    assert conv_q8.q8_channel_groups("up", n, 160) == ((0, 64), (64, 128),
-                                                       (128, 160))
+    monkeypatch.setattr(conv_q8, "_TABLE_BUDGET", n * 128 // pack)
+    width = 128 // pack
+    assert conv_q8.q8_channel_groups("up", n, 160) == tuple(
+        (a, min(a + width, 160)) for a in range(0, 160, width))
     _check_q8(conv_q8.gather_gemm_up_q8, conv_q8.gather_gemm_up_q8_plain,
               conv_q8.UP_Q8, conv.gather_gemm_up_plain,
               _feats(coarse, 160, torch.bfloat16),
               torch.randn((8, 160, 40), device=cuda) / 9,
               (fine.parent_idx, fine.row_ok, fine.octant))
+
+
+def test_conv_q8_padding_level(cuda, levels):
+    """A level of padding rows (no neighbour, no child, no parent) gives
+    zeros from every int8 conv."""
+    lv, coarse = levels[3], levels[4]
+    f = _feats(lv, 130, torch.bfloat16)
+    out = conv_q8.gather_gemm_sk_q8(f, torch.randn((27, 130, 70),
+                                                   device=cuda),
+                                    lv.key, torch.zeros_like(lv.kbits))
+    assert not out.any()
+    out = conv_q8.gather_gemm_down_q8(f, torch.randn((8, 130, 70),
+                                                     device=cuda),
+                                      coarse.child_idx, coarse.child_hit & False)
+    assert not out.any()
+    out = conv_q8.gather_gemm_up_q8(_feats(coarse, 130, torch.bfloat16),
+                                    torch.randn((8, 130, 70), device=cuda),
+                                    lv.parent_idx, lv.row_ok & False,
+                                    lv.octant)
+    assert not out.any()
 
 
 def test_conv_q8_rejects(cuda, levels):
@@ -736,17 +800,24 @@ def test_conv_k3_map(cuda, levels, l, cin, cout):
     assert got16.dtype == torch.bfloat16 and _rel(got16, want) <= 2e-2
 
 
-@pytest.mark.parametrize("cin,cout", [(3, 32), (48, 64), (384, 40)])
+@pytest.mark.parametrize("cin,cout", [(3, 32), (48, 64), (384, 40),
+                                      (130, 70), (416, 90)])
 def test_conv_k3_map_q8(cuda, levels, cin, cout):
-    """384 channels split 256 + 128 (the int8 k-lane cap of 27 offsets)."""
+    """384 and 416 channels split 256 + the rest (the int8 k-lane cap of 27
+    offsets).  At equal groups the table route gives B6's bits."""
     lv = levels[0]
     idx, hit = neighbor_tables(lv)
-    assert len(conv_q8.q8_channel_groups("k3_table", lv.key.shape[1],
-                                         cin)) == (2 if cin == 384 else 1)
+    groups = conv_q8.q8_channel_groups("k3_table", lv.key.shape[1], cin)
+    assert len(groups) == (2 if cin >= 384 else 1)
+    f = _feats(lv, cin, torch.bfloat16)
+    w = torch.randn((27, cin, cout), device=cuda) / 9
+    table = conv_q8.gather_gemm_k3_map_q8(f, w, idx, hit)
+    sk = conv_q8._tile_launch(conv_q8.SK_Q8_LIB, "mrcc_conv_sk_q8", f, w,
+                              (lv.key, lv.kbits), "k3", None, groups=groups)
+    assert torch.equal(table, sk)
     _check_q8(conv_q8.gather_gemm_k3_map_q8,
               conv_q8.gather_gemm_k3_map_q8_plain, conv_q8.K3MAP_Q8,
-              conv.gather_gemm_k3_map_plain, _feats(lv, cin, torch.bfloat16),
-              torch.randn((27, cin, cout), device=cuda) / 9, (idx, hit))
+              conv.gather_gemm_k3_map_plain, f, w, (idx, hit))
 
 
 @pytest.mark.parametrize("b,m,n", [(2, 256, 512), (3, 100, 1500)])
