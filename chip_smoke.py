@@ -43,11 +43,14 @@ last line):
    96 (two launches bit-equal; their list stage and child sum or zero pass
    timed alone; the f32 error of kernel and twin against an f64 result;
    the 3xTF32 and 4xTF32 bounds and ``torch.mm`` over the hits' gathered
-   per-octant operands), the rank kernel (exact) and the k3-table
-   convs at the production levels' shapes and at the widest f32 training
-   shape, the int8 one also at a two-group resident shape, the
-   nearest-neighbour kernel (d2 1e-5, indices equal but for near-ties: the
-   two smallest d2 within 1e-6 of |a|^2); then the backward of each
+   per-octant operands), the rank kernel (exact; with the share of its
+   windows, a block's per group and row set, that search global memory;
+   with the kernels' own device time beside the timed launches, as for
+   NN) and the k3-table convs at the production levels' shapes and at
+   the widest f32 training shape, the int8 one also at a two-group
+   resident shape, the nearest-neighbour kernel (indices and d2 bit-equal
+   to the twin, which rounds in the kernel's order); then the backward of
+   each
    autograd conv Function (the self-keyed and the table k3 convs, down,
    up, also down / up at the level 0 <-> 1 pair at 384 <-> 416) on the
    card against autograd through the plain twins on the card (f32, 1e-5);
@@ -116,7 +119,12 @@ K2 breakdown; ``--dw`` (``--k3``) builds them and times each dW launch
 kernel and shape (CUDA events), ``--inference`` runs only phase 6 and
 ``--q8`` only phase 3's int8 cases and phase 8, ``--int8`` only phases 6
 and 8, to compare two versions of the kernels in one call (copy this file
-into a checkout of the other version).  Phases 6-10 count K3's list stage and
+into a checkout of the other version).  ``--rank-nn`` times the rank and
+NN kernels at phase 3's shapes under several values of their wrappers'
+constants (rank: query rows a block and shared-window keys; NN: blocks in
+flight), in turns, each run compared with its twin; ``--icp`` builds phase
+9's bf16 engine and runs only its ``icp_refine(use_pallas=True)`` check
+and timing, three times.  Phases 6-10 count K3's list stage and
 child sum beside its down / up launches and report ``k3_device_ms`` (its
 list kernel, list GEMM, child sum and zero pass) beside
 ``dw_device_ms``; phases 8 and 9 count the int8 convs' quantisation, list
@@ -230,6 +238,15 @@ def ulps(got, want):
     mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -126)
     ulp = torch.exp2(torch.floor(torch.log2(mag)) - (bits - 1))
     return float(((g - w).abs() / ulp).max())
+
+
+def kernel_device_ms(fn, prefix, iters=20):
+    """Device time (ms) a call of ``fn`` of the kernels whose names start
+    with ``prefix`` (torch.profiler, ``iters`` calls after one warm-up):
+    the kernels' own time, apart from the host's time to launch them."""
+    fn()
+    times = profile_device_ms(lambda: [fn() for _ in range(iters)])
+    return sum(v for k, v in times.items() if k.startswith(prefix)) / iters
 
 
 def bound_ms(nbytes, ops, kind):
@@ -487,12 +504,17 @@ def phase_kernels(levels, tlevels, plevels, slevels, device):
         # keys, query bases and bitmaps read once, 27 int32 + bool written;
         # 9 searches of log2(N) compares and 27 compares a row
         steps = 9 * max(1, int(np.ceil(np.log2(n)))) + 27
+        wide = rank.rank_windows(lv.key, lv.key, K3_DELTAS)[2]
         records.append(dict(
             name=f"rank[{b}x{n} k3]", kernel="rank", path="production",
             route="cuda", source=SOURCES["rank"], replaces=RANK_TPU,
             max_abs_err=0.0, tolerance="exact", hits=int(want[1].sum()),
+            global_share=float(wide.float().mean()),
+            block_windows=int(wide.numel()),
             ms=cuda_ms(lambda: rank.rank_lookup(lv.key, lv.key, K3_DELTAS,
                                                 lv.kbits)),
+            device_ms=kernel_device_ms(lambda: rank.rank_lookup(
+                lv.key, lv.key, K3_DELTAS, lv.kbits), "rank_kernel"),
             plain_ms=cuda_ms(lambda: rank.rank_lookup_plain(
                 lv.key, lv.key, K3_DELTAS, lv.kbits)),
             library_ms=cuda_ms(lambda: torch.searchsorted(lv.key, q)),
@@ -522,27 +544,19 @@ def phase_kernels(levels, tlevels, plevels, slevels, device):
         mask = (torch.rand((b, n), generator=gen) > 0.2).to(device)
         idx, d2 = nn.nn_search(tmpl, tgt, mask)
         w_idx, w_d2 = nn.nn_search_plain(tmpl, tgt, mask)
-        # a near-tie: the two smallest d2 of a row within 1e-6 of |a|^2,
-        # the scale of the f32 rounding of |a|^2 - 2ab + |b|^2
-        sqs = (tmpl * tmpl).sum(-1)
-        full = torch.where(mask[:, None], sqs[..., None] - 2 * torch.bmm(
-            tmpl, tgt.transpose(1, 2)) + (tgt * tgt).sum(-1)[:, None],
-            float("inf"))
-        two = full.topk(2, dim=-1, largest=False).values
-        tie = (two[..., 1] - two[..., 0]) <= 1e-6 * sqs
-        differ = idx != w_idx
         err = float((d2 - w_d2).abs().max())
-        if err > 1e-5 or bool((differ & ~tie).any()):
+        if not (torch.equal(idx, w_idx) and torch.equal(d2, w_d2)):
             raise AssertionError(f"nn_search [{b}x{m}x{n}]: d2 off by {err}, "
-                                 f"{int((differ & ~tie).sum())} indices "
-                                 "differ away from near-ties")
+                                 f"{int((idx != w_idx).sum())} indices "
+                                 "differ from the twin")
         records.append(dict(
             name=f"nn_search[{b}x{m}x{n}]", kernel="nn_search",
             path="icp_pallas", route="cuda", source=SOURCES["nn_search"],
-            replaces=NN_TPU, max_abs_err=err,
-            tolerance={"d2": 1e-5, "idx": "equal but near-ties (1e-6 |a|^2)"},
-            near_ties=int(tie.sum()), idx_differ_at_ties=int(differ.sum()),
+            replaces=NN_TPU, max_abs_err=err, tolerance="exact",
+            splits=nn.nn_splits(b, m, n),
             ms=cuda_ms(lambda: nn.nn_search(tmpl, tgt, mask)),
+            device_ms=kernel_device_ms(lambda: nn.nn_search(tmpl, tgt, mask),
+                                       "nn_"),
             plain_ms=cuda_ms(lambda: nn.nn_search_plain(tmpl, tgt, mask)),
             library_ms=None,
             **dict(zip(("bound_ms", "bound_by"),
@@ -662,11 +676,13 @@ def phase_kernels(levels, tlevels, plevels, slevels, device):
 
 
 # what the kernel phase logs of each case
-CASE_KEYS = ("name", "path", "replaces", "ms", "quantise_ms", "lists_ms",
-             "plain_ms", "library_ms", "library_call", "bound_ms", "bound_by",
+CASE_KEYS = ("name", "path", "replaces", "ms", "device_ms", "quantise_ms",
+             "lists_ms", "plain_ms", "library_ms", "library_call", "bound_ms",
+             "bound_by",
              "bound_3xtf32_ms", "bound_4xtf32_ms", "gemm_ms", "gemm_call",
-             "stage_ms", "rel_err_f64", "work", "groups", "hits", "near_ties",
-             "idx_differ_at_ties", "max_abs_err", "rel_err", "tolerance")
+             "stage_ms", "rel_err_f64", "work", "groups", "hits",
+             "global_share", "block_windows", "splits", "max_abs_err",
+             "rel_err", "tolerance")
 
 
 def case_inputs(seed, device):
@@ -1426,8 +1442,6 @@ def phase_production(inputs, caps, counters, paths, iters=8):
     int8 after ``calibrate_q8``; returns the launches of one batch of each
     (``paths``: the two path names) and of ``icp_refine(use_pallas=True)``."""
     from mrcc_tpu_torch.app import InferenceEngine
-    from mrcc_tpu_torch.ops import nn
-    from mrcc_tpu_torch.solve import icp_refine
 
     pts, rgb, mask = inputs
     if caps[0] <= 40960:
@@ -1471,25 +1485,39 @@ def phase_production(inputs, caps, counters, paths, iters=8):
             k3_tables=engine.k3_tables, k3_routes=routes,
             launches=launches[path], level0_routes=ab, **extra, **report)
 
-    # icp_refine(use_pallas=True) on the last engine's EE crop
+    launches["icp_pallas"] = icp_pallas(engine, p, c, m, counters)
+    return launches
+
+
+def icp_pallas(engine, p, c, m, counters, iters=5):
+    """``icp_refine(use_pallas=True)`` on the engine's EE crop of the batch
+    (15 iterations, NN launched 15 times) against the default ICP: both
+    timed (CUDA events, ``iters`` calls), NN's own device time a call, the
+    poses compared.  Returns the launches of one call."""
+    from mrcc_tpu_torch.ops import nn
+    from mrcc_tpu_torch.solve import icp_refine
+
     seg = engine.seg_stage(p, c, m)
     ee_pose, _ = engine.pose_stage(*seg[2:5])
-    icp = {}
     for ctr in counters:
         ctr.launches = 0
     kern = icp_refine(engine.template, seg[2], seg[4], ee_pose,
                       iterations=15, use_pallas=True)
     torch.cuda.synchronize()
-    launches["icp_pallas"] = {ctr.name: ctr.launches for ctr in counters}
-    if launches["icp_pallas"][nn.NN.name] != 15:
+    launches = {ctr.name: ctr.launches for ctr in counters}
+    if launches[nn.NN.name] != 15:
         raise AssertionError(f"icp_refine(use_pallas=True) launched "
-                             f"{launches['icp_pallas']}")
+                             f"{launches}")
     plain_icp = icp_refine(engine.template, seg[2], seg[4], ee_pose,
                            iterations=15)
+    icp = {}
     for name, use in (("kernel", True), ("default", False)):
         icp[name + "_ms"] = cuda_ms(lambda: icp_refine(
             engine.template, seg[2], seg[4], ee_pose, iterations=15,
-            use_pallas=use), iters=5, warmup=1)
+            use_pallas=use), iters=iters, warmup=1)
+    icp["nn_device_ms"] = kernel_device_ms(lambda: icp_refine(
+        engine.template, seg[2], seg[4], ee_pose, iterations=15,
+        use_pallas=True), "nn_", iters=iters)
     poses = torch.cat([kern, plain_icp])
     qn = poses[:, 3:].norm(dim=-1)
     dq = torch.minimum((kern[:, 3:] - plain_icp[:, 3:]).abs().amax(-1),
@@ -1501,9 +1529,25 @@ def phase_production(inputs, caps, counters, paths, iters=8):
                ee_count=seg[1].tolist())
     if not (icp["finite"] and icp["unit"]):
         raise AssertionError(f"icp_refine(use_pallas=True): {icp}")
-    log("icp_pallas", iterations=15, template_points=1024,
-        launches=launches["icp_pallas"], **icp)
+    log("icp_pallas", iterations=15, template_points=1024, launches=launches,
+        **icp)
     return launches
+
+
+def phase_icp(rounds=3):
+    """``--icp``: phase 9's bf16 production engine and batch, then only
+    :func:`icp_pallas`, ``rounds`` times (to compare NN versions in one
+    call: copy this file into a checkout of the other version)."""
+    from mrcc_tpu_torch.app import InferenceEngine
+    from mrcc_tpu_torch.ops import nn
+
+    (pts, rgb, mask), caps, _ = bench_levels(torch.device("cuda"), batch=2,
+                                             points=PROD_POINTS)
+    engine = InferenceEngine(bench_config(pts, caps), seed=0)
+    p, c, m = (torch.as_tensor(x, device=engine.device)
+               for x in (pts, rgb, mask))
+    for _ in range(rounds):
+        icp_pallas(engine, p, c, m, [nn.NN], iters=10)
 
 
 def phase_main_path(inputs, caps, counters, iters=12):
@@ -2140,6 +2184,67 @@ def pose_k2_breakdown(step, batch, lr=1e-4):
             "k2_ms_by_level": per_level, "k2_by_conv": by}
 
 
+# (RANK_ROWS, RANK_WINDOW) and NN_BLOCKS values that --rank-nn times
+RANK_VARIANTS = ((256, 4096), (128, 2048), (256, 2048), (256, 8192),
+                 (512, 8192))
+NN_VARIANTS = (132, 264, 528, 1056)
+
+
+def phase_rank_nn(rounds=2):
+    """``--rank-nn``: the rank kernel at phase 3's production levels and NN
+    at the ICP's shapes, timed under each value of their wrappers'
+    constants in ``RANK_VARIANTS`` / ``NN_VARIANTS`` (the module constants
+    set for the run, then restored; a checkout whose wrappers have no such
+    constants is timed as it is), ``rounds`` times in turns, each run's
+    tables compared with the twin's."""
+    from mrcc_tpu_torch.ops import nn, rank
+    from mrcc_tpu_torch.sparse.hierarchy import K3_DELTAS
+
+    dev = torch.device("cuda")
+    plevels = bench_levels(dev, batch=2, points=PROD_POINTS, tables=True)[2]
+    gen = torch.Generator().manual_seed(7)
+    icp = []
+    for b, m, n in ((2, 1024, 8192), (8, 1024, 2048)):
+        icp.append(((torch.randn((b, m, 3), generator=gen) * 0.05 + 0.8).to(
+            dev), (torch.randn((b, n, 3), generator=gen) * 0.05 + 0.8).to(
+            dev), (torch.rand((b, n), generator=gen) > 0.2).to(dev)))
+    cases = []  # (record key, set the variant, call, twin, kernel prefix)
+    for variant in (RANK_VARIANTS if hasattr(rank, "RANK_ROWS") else [()]):
+        for lv in plevels[:2]:
+            args = (lv.key, lv.key, K3_DELTAS, lv.kbits)
+            cases.append(((f"rank[{'x'.join(map(str, lv.key.shape))}]",
+                           f"rows, window {variant}"),
+                          (rank, ("RANK_ROWS", "RANK_WINDOW"), variant),
+                          lambda a=args: rank.rank_lookup(*a),
+                          lambda a=args: rank.rank_lookup_plain(*a),
+                          "rank_kernel"))
+    for variant in (NN_VARIANTS if hasattr(nn, "NN_BLOCKS") else [None]):
+        for args in icp:
+            cases.append(((f"nn_search[{'x'.join(map(str, args[0].shape[:2]))}"
+                           f"x{args[1].shape[1]}]", f"blocks {variant}"),
+                          (nn, ("NN_BLOCKS",), () if variant is None
+                           else (variant,)),
+                          lambda a=args: nn.nn_search(*a),
+                          lambda a=args: nn.nn_search_plain(*a), "nn_"))
+    times = {}
+    for _ in range(rounds):
+        for key, (mod, names, values), call, twin, prefix in cases:
+            saved = [getattr(mod, k) for k in names[:len(values)]]
+            try:
+                for k, v in zip(names, values):
+                    setattr(mod, k, v)
+                rec = times.setdefault(key, {"equal": all(
+                    map(torch.equal, call(), twin())), "ms": [],
+                    "device_ms": []})
+                rec["ms"].append(cuda_ms(call))
+                rec["device_ms"].append(kernel_device_ms(call, prefix))
+            finally:
+                for k, v in zip(names, saved):
+                    setattr(mod, k, v)
+    for (name, variant), rec in times.items():
+        log("rank_nn", kernel=name, variant=variant, **rec)
+
+
 def phase_pose_k2(seed=50):
     """``--pose-k2``: only K2's breakdown in one RobotNet 18D pose step
     (phase 10 c's configuration), for comparing kernel versions."""
@@ -2294,6 +2399,8 @@ def main():
     from mrcc_tpu_torch.ops import conv, conv_q8, nn, rank, sort
 
     modes = {"--pose-k2": phase_pose_k2,
+             "--rank-nn": phase_rank_nn,
+             "--icp": phase_icp,
              "--dw": lambda: phase_step_breakdown(DW_WRAPPERS, "dw"),
              "--k3": lambda: phase_step_breakdown(K3_WRAPPERS, "k3"),
              "--q8": phase_q8_only,

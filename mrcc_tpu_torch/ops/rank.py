@@ -12,6 +12,9 @@ slices; the function is
 at any N and Nq.  Query validity travels as the per-row int32 bitmap of
 ``sparse.hierarchy.k3_bits`` (``rank_pallas._border_qvalid`` packed), so
 K <= 32.  A miss's ``idx`` is its query's clamped rank; nothing reads it.
+The card kernel searches each block of ``RANK_ROWS`` query rows inside the
+windows of keys its ranks can take (:func:`rank_windows`), staged side by
+side in shared memory while they fit in ``RANK_WINDOW`` keys.
 """
 
 from __future__ import annotations
@@ -24,10 +27,13 @@ import torch
 from .build import I, KernelLibrary, LaunchCounter, P, ptr, stream_ptr
 
 LIB = KernelLibrary("rank", {
-    "mrcc_rank_lookup": (P, P, P, P, P, P, I, I, I, I, P),
+    "mrcc_rank_lookup": (P, P, P, P, P, P, I, I, I, I, I, I, P),
 })
 RANK = LaunchCounter("rank")
 MAX_K = 32
+RANK_ROWS = 256     # query rows a block (T)
+RANK_WINDOW = 4096  # keys a block stages in shared memory (W)
+INT32_MIN, INT32_MAX = -(1 << 31), (1 << 31) - 1
 
 
 def rank_plan(deltas: Sequence[int]) -> Tuple[Tuple[int, ...], ...]:
@@ -38,6 +44,58 @@ def rank_plan(deltas: Sequence[int]) -> Tuple[Tuple[int, ...], ...]:
     ds = [int(deltas[k]) for k in order]
     chain = [0] + [int(ds[j] == ds[j - 1] + 1) for j in range(1, len(ds))]
     return tuple(order), tuple(ds), tuple(chain)
+
+
+def rank_groups(deltas: Sequence[int]):
+    """The chained groups of :func:`rank_plan`: ``(j0, j1)`` plan positions
+    of each run whose ranks follow from the first one's search."""
+    chain = rank_plan(deltas)[2]
+    starts = [j for j, c in enumerate(chain) if not c]
+    return tuple(zip(starts, starts[1:] + [len(chain)]))
+
+
+def rank_windows(keys, qbase, deltas):
+    """The card kernel's key windows.  A block of ``RANK_ROWS`` query rows
+    has two windows for each group of :func:`rank_groups`: set 0 for its
+    rows under the block's largest base, set 1 for the rows at it.  Each
+    holds the ranks ``[lo, hi]`` the set's searches stay in
+    (``lower_bound`` of the set's smallest base plus the group's first
+    delta, and of its largest base plus the last delta; the whole row where
+    a query can wrap around int32; ``lo = hi = N`` for an empty set 0).
+    ``wide``: the block searches global memory for the window.  A block
+    stages its windows side by side, in (group, set) order, while their sum
+    stays within ``RANK_WINDOW`` keys (a window over that is never staged).
+    Returns ``(lo, hi, wide)``, each ``[G, 2, B, ceil(Nq / RANK_ROWS)]``."""
+    rows = RANK_ROWS
+    b, n = keys.shape
+    nq = qbase.shape[1]
+    nb = -(-nq // rows)
+    pad = qbase[:, -1:].expand(b, nb * rows - nq)  # the kernel's dead rows
+    blocks = torch.cat([qbase, pad], 1).reshape(b, nb, rows).long()
+    qmin, qmax = blocks.amin(-1), blocks.amax(-1)
+    below = blocks < qmax[..., None]
+    top = torch.where(below, blocks, INT32_MIN).amax(-1)
+    ds = rank_plan(deltas)[1]
+    groups = rank_groups(deltas)
+    q_lo = torch.stack([torch.stack([qmin + ds[j0], qmax + ds[j0]])
+                        for j0, _ in groups])                 # [G, 2, B, nb]
+    q_hi = torch.stack([torch.stack([top + ds[j1 - 1], qmax + ds[j1 - 1]])
+                        for _, j1 in groups])
+    wraps = (q_lo < INT32_MIN) | (q_hi > INT32_MAX)
+    empty = torch.stack([~below.any(-1), torch.zeros_like(qmax, dtype=bool)])
+
+    def lower_bound(q):
+        q = q.clamp(INT32_MIN, INT32_MAX).to(torch.int32)
+        flat = q.permute(2, 0, 1, 3).reshape(b, -1).contiguous()
+        return torch.searchsorted(keys.contiguous(), flat).reshape(
+            b, len(groups), 2, nb).permute(1, 2, 0, 3)
+
+    lo = torch.where(wraps, 0, lower_bound(q_lo)).masked_fill(empty, n)
+    hi = torch.where(wraps, n, lower_bound(q_hi)).masked_fill(empty, n)
+    length = hi.clamp_max(n - 1) - lo + 1
+    fits = length <= RANK_WINDOW
+    end = torch.where(fits, length, 0).flatten(0, 1).cumsum(0).view_as(lo)
+    return lo, hi, ~(fits & (end <= RANK_WINDOW))
 
 
 @functools.lru_cache(maxsize=16)
@@ -104,6 +162,6 @@ def rank_lookup(keys, qbase, deltas, qbits):
     qbits = qbits.contiguous()
     LIB.call("mrcc_rank_lookup", ptr(keys), ptr(qbase), ptr(qbits),
              ptr(_device_plan(deltas, dev)), ptr(idx), ptr(hit), b, n, nq, k,
-             stream_ptr(keys))
+             RANK_ROWS, RANK_WINDOW, stream_ptr(keys))
     RANK.launches += 1
     return idx, hit

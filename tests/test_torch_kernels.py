@@ -759,28 +759,44 @@ def test_conv_q8_rejects(cuda, levels):
 # ------------------------------------------------------- k3 tables, ICP
 
 
-@pytest.mark.parametrize("n,nq", [(1, 5), (300, 300), (4096, 1000),
-                                  (72448, 72448)])
-def test_rank_exact(cuda, n, nq):
-    """Unique keys, repeated KEY_PAD padding and KEY_PAD query bases."""
+@pytest.mark.parametrize("n,nq,query", [
+    pytest.param(n, nq, "sorted", id=f"{n}-{nq}")
+    for n, nq in ((1, 5), (300, 300), (4096, 1000), (72448, 72448))] + [
+    (4096, 4096, "unsorted"), (40000, 2000, "sparse"),
+    (72448, 72448, "one-item")])
+def test_rank_exact(cuda, n, nq, query):
+    """Unique keys, repeated KEY_PAD padding and KEY_PAD query bases.
+    Sorted query bases take the shared windows (and the global branch
+    where padding windows hold over ``rank.RANK_WINDOW`` keys); unsorted
+    ones and sorted ones that jump across the keys take the global branch;
+    one item (B = 1)."""
     gen = torch.Generator().manual_seed(n)
     keys = torch.randperm(1 << 22, generator=gen)[:n].sort().values
     keys = keys.to(torch.int32)
     keys[int(0.8 * n):] = KEY_PAD
-    qbase = keys[torch.randint(0, n, (nq,), generator=gen)].sort().values
+    pick = torch.randint(0, n, (nq,), generator=gen)
+    if query == "sparse":
+        pick = torch.arange(nq) * (n // nq)
+    qbase = keys[pick] if query == "unsorted" else keys[pick].sort().values
     qbase = qbase + torch.randint(-1, 2, (nq,), generator=gen,
                                   dtype=torch.int32)
-    qbase[int(0.9 * nq):] = KEY_PAD
+    if query != "unsorted":
+        qbase[int(0.9 * nq):] = KEY_PAD
     qbits = torch.randint(-(1 << 31), 1 << 31, (2, nq), generator=gen,
                           dtype=torch.int64).to(torch.int32)
     args = (torch.stack([keys, keys.flip(0).sort().values]).to(cuda),
             torch.stack([qbase, qbase]).to(cuda), qbits.to(cuda))
+    if query == "one-item":
+        args = tuple(a[:1] for a in args)
     for deltas in (K3_DELTAS, (0, 1, 2, 3, 7, -5)):
         want = rank.rank_lookup_plain(args[0], args[1], deltas, args[2])
         before = rank.RANK.launches
         got = rank.rank_lookup(args[0], args[1], deltas, args[2])
         assert rank.RANK.launches == before + 1
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        wide = rank.rank_windows(args[0], args[1], deltas)[2]
+        if query in ("unsorted", "sparse"):
+            assert bool(wide.any())
 
 
 @pytest.mark.parametrize("cin,cout", [(3, 32), (48, 64), (130, 70)])
@@ -820,22 +836,37 @@ def test_conv_k3_map_q8(cuda, levels, cin, cout):
               conv.gather_gemm_k3_map_plain, f, w, (idx, hit))
 
 
-@pytest.mark.parametrize("b,m,n", [(2, 256, 512), (3, 100, 1500)])
+@pytest.mark.parametrize("b,m,n", [(2, 256, 512), (3, 100, 1500),
+                                   (2, 1024, 8192), (8, 1024, 2048),
+                                   (1, 700, 1111), (2, 5, 1), (1, 513, 33)])
 def test_nn_search(cuda, b, m, n):
-    gen = torch.Generator().manual_seed(m)
-    tmpl = (torch.randn((b, m, 3), generator=gen) * 0.1 + 1).to(cuda)
-    tgt = (torch.randn((b, n, 3), generator=gen) * 0.1 + 1).to(cuda)
-    mask = (torch.rand((b, n), generator=gen) > 0.3).to(cuda)
+    """Bit-equal to the twin, and to itself on a second call.  Item 0
+    holds copies of a target on both sides of the first split edge with
+    template points on them (the lower index wins); item 1 (where B > 1)
+    has no valid target (idx 0, d2 = |a|^2 + 1e30 rounded)."""
+    gen = torch.Generator().manual_seed(m + n)
+    tmpl = torch.randn((b, m, 3), generator=gen) * 0.1 + 1
+    tgt = torch.randn((b, n, 3), generator=gen) * 0.1 + 1
+    mask = torch.rand((b, n), generator=gen) > 0.3
+    mask[:, 0] = True
+    length = nn.nn_splits(b, m, n)[1]
+    if length < n:
+        mask[0, length - 1:length + 1] = True
+        tgt[0, length] = tgt[0, length - 1]
+        tmpl[0, :3] = tgt[0, length - 1]
+    if b > 1:
+        mask[1] = False
+    tmpl, tgt, mask = tmpl.to(cuda), tgt.to(cuda), mask.to(cuda)
     before = nn.NN.launches
     idx, d2 = nn.nn_search(tmpl, tgt, mask)
     assert nn.NN.launches == before + 1
     w_idx, w_d2 = nn.nn_search_plain(tmpl, tgt, mask)
-    assert float((d2 - w_d2).abs().max()) <= 1e-5
-    sqs = (tmpl * tmpl).sum(-1)
-    full = sqs[..., None] - 2 * torch.bmm(tmpl, tgt.transpose(1, 2)) + (
-        tgt * tgt).sum(-1)[:, None]
-    two = torch.where(mask[:, None], full, float("inf")).topk(
-        2, dim=-1, largest=False).values
-    tie = (two[..., 1] - two[..., 0]) <= 1e-6 * sqs
-    assert not bool(((idx != w_idx) & ~tie).any())
-    assert bool(mask.gather(1, idx.long()).all())
+    assert torch.equal(idx, w_idx) and torch.equal(d2, w_d2)
+    some = mask.any(1)
+    assert bool(mask.gather(1, idx.long())[some].all())
+    if length < n:
+        assert bool((idx[0, :3] == length - 1).all())
+    if b > 1:
+        assert not bool(idx[1].any()) and bool((d2[1] >= 1e30).all())
+    again = nn.nn_search(tmpl, tgt, mask)
+    assert torch.equal(again[0], idx) and torch.equal(again[1], d2)
