@@ -13,7 +13,9 @@ points, whose large levels take the k3-table route: rank-kernel tables and
 the k3-table convs), ``icp_refine(use_pallas=True)`` (the
 nearest-neighbour kernel), scene-scale segmentation training (its large
 levels on tables: the table conv's autograd Function and the k3-table dW
-kernel) and pose training (``make_pose_train_step``).  Phases, each
+kernel), pose training (``make_pose_train_step``) and the user's path to
+the extrinsic (an engine from checkpoint paths, ``predict`` frame by frame,
+``calibrate``).  Phases, each
 printing one line and its wall time (any failure exits non-zero before the
 last line):
 
@@ -111,9 +113,32 @@ last line):
     crops at capacity 4096: RobotNet 18D with cos2 (``train_pose``'s
     default), then RobotNetEncode 18D with the pose criterion (the
     rotation-only override); RobotNet's K2 time by level and conv (CUDA
-    events around each launch of one step).
+    events around each launch of one step);
+11. the user's path, run after phase 6 (``calibrate``): the bench
+    configuration with the 6D rotation head, the confidence heads, flip
+    disambiguation and the 2nd percentile translation, capacities from the
+    occupancy probe of its frames.  (1) The engine's three stages written
+    as reference ``.pth`` files and as the port trainer's ``.ckpt``; an
+    engine of another seed built from each set of paths alone gives
+    ``torch.equal`` outputs on phase 6's batch.  (2) 12 frames of the
+    port's ``SyntheticDataEngine`` (3 positions x 4 frames, 24096 points
+    a frame, subsampled to the capacity) through ``predict`` after one
+    warm-up frame, with every launch count set to 0 before and read after
+    (K1, K2 and K3 launched, no plain twin called), then ``calibrate`` ->
+    ``predict_ms`` (median, quartiles), ``calibrate_ms``, confident frames
+    and ``pose_camera_link`` (none is an acceptable answer for random
+    weights).  (3) ``calibrate`` on hand-built confident results around
+    the true extrinsic, averaged on the card: within 1 cm and 0.01 in the
+    quaternion.  (4) ``predict`` card vs CPU on three frames with the
+    same weights at phase 4's small size: f32 labels exact, ``ee_pose`` /
+    ``key_points_pose`` / ``base_pose`` within 1e-3 with ICP off (ICP from
+    random nets' poses is chaotic, ROADMAP C5: reported after ICP),
+    keypoint classes and ``is_confident`` equal; bf16 seg labels >= 98.5 %
+    equal (random weights: bf16 alone moves ~1 % of the labels,
+    ``SEG_AGREE_BF16``).
 
-``python3 chip_smoke.py --pose-k2`` builds the kernels and runs only that
+``python3 chip_smoke.py --calibrate`` builds the kernels and runs only
+phase 11.  ``--pose-k2`` builds them and runs only that
 K2 breakdown; ``--dw`` (``--k3``) builds them and times each dW launch
 (each K3 down / up launch) of one phase-7 step and one phase-10 b step by
 kernel and shape (CUDA events), ``--inference`` runs only phase 6 and
@@ -155,6 +180,11 @@ PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12, "tf32": 495e12}
 TOL_BF16, TOL_F32 = 2e-2, 1e-5
 TOL_Q8 = 3e-2      # int8 conv vs the unquantised f32 conv (bench.py's bound)
 SEG_AGREE = 0.995  # int8 card vs CPU: share of equal seg labels
+# bf16 card vs CPU through predict (phase 11): the two sum in other orders,
+# and with random weights bf16 alone moves ~1 % of the labels (phase 11's
+# three frames on an H100: the CPU's bf16 vs its f32 98.84-98.90 %, card
+# vs CPU bf16 98.86-99.28 %)
+SEG_AGREE_BF16 = 0.985
 TRAIN_CAPACITY = 16384  # voxel capacity of the full-width train step
 SCENE_POINTS = 98304    # scene-scale training: points per cloud
 SCENE_CAPACITY = 65536  # and its voxel capacity
@@ -1578,6 +1608,243 @@ def phase_main_path(inputs, caps, counters, iters=12):
     return launches, out["segmentation"]
 
 
+CALIBRATE_HEADS = dict(rot_6d=True, compute_confidence=True,
+                       rot_flip_disambiguation=True,
+                       translation_z_percentile=2.0)
+
+
+def _stream_frames(n, point_capacity, seed=300):
+    """``n`` frames of the port's ``SyntheticDataEngine`` (3 positions, 4
+    frames each; 24096 points a frame), and their subsampled padded batch
+    for the occupancy probe (``InferenceEngine._pad``'s rule)."""
+    from mrcc_tpu_torch.app import (InferenceConfig, InferenceEngine,
+                                    SyntheticDataEngine)
+
+    source = SyntheticDataEngine(n_positions=3, frames_per_position=4,
+                                 seed=seed)
+    frames = [source.get() for _ in range(n)]
+    pad = InferenceEngine(InferenceConfig(point_capacity=point_capacity),
+                          calibration_only=True)._pad
+    padded = [pad(f.points, f.rgb)[:3] for f in frames]
+    return frames, tuple(np.concatenate(a) for a in zip(*padded))
+
+
+def _save_stages(engine, root):
+    """``engine``'s stages as reference ``.pth`` files
+    (``{"model_state_dict": ...}``) and as the port trainer's ``.ckpt``."""
+    from mrcc_tpu_torch.train import checkpoint_save
+
+    fields = ("seg_checkpoint", "rot_checkpoint", "kp_checkpoint")
+    pth, ckpt = {}, {}
+    for field, (stage, model) in zip(fields, engine.models().items()):
+        path = f"{root}/{stage}.pth"
+        torch.save({"model_state_dict": model.state_dict()}, path)
+        pth[field] = path
+        ckpt[field] = checkpoint_save(model, torch.optim.AdamW(
+            model.parameters()), root, stage, 1)
+    return pth, ckpt
+
+
+def _known_extrinsic(engine, seed=0):
+    """``calibrate`` on 3 positions x 4 confident results around the true
+    extrinsic (position noise 3 mm, quaternion 0.002): the averages run on
+    the engine's card.  Returns the position and quaternion errors."""
+    from mrcc_tpu_torch.app import ResultDTO
+    from mrcc_tpu_torch.data.synthetic import gt_base2cam_pose
+
+    rng = np.random.default_rng(seed)
+    want = gt_base2cam_pose().astype(np.float32)
+    want_q = want[3:] / np.linalg.norm(want[3:])
+    data = {}
+    for pos in ("p1", "p2", "p3"):
+        rows = []
+        for _ in range(4):
+            r = ResultDTO(segmentation=None, is_confident=True)
+            r.ee_pose = np.zeros(7, np.float32)
+            noise = np.concatenate([rng.normal(size=3) * 0.003,
+                                    rng.normal(size=4) * 0.002])
+            r.base_pose = np.concatenate([want[:3], want_q]) + noise
+            r.key_points_base_pose = r.base_pose.copy()
+            rows.append(r)
+        data[pos] = rows
+    got = engine.calibrate(data).pose_camera_link
+    if got is None:
+        raise AssertionError("known extrinsic: no pose_camera_link")
+    q_err = min(np.linalg.norm(got[3:] - want_q),
+                np.linalg.norm(got[3:] + want_q))
+    return float(np.abs(got[:3] - want[:3]).max()), float(q_err)
+
+
+def _engines_same_weights(cfg, seed=3):
+    """``{(dtype, device): engine}`` for bf16 and f32 on the card and the
+    CPU; one seed gives every engine the same weights (drawn on the CPU).
+    Seed 3's nets find the EE in phase 11's frames, so the f32 pair
+    compares poses and keypoints."""
+    from mrcc_tpu_torch.app import InferenceEngine
+
+    return {(dtype, device): InferenceEngine(
+        dataclasses.replace(cfg, compute_dtype=dtype), device=device,
+        seed=seed) for dtype in ("bfloat16", "float32")
+        for device in ("cpu", "cuda")}
+
+
+def _pose_err(a, b):
+    """Largest position and quaternion (up to sign) difference; None where
+    both are None, inf where one is."""
+    if a is None or b is None:
+        return None if a is None and b is None else float("inf")
+    q = min(np.abs(a[3:] - b[3:]).max(), np.abs(a[3:] + b[3:]).max())
+    return float(max(np.abs(a[:3] - b[:3]).max(), q))
+
+
+def _predict_card_vs_cpu(frames):
+    """Check 4: phase 4's small configuration with the four options on,
+    ``frames`` over the point capacity through ``predict``, card vs CPU
+    with the same weights: bf16 seg labels >= SEG_AGREE_BF16 equal (the
+    CPU's own bf16 vs f32 agreement reported beside); f32 labels exact,
+    ee_pose / key_points_pose / base_pose within 1e-3 with ICP off,
+    keypoint classes and is_confident equal.  ICP from the poses of random
+    nets is chaotic (ROADMAP C5): the f32 poses after ICP are reported,
+    not held (phases 4 and 9 hold ICP)."""
+    _, cfg = _small_bf16_config(
+        ee_point_counts_threshold=64, sanity_min_num_of_ee_points=256,
+        **CALIBRATE_HEADS)
+    engines = _engines_same_weights(cfg)
+    pose_keys = ("ee_pose", "key_points_pose", "base_pose")
+    report, failed = [], False
+    for frame in frames:
+        out = {k: e.predict(frame) for k, e in engines.items()}
+        bf16 = out["bfloat16", "cuda"], out["bfloat16", "cpu"]
+        f32 = out["float32", "cuda"], out["float32", "cpu"]
+        with_icp = {k: _pose_err(getattr(f32[0], k), getattr(f32[1], k))
+                    for k in pose_keys}
+        for k in ("cuda", "cpu"):
+            engines["float32", k].cfg.icp_enabled = False
+        got, want = (engines["float32", k].predict(frame)
+                     for k in ("cuda", "cpu"))
+        for k in ("cuda", "cpu"):
+            engines["float32", k].cfg.icp_enabled = True
+        errs = {k: _pose_err(getattr(got, k), getattr(want, k))
+                for k in pose_keys}
+        row = {
+            "bf16_seg_agree": float((bf16[0].segmentation
+                                     == bf16[1].segmentation).mean()),
+            "cpu_bf16_f32_seg_agree": float((bf16[1].segmentation
+                                             == f32[1].segmentation).mean()),
+            "f32_seg_equal": all(np.array_equal(a.segmentation,
+                                                b.segmentation)
+                                 for a, b in (f32, (got, want))),
+            "f32_pose_err": errs, "f32_pose_err_after_icp": with_icp,
+            "f32_kp_classes": [[k for k, _ in r.key_points]
+                               for r in (got, want)],
+            "f32_is_confident": [got.is_confident, want.is_confident],
+            "f32_ee_points": int((want.segmentation == 2).sum())}
+        failed |= (row["bf16_seg_agree"] < SEG_AGREE_BF16
+                   or not row["f32_seg_equal"]
+                   or any(e is not None and e > 1e-3
+                          for e in errs.values())
+                   or row["f32_kp_classes"][0] != row["f32_kp_classes"][1]
+                   or got.is_confident != want.is_confident)
+        report.append(row)
+    report = {"frames": report, "tolerance": {
+        "bf16_seg_agree": SEG_AGREE_BF16, "f32_pose": 1e-3}}
+    if failed:
+        raise AssertionError(f"predict card vs CPU: {report}")
+    return report
+
+
+def phase_calibrate(inputs, counters, frames=12):
+    """The user's path at full width (the bench configuration with the 6D
+    head, confidences, flip disambiguation and the 2nd percentile
+    translation): checkpoints written and read back; a stream of
+    ``frames`` synthetic frames over the point capacity through
+    ``predict`` (after one warm-up frame) and ``calibrate``; ``calibrate``
+    on a known extrinsic; ``predict`` card vs CPU.  Returns the stream's
+    launches per kernel."""
+    import tempfile
+
+    from mrcc_tpu_torch.app import InferenceEngine, measure_seg_caps
+    from mrcc_tpu_torch.ops.build import BUILD_DIR
+
+    pts = inputs[0]
+    stream, batch = _stream_frames(frames + 1, pts.shape[1])
+    caps = measure_seg_caps(*batch, device="cuda")
+    cfg = bench_config(pts, caps, **CALIBRATE_HEADS)
+    engine = InferenceEngine(cfg, seed=0)
+
+    # 1. checkpoints: a seed-1 engine from the paths alone equals engine
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as root:
+        pth, ckpt = _save_stages(engine, root)
+        want = engine.predict_batch_arrays(*inputs)
+        round_trip = {}
+        for name, paths in (("pth", pth), ("ckpt", ckpt)):
+            other = InferenceEngine(dataclasses.replace(cfg, **paths),
+                                    seed=1)
+            got = other.predict_batch_arrays(*inputs)
+            round_trip[name] = all(torch.equal(got[k], want[k])
+                                   for k in want)
+            del other
+    if not all(round_trip.values()):
+        raise AssertionError(f"checkpoint round trip: {round_trip}")
+
+    # 2. the stream: predict each frame, then calibrate by position
+    engine.predict(stream[0])  # warm-up
+    torch.cuda.synchronize()
+    for ctr in counters:
+        ctr.launches = 0
+    rows, frame_s = [], []
+    with plain_calls() as plain:
+        for frame in stream[1:]:
+            t0 = time.perf_counter()
+            rows.append(engine.predict(frame))
+            frame_s.append(time.perf_counter() - t0)
+    launches = {ctr.name: ctr.launches for ctr in counters}
+    results = {}
+    for frame, r in zip(stream[1:], rows):
+        results.setdefault(frame.id, []).append(r)
+    t0 = time.perf_counter()
+    calibration = engine.calibrate(results)
+    calibrate_ms = 1e3 * (time.perf_counter() - t0)
+    if (min(launches[c] for c in ("argsort", "conv_sk", "conv_down",
+                                  "conv_up")) <= 0 or plain
+            or any(len(r.segmentation) != len(f.points)
+                   for r, f in zip(rows, stream[1:]))):
+        raise AssertionError(f"predict: launches {launches}, plain twins "
+                             f"{plain}")
+    q1, med, q3 = np.percentile(frame_s, [25, 50, 75])
+
+    # 3. a known extrinsic, averaged on the card
+    pos_err, q_err = _known_extrinsic(engine)
+    if pos_err > 0.01 or q_err > 0.01:
+        raise AssertionError(f"known extrinsic: position {pos_err}, "
+                             f"quaternion {q_err}")
+    del engine
+    torch.cuda.empty_cache()
+
+    # 4. predict, card vs CPU
+    card_vs_cpu = _predict_card_vs_cpu(stream[:3])
+    log("calibrate", frames=frames, points_per_frame=len(stream[0].points),
+        point_capacity=int(pts.shape[1]), seg_caps=list(caps),
+        heads=CALIBRATE_HEADS, checkpoint_round_trip_equal=round_trip,
+        predict_ms_median=1e3 * med, predict_ms_q1_q3=[1e3 * q1, 1e3 * q3],
+        predict_ms_all=[1e3 * s for s in frame_s], card=smi_line(),
+        calibrate_ms=calibrate_ms,
+        confident_frames=sum(r.is_confident for r in rows),
+        ee_points=[int((r.segmentation == 2).sum()) for r in rows],
+        pose_camera_link=(None if calibration.pose_camera_link is None
+                          else calibration.pose_camera_link.tolist()),
+        pose_camera_link_note=("none: random weights confirm no frame, an "
+                               "acceptable answer" if
+                               calibration.pose_camera_link is None
+                               else "from the confident frames"),
+        known_extrinsic_err={"position_m": pos_err, "quaternion": q_err,
+                             "tolerance": 0.01},
+        predict_card_vs_cpu=card_vs_cpu, launches=launches,
+        plain_twin_calls=plain)
+    return launches
+
+
 def phase_int8_main_path(inputs, caps, counters, bf16_seg, iters=12):
     """The bench configuration at full width in int8: calibrate on the
     batch, then drive it; returns per-kernel launches of one batch."""
@@ -2407,6 +2674,9 @@ def main():
              "--int8": phase_int8_paths,
              "--inference": lambda: phase_main_path(
                  *bench_levels(torch.device("cuda"))[:2],
+                 [sort.SORT, conv.SK, conv.DOWN, conv.UP]),
+             "--calibrate": lambda: phase_calibrate(
+                 bench_levels(torch.device("cuda"))[0],
                  [sort.SORT, conv.SK, conv.DOWN, conv.UP])}
     if len(sys.argv) == 2 and sys.argv[1] in modes:
         phase_build()
@@ -2443,6 +2713,9 @@ def main():
     launches, bf16_seg = phase("main_path", phase_main_path, inputs, caps,
                                counters)
     launches = {"inference": launches, "frame": frame}
+    torch.cuda.empty_cache()
+    launches["predict"] = phase("calibrate", phase_calibrate, inputs,
+                                counters)
     torch.cuda.empty_cache()
     train_counters = counters + [conv.DW_SK, conv.DW_DOWN, conv.DW_UP,
                                  conv.DW_LISTS]

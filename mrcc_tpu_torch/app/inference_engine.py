@@ -1,13 +1,20 @@
-"""InferenceEngine, batched main path (port of
-``mrcc_tpu/app/inference_engine.py``: ``InferenceConfig``,
-``_seg_stage``, ``_pose_stage``, the sparse ``_kp_stage``, ``_icp_stage``
-and ``predict_batch_arrays``).
+"""InferenceEngine (port of ``mrcc_tpu/app/inference_engine.py``): the
+batched stages and ``predict_batch_arrays``, and the host entry points
+``predict(PointCloudDTO)``, ``check_sanity`` and ``calibrate``.
 
 Stages run eagerly in the JAX engine's order: colour normalisation ->
 voxelize -> hierarchy -> RobotNetSegmentation -> slice to points ->
 largest cluster -> EE crop -> RobotNetEncode rotation + magic translation
--> sparse keypoint net + Kabsch -> 2x ICP.  Every key sort and sparse conv
-on a CUDA device runs the hand-written kernels (``ops/``).
+-> sparse keypoint net + Kabsch -> optional flip disambiguation -> 2x ICP.
+Every key sort and sparse conv on a CUDA device runs the hand-written
+kernels (``ops/``).  ``predict`` pads one cloud into the batch of one,
+scatters the labels back to every input point and gates the frame with
+``check_sanity``; ``calibrate`` averages the confident frames' poses per
+position and across positions into the camera-to-base extrinsic.
+
+Trained weights load per stage from ``seg_checkpoint`` / ``rot_checkpoint``
+/ ``kp_checkpoint``: a reference ``.pth`` state dict, a JAX package
+checkpoint (msgpack ``TrainState``) or the port trainer's ``.ckpt``.
 
 The engine runs on the card: ``device=None`` means ``"cuda"`` and raises
 when no card is present.  Pass ``device="cpu"`` explicitly for the plain
@@ -32,18 +39,26 @@ from __future__ import annotations
 import dataclasses
 import typing
 
+import numpy as np
 import torch
 
+from ..data.labels import get_6_key_points
 from ..device import resolve_device
+from ..geometry import calibration as calib_util
+from ..geometry.metrics import compute_kp_error
 from ..geometry.preprocess import center_at_origin, normalize_colors
-from ..interop import load_jax_variables
+from ..geometry.transform import (base2cam_pose, rot6d_to_quat,
+                                  transform_pose2pose)
+from ..interop import import_pth_variables, load_jax_variables
 from ..models import RobotNetEncode, RobotNetSegmentation
-from ..solve import (default_template, icp_refine, key_point_predictions,
-                     largest_cluster_mask, pose_from_key_points,
-                     predict_translation)
+from ..solve import (default_template, disambiguate_flip, icp_refine,
+                     key_point_predictions, largest_cluster_mask,
+                     pose_from_key_points, predict_translation)
 from ..sparse import (build_hierarchy, hierarchy_caps, slice_to_points,
                       uses_k3_tables, voxelize)
 from ..sparse.nn import init_parameters, q8_calibration, set_q8
+from ..train.checkpoint import checkpoint_format, load_stage_variables
+from .dto import CalibrationResultDTO, PointCloudDTO, ResultDTO, TestResultDTO
 
 # The JAX engine's conv_impl values: every one but "pallas-int8" means the
 # port's one route (the hand-written kernels on the card).
@@ -52,8 +67,8 @@ CONV_IMPLS = ("auto", "pallas", "xla", "pallas-int8")
 
 @dataclasses.dataclass
 class InferenceConfig:
-    """The JAX engine's configuration, restricted to what this port runs;
-    the options of later slices raise ``NotImplementedError`` when set."""
+    """The JAX engine's configuration without the dense keypoint path's
+    fields; ``kp_backbone="pointnet2"`` raises ``NotImplementedError``."""
 
     point_capacity: int = 32768
     seg_voxel_capacity: int = 16384
@@ -70,18 +85,37 @@ class InferenceConfig:
     num_classes: int = 3
 
     rot_backbone: str = "minkunet"
+    # the YAML's encode_only; the rotation net is RobotNetEncode either way,
+    # as in the JAX engine
+    rot_encode_only: bool = True
     rot_scale: float = 200.0
     rot_center_at_origin: bool = True
+    # confidence heads: the rotation net emits pose + sigmoid(conf_pos,
+    # conf_rot, conf); the combined one gates is_confident with the
+    # geometric sanity check
     compute_confidence: bool = False
+    confidence_threshold: float = 0.5
 
     kp_backbone: str = "minkunet18"
     kp_scale: float = 800.0
     kp_center_at_origin: bool = True
     kp_conf_threshold: float = 0.75
     num_of_keypoints: int = 6
+    kp_error_margin: float = 0.05
 
+    # trained weights per stage: a reference .pth, a JAX package checkpoint
+    # or the port trainer's .ckpt
+    seg_checkpoint: typing.Optional[str] = None
+    rot_checkpoint: typing.Optional[str] = None
+    kp_checkpoint: typing.Optional[str] = None
+
+    # the continuous 6D rotation head: [pos(3), 6d(6), conf?]
     rot_6d: bool = False
+    # flip the rotation's 180-degree branch about rot_symmetry_axis where
+    # the keypoint pose says so (solve/symmetry.py)
     rot_flip_disambiguation: bool = False
+    rot_symmetry_axis: str = "z"
+    # the p-th percentile of the rotated-frame z in place of the min
     translation_z_percentile: typing.Optional[float] = None
     # self-keyed k3 convs where the JAX engine self-keys; False: neighbour
     # tables (rank kernel + k3-table conv) on every level
@@ -91,22 +125,20 @@ class InferenceConfig:
     # (None: bf16 under int8, the JAX engine's demotion)
     conv_impl: str = "auto"
     rot_conv_impl: typing.Optional[str] = None
+    ee_point_counts_threshold: int = 512
     icp_enabled: bool = True
     icp_iterations: int = 30
     icp_template_points: int = 2048
     cluster_dist: float = 0.06
     cluster_capacity: typing.Optional[int] = None
+    sanity_min_num_of_ee_points: int = 2048
+    camera_link_transformation_pose: typing.Optional[np.ndarray] = None
+    calibration_confident_count: int = 2
 
     def __post_init__(self):
-        later = {"compute_confidence": self.compute_confidence,
-                 "rot_6d": self.rot_6d,
-                 "rot_flip_disambiguation": self.rot_flip_disambiguation,
-                 "translation_z_percentile":
-                     self.translation_z_percentile is not None,
-                 "kp_backbone=pointnet2": self.kp_backbone == "pointnet2"}
-        on = [k for k, v in later.items() if v]
-        if on:
-            raise NotImplementedError(f"not ported yet: {', '.join(on)}")
+        if self.kp_backbone == "pointnet2":
+            raise NotImplementedError(
+                "not ported yet: kp_backbone=pointnet2")
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise NotImplementedError(
                 f"compute_dtype {self.compute_dtype!r}: float32 or bfloat16")
@@ -168,26 +200,57 @@ def _take(x, order):
     return x.gather(1, idx.expand(order.shape + x.shape[2:]))
 
 
-class InferenceEngine:
-    """Batched EE pose / keypoint inference on padded point clouds."""
+def _load_stage(model, path):
+    """Trained weights into one stage's module, strictly: a reference
+    ``.pth`` state dict by name, else by the file's first bytes a JAX
+    package checkpoint (msgpack) or the port trainer's ``.ckpt``."""
+    if path.endswith(".pth"):
+        import_pth_variables(model, path)
+    elif checkpoint_format(path) == "msgpack":
+        load_jax_variables(model, load_stage_variables(path))
+    else:
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        model.load_state_dict(state["model"], strict=True)
 
-    def __init__(self, config: InferenceConfig = None, device=None, seed=0):
+
+class InferenceEngine:
+    """EE pose, keypoints and the camera extrinsic from point clouds:
+    ``predict(PointCloudDTO) -> ResultDTO``, ``calibrate({position:
+    [ResultDTO]}) -> CalibrationResultDTO`` and the batched
+    ``predict_batch_arrays``."""
+
+    def __init__(self, config: InferenceConfig = None, device=None, seed=0,
+                 calibration_only: bool = False):
+        """``calibration_only``: no networks; ``predict`` returns empty
+        results and ``calibrate`` averages given ones."""
         self.cfg = config or InferenceConfig()
         cfg = self.cfg
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.compute_dtype)
         self.template = torch.as_tensor(
             default_template(cfg.icp_template_points), device=self.device)
+        self.pred_enabled = not calibration_only
+        if calibration_only:
+            return
         self.seg_model = RobotNetSegmentation(
             backbone=cfg.seg_backbone, in_channels=3,
             num_classes=cfg.num_classes)
-        self.rot_model = RobotNetEncode(backbone=cfg.rot_backbone,
-                                        in_channels=3, out_channels=7)
+        self.rot_model = RobotNetEncode(
+            backbone=cfg.rot_backbone, in_channels=3,
+            out_channels=((9 if cfg.rot_6d else 7)
+                          + (3 if cfg.compute_confidence else 0)),
+            rot_dims=6 if cfg.rot_6d else 4)
         self.kp_model = RobotNetSegmentation(
             backbone=cfg.kp_backbone, in_channels=3,
             num_classes=cfg.num_of_keypoints)
         for i, model in enumerate(self.models().values()):
             init_parameters(model, seed * 3 + i)
+        for model, path in zip(self.models().values(),
+                               (cfg.seg_checkpoint, cfg.rot_checkpoint,
+                                cfg.kp_checkpoint)):
+            if path:
+                _load_stage(model, path)
+        for model in self.models().values():
             model.to(self.device).eval()
         on = q8_stages(cfg)
         for stage, model in zip(("seg", "rot", "kp"), self.models().values()):
@@ -272,7 +335,9 @@ class InferenceEngine:
 
     @torch.no_grad()
     def pose_stage(self, ee_pts, ee_rgb, ee_valid):
-        """Rotation net + magic translation -> ``(pose [B, 7], conf [B, 3])``."""
+        """Rotation net + magic translation -> ``(pose [B, 7], conf [B, 3])``:
+        the quaternion head or, with ``rot_6d``, the 6D head converted; the
+        sigmoided confidences where the head has them, else ones."""
         cfg = self.cfg
         rot_pts = (center_at_origin(ee_pts, mask=ee_valid)[0]
                    if cfg.rot_center_at_origin else ee_pts)
@@ -280,10 +345,17 @@ class InferenceEngine:
                            cfg.ee_voxel_capacity)
         levels = self._hierarchy(rvox, "rot")
         rot_out = self.rot_model(rvox.feats.to(self.dtype), levels).float()
-        q = rot_out[:, 3:7]
-        pos, _ = predict_translation(ee_pts, ee_valid, q)
-        conf = torch.ones((rot_out.shape[0], 3), dtype=torch.float32,
-                          device=self.device)
+        if cfg.rot_6d:
+            q, conf_off = rot6d_to_quat(rot_out[:, 3:9]), 9
+        else:
+            q, conf_off = rot_out[:, 3:7], 7
+        pos, _ = predict_translation(
+            ee_pts, ee_valid, q, z_percentile=cfg.translation_z_percentile)
+        if rot_out.shape[-1] > conf_off:
+            conf = rot_out[:, conf_off:conf_off + 3]
+        else:
+            conf = torch.ones((rot_out.shape[0], 3), dtype=torch.float32,
+                              device=self.device)
         return torch.cat([pos, q], dim=-1), conf
 
     @torch.no_grad()
@@ -303,6 +375,28 @@ class InferenceEngine:
         kp_coords = _take(ee_pts, kp_idx)
         kp_pose, kp_ok = pose_from_key_points(kp_coords, kp_found)
         return kp_pose, kp_ok, kp_coords, kp_found, kp_conf
+
+    @torch.no_grad()
+    def flip_stage(self, ee_pose, kp_coords, kp_found, kp_conf, ee_pts,
+                   ee_valid):
+        """Gripper-symmetry disambiguation of ``ee_pose`` [B, 7] as the JAX
+        engine's fused program (``_full_pipeline``) runs it: the keypoint
+        pose is a Kabsch fit over the found classes and the three most
+        confident ones, trusted where at least three classes take part.
+
+        That last condition always holds, since the top three classes are
+        always in (ROADMAP C2); it is kept as written.  The JAX engine's
+        CPU-staged branch feeds the strict ``kp_pose, kp_ok`` instead (C1);
+        this port follows the fused program."""
+        top3 = kp_conf >= torch.sort(kp_conf, dim=-1).values[:, -3:-2]
+        flip_found = kp_found | top3
+        flip_pose, _ = pose_from_key_points(kp_coords, flip_found)
+        flip_ok = flip_found.sum(dim=-1) >= 3
+        fixed, _ = disambiguate_flip(
+            ee_pose, flip_pose, flip_ok, ee_pts, ee_valid,
+            axis=self.cfg.rot_symmetry_axis,
+            z_percentile=self.cfg.translation_z_percentile)
+        return fixed
 
     @torch.no_grad()
     def icp_stage(self, ee_pts, ee_valid, ee_pose, kp_pose):
@@ -328,6 +422,9 @@ class InferenceEngine:
         ee_pose, rot_conf = self.pose_stage(ee_pts, ee_rgb, ee_valid)
         kp_pose, kp_ok, kp_coords, kp_found, kp_conf = self.kp_stage(
             ee_pts, ee_rgb, ee_valid)
+        if self.cfg.rot_flip_disambiguation:
+            ee_pose = self.flip_stage(ee_pose, kp_coords, kp_found, kp_conf,
+                                      ee_pts, ee_valid)
         if self.cfg.icp_enabled:
             ee_pose, kp_pose = self.icp_stage(ee_pts, ee_valid, ee_pose,
                                               kp_pose)
@@ -343,6 +440,179 @@ class InferenceEngine:
             "kp_found": kp_found,
             "kp_conf": kp_conf,
         }
+
+    def _pad(self, points, rgb):
+        """One cloud padded (and, past the point capacity, subsampled) to
+        the capacity: ``(pts, cols, mask, n, sel)``; ``sel`` holds the kept
+        rows' indices into the cloud (None when nothing was dropped) for
+        scattering per-point outputs back."""
+        p = self.cfg.point_capacity
+        n = len(points)
+        sel = None
+        if n > p:
+            sel = np.sort(np.random.default_rng(0).choice(n, p,
+                                                          replace=False))
+            points, rgb = points[sel], rgb[sel]
+            n = p
+        pts = np.zeros((1, p, 3), np.float32)
+        cols = np.zeros((1, p, 3), np.float32)
+        mask = np.zeros((1, p), bool)
+        pts[0, :n] = points
+        cols[0, :n] = rgb
+        mask[0, :n] = True
+        return pts, cols, mask, n, sel
+
+    def _pose_np(self, fn, *poses):
+        """``fn`` of 7-vector poses given as numpy, on the engine's device,
+        back as numpy."""
+        out = fn(*(self._tensor(np.asarray(p, np.float32), torch.float32)
+                   for p in poses))
+        return out.cpu().numpy()
+
+    def predict(self, data: PointCloudDTO) -> ResultDTO:
+        """One cloud through ``predict_batch_arrays``: labels for every
+        input point (a subsampled cloud's unsampled points take their
+        nearest sampled point's label), poses and keypoints where the EE
+        crop holds ``ee_point_counts_threshold`` points, ``is_confident``
+        from ``check_sanity`` (and the confidence head), and the base poses
+        where the frame has an ``ee2base_pose``."""
+        if not self.pred_enabled:
+            return ResultDTO(segmentation=np.zeros(len(data.points),
+                                                   np.int32))
+        points = np.asarray(data.points, np.float32)
+        pts, cols, mask, n, sel = self._pad(points,
+                                            np.asarray(data.rgb, np.float32))
+        out = {k: v[0].cpu().numpy() for k, v in
+               self.predict_batch_arrays(pts, cols, mask).items()}
+
+        seg = out["segmentation"][:n]
+        if sel is not None:
+            from scipy.spatial import cKDTree
+
+            full = np.zeros(len(points), np.int32)
+            full[sel] = seg
+            unsel = np.ones(len(points), bool)
+            unsel[sel] = False
+            _, nn = cKDTree(points[sel]).query(points[unsel], k=1)
+            full[unsel] = seg[nn]
+            seg = full
+        result = ResultDTO(segmentation=seg)
+        if int(out["ee_count"]) < self.cfg.ee_point_counts_threshold:
+            return result
+
+        result.ee_pose = out["ee_pose"]
+        result.key_points = [(int(k), out["kp_coords"][k])
+                             for k in range(self.cfg.num_of_keypoints)
+                             if out["kp_found"][k]]
+        result.key_points_pose = out["kp_pose"] if out["kp_ok"] else None
+        result.confidence = float(out["rot_conf"][2])
+        result.is_confident = self.check_sanity(data, result)
+        if self.cfg.compute_confidence:
+            result.is_confident = (result.is_confident and result.confidence
+                                   > self.cfg.confidence_threshold)
+        if data.ee2base_pose is not None:
+            result.base_pose = self._pose_np(base2cam_pose, result.ee_pose,
+                                             data.ee2base_pose)
+            if result.key_points_pose is not None:
+                result.key_points_base_pose = self._pose_np(
+                    base2cam_pose, result.key_points_pose, data.ee2base_pose)
+        return result
+
+    def check_sanity(self, data: PointCloudDTO, result: ResultDTO,
+                     kp_error_margin=None) -> bool:
+        """The geometric gate of one frame: enough EE points, a pose, the
+        four front-plate keypoints visible under that pose, and (with more
+        than three predicted keypoints) their mean error to the pose's
+        keypoints within ``kp_error_margin``."""
+        cfg = self.cfg
+        kp_error_margin = kp_error_margin or cfg.kp_error_margin
+        seg = result.segmentation
+        if int((seg == 2).sum()) < cfg.sanity_min_num_of_ee_points:
+            return False
+        if result.ee_pose is None:
+            return False
+        ee_raw_points = np.asarray(data.points)[:len(seg)][seg == 2]
+        kp_gt_coords, kp_gt_classes = get_6_key_points(
+            ee_raw_points, np.asarray(result.ee_pose),
+            euclidean_threshold=0.04)
+        if (len(kp_gt_classes) == 0
+                or (np.asarray(kp_gt_classes[:4]) < 0).any()):
+            return False
+        if len(result.key_points) > 3:
+            kp_classes = torch.as_tensor([k for k, _ in result.key_points])
+            kp_coords = torch.as_tensor(np.array(
+                [c for _, c in result.key_points], np.float32))
+            err = float(compute_kp_error(
+                torch.as_tensor(kp_gt_coords, dtype=torch.float32),
+                kp_coords, kp_classes))
+            if err > kp_error_margin:
+                return False
+        return True
+
+    def calibrate(self, data: typing.Dict[str, typing.List[ResultDTO]]
+                  ) -> CalibrationResultDTO:
+        """The camera-to-base extrinsic from frames grouped by robot
+        position: each position's confident frames averaged, the positions'
+        averages averaged, then the mean of the base and keypoint-base
+        poses as ``pose_camera_link`` (None where too few frames were
+        confident)."""
+        individual = [self._calibrate_individual(v) for v in data.values()]
+        individual = [v for v in individual if v is not None]
+        if len(data) == 1 and individual:
+            raw = individual[0]
+        else:
+            raw = self._calibrate_individual(individual)
+            if raw is None:
+                return CalibrationResultDTO(pose_camera_link=None)
+        stack = [p for p in (raw.base_pose, raw.key_points_base_pose)
+                 if p is not None]
+        if not stack:
+            return CalibrationResultDTO(pose_camera_link=None)
+        calibration = CalibrationResultDTO(pose_camera_link=self._pose_np(
+            calib_util.average_poses, np.stack(stack)))
+        calibration.load_from_test_result(raw)
+        return calibration
+
+    def _calibrate_individual(self, data, weights=None, confident_count=None
+                              ) -> typing.Optional[TestResultDTO]:
+        """Average of each pose field over the confident results (None
+        under ``confident_count``, default ``calibration_confident_count``),
+        and with ``camera_link_transformation_pose`` the base poses moved
+        into the camera link's frame, then averaged."""
+        confident_count = (confident_count
+                           or self.cfg.calibration_confident_count)
+        confident = [d for d in data if d is not None and d.is_confident]
+        if len(confident) < confident_count:
+            return None
+        result = TestResultDTO(segmentation=None, is_confident=True)
+
+        def average(poses):
+            if not poses:
+                return None
+            return self._pose_np(
+                lambda p: calib_util.average_poses(
+                    calib_util.remove_pose_outliers(p), weights=weights),
+                np.asarray(poses, np.float32))
+
+        def field(name):
+            return [getattr(d, name) for d in confident
+                    if getattr(d, name, None) is not None]
+
+        result.ee_pose = average(field("ee_pose"))
+        result.base_pose = average(field("base_pose"))
+        result.key_points_pose = average(field("key_points_pose"))
+        result.key_points_base_pose = average(field("key_points_base_pose"))
+
+        clt = self.cfg.camera_link_transformation_pose
+        if clt is not None:
+            def to_camera_link(name):
+                return average([self._pose_np(transform_pose2pose, p, clt)
+                                for p in field(name)])
+
+            result.base_pose_camera_link = to_camera_link("base_pose")
+            result.key_points_base_pose_camera_link = to_camera_link(
+                "key_points_base_pose")
+        return result
 
 
 def _round_up(x, m):

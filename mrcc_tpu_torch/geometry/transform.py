@@ -82,12 +82,67 @@ def pose_to_matrix(pose):
     """Pose [x, y, z, qw, qx, qy, qz] -> 4x4 homogeneous transform."""
     rot = quat_to_matrix(pose[..., 3:7])
     top = torch.cat([rot, pose[..., :3, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype,
-                          device=top.device).expand(top.shape[:-2] + (1, 4))
-    return torch.cat([top, bottom], dim=-2)
+    return torch.cat([top, _bottom_row(top)], dim=-2)
 
 
 def matrix_to_pose(mat):
     """4x4 transform -> pose [x, y, z, qw, qx, qy, qz]."""
     return torch.cat([mat[..., :3, 3], matrix_to_quat(mat[..., :3, :3])],
                      dim=-1)
+
+
+def _bottom_row(top):
+    return torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype,
+                        device=top.device).expand(top.shape[:-2] + (1, 4))
+
+
+def matrix_inverse_rigid(mat):
+    """Inverse of rigid 4x4 transforms via the transposed rotation."""
+    rt = mat[..., :3, :3].transpose(-1, -2)
+    t = -torch.einsum("...ij,...j->...i", rt, mat[..., :3, 3])
+    top = torch.cat([rt, t[..., :, None]], dim=-1)
+    return torch.cat([top, _bottom_row(top)], dim=-2)
+
+
+def pose_inverse(pose):
+    """Inverse pose."""
+    return matrix_to_pose(matrix_inverse_rigid(pose_to_matrix(pose)))
+
+
+def base2cam_matrix(ee2cam_pose, ee2robot_pose):
+    """Robot-base -> camera 4x4 transform: ``ee2cam @ inv(ee2robot)``."""
+    return (pose_to_matrix(ee2cam_pose)
+            @ matrix_inverse_rigid(pose_to_matrix(ee2robot_pose)))
+
+
+def base2cam_pose(ee2cam_pose, ee2robot_pose):
+    """Robot-base -> camera pose."""
+    return matrix_to_pose(base2cam_matrix(ee2cam_pose, ee2robot_pose))
+
+
+def transform_pose2pose(pose1, pose2):
+    """Compose two poses: ``matrix(pose1) @ matrix(pose2)``."""
+    return matrix_to_pose(pose_to_matrix(pose1) @ pose_to_matrix(pose2))
+
+
+def transform_points(pose, points):
+    """Apply poses to (..., N, 3) points: ``R p + t``."""
+    rot = quat_to_matrix(pose[..., 3:7])
+    return (torch.einsum("...ij,...nj->...ni", rot, points)
+            + pose[..., None, :3])
+
+
+def inverse_transform_points(pose, points):
+    """Map points into the pose's local frame: ``R^T (p - t)``."""
+    rot = quat_to_matrix(pose[..., 3:7])
+    return torch.einsum("...ji,...nj->...ni", rot,
+                        points - pose[..., None, :3])
+
+
+def dists_to_line(p, lp1, lp2):
+    """Perpendicular distances of points (..., N, 3) to the line through
+    ``lp1`` and ``lp2``."""
+    d = (lp1 - lp2) / torch.linalg.vector_norm(lp1 - lp2, dim=-1,
+                                               keepdim=True)
+    t = ((p - lp1) * d).sum(-1, keepdim=True)
+    return torch.linalg.vector_norm(lp1 + t * d - p, dim=-1)

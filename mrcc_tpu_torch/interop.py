@@ -1,10 +1,12 @@
-"""Weight bridge: JAX-package variables -> port modules.
+"""Weight bridges into port modules: JAX-package variables, and the
+reference's torch state dicts (``.pth``).
 
 Port modules carry the reference's state-dict names, the names
 ``mrcc_tpu/train/interop.py`` translates into flax paths.  This module keeps
 its own copy of that translation (numpy and ``re`` only) and runs it the
 other way: every port parameter and buffer takes the JAX leaf at its
-translated path.
+translated path.  A reference state dict maps onto a port module by name
+(:func:`import_state_dict`).
 
 - conv kernels keep ``[K, Cin, Cout]``;
 - dense ``kernel [in, out]`` becomes ``nn.Linear.weight [out, in]``;
@@ -16,6 +18,7 @@ translated path.
 
 from __future__ import annotations
 
+import pickle
 import re
 from typing import Dict, Tuple
 
@@ -124,3 +127,71 @@ def load_jax_variables(module: nn.Module, variables) -> nn.Module:
         raise KeyError("weight bridge is not one to one:\n  "
                        + "\n  ".join(errors[:20]))
     return module
+
+
+def _bare_key(key: str) -> str:
+    return key[len("module."):] if key.startswith("module.") else key
+
+
+def import_state_dict(module: nn.Module, state_dict, k_perm=None,
+                      strict: bool = True) -> nn.Module:
+    """Load a reference (MinkowskiEngine) state dict into ``module`` by
+    name (the counterpart of ``mrcc_tpu/train/interop.py::
+    import_state_dict``).
+
+    - a ``module.`` prefix (DataParallel) is dropped and
+      ``num_batches_tracked`` skipped;
+    - ME stores k=1 conv kernels 2-D ``[Cin, Cout]``: they become
+      ``[1, Cin, Cout]``;
+    - ``k_perm`` ([K]) reorders the leading axis of the conv kernels of K
+      taps (ME's kernel-offset order into ``K3_OFFSETS`` or
+      ``K2_OFFSETS``).
+
+    Strict by default, both ways: a key with no port tensor of its shape
+    and a port tensor that no key wrote each raise ``KeyError``.
+    """
+    target = module.state_dict()
+    perm = None if k_perm is None else torch.as_tensor(np.asarray(k_perm))
+    assigned, errors = set(), []
+    with torch.no_grad():
+        for key, val in state_dict.items():
+            name = _bare_key(str(key))
+            if name.endswith("num_batches_tracked"):
+                continue
+            tensor = target.get(name)
+            if tensor is None:
+                errors.append(f"{key}: no port tensor")
+                continue
+            arr = torch.as_tensor(val).detach().cpu()
+            if arr.dim() == 2 and tensor.dim() == 3 and tensor.shape[0] == 1:
+                arr = arr[None]
+            if perm is not None and arr.dim() == 3 and len(arr) == len(perm):
+                arr = arr[perm]
+            if tuple(arr.shape) != tuple(tensor.shape):
+                errors.append(f"{key}: shape {tuple(arr.shape)} != "
+                              f"{tuple(tensor.shape)}")
+                continue
+            tensor.copy_(arr.to(tensor.dtype))
+            assigned.add(name)
+    errors += [f"{n}: no key wrote it" for n in target if n not in assigned]
+    if errors and strict:
+        raise KeyError("state dict is not one to one with the module:\n  "
+                       + "\n  ".join(errors[:20]))
+    return module
+
+
+def import_pth_variables(module: nn.Module, path: str, k_perm=None,
+                         strict: bool = True) -> nn.Module:
+    """Load a reference ``.pth`` file into ``module``: the reference's
+    ``{"model_state_dict": ...}`` wrapper or a bare state dict."""
+    try:
+        # .pth files come from outside: the weights-only loader refuses
+        # pickled code
+        blob = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:
+        # legacy pickles (e.g. wrapped in custom classes) need the full
+        # loader, reached only after the safe one refused the file
+        blob = torch.load(path, map_location="cpu", weights_only=False)
+    state = (blob.get("model_state_dict", blob) if isinstance(blob, dict)
+             else blob)
+    return import_state_dict(module, state, k_perm=k_perm, strict=strict)

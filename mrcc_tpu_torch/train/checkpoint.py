@@ -6,8 +6,10 @@ latest by sorted glob; saving epoch e deletes epoch e - 1's file unless
 e - 1 is a power of two or a ``save_freq`` multiple.
 
 Format: the port's own — ``torch.save`` of ``{"model": state_dict,
-"optimizer": state_dict, "epoch": int}``.  It does not read the JAX
-package's msgpack checkpoints or the reference's ``.pth`` files.
+"optimizer": state_dict, "epoch": int}``.  The read side also takes the
+JAX package's checkpoints (msgpack ``TrainState`` files, also named
+``.ckpt``): :func:`checkpoint_format` tells the two apart by the first
+bytes, :func:`load_stage_variables` reads a JAX one.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import os
 from typing import Optional
 
 import torch
+
+from .msgpack_io import msgpack_restore
 
 
 def is_power2(num: int) -> bool:
@@ -67,3 +71,28 @@ def checkpoint_restore(model, optimizer, exp_path: str, exp_name: str,
     if optimizer is not None:
         optimizer.load_state_dict(state["optimizer"])
     return int(state["epoch"])
+
+
+def checkpoint_format(path: str) -> str:
+    """``"torch"`` for a ``torch.save`` zip (the port trainer's files),
+    ``"msgpack"`` for a msgpack map (the JAX package's), by the first bytes;
+    anything else raises ``ValueError``."""
+    with open(path, "rb") as f:
+        head = f.read(4)
+    if head == b"PK\x03\x04":
+        return "torch"
+    if head and (0x80 <= head[0] <= 0x8F or head[0] in (0xDE, 0xDF)):
+        return "msgpack"
+    raise ValueError(f"{path}: neither a torch zip nor a msgpack map "
+                     f"(first bytes {head!r})")
+
+
+def load_stage_variables(path: str) -> dict:
+    """The ``{"params", "batch_stats"}`` numpy tree of a JAX package
+    ``TrainState`` checkpoint (``mrcc_tpu.train.checkpoint_save``), for
+    ``interop.load_jax_variables``."""
+    if checkpoint_format(path) != "msgpack":
+        raise ValueError(f"{path}: not a JAX package checkpoint")
+    with open(path, "rb") as f:
+        raw = msgpack_restore(f.read())
+    return {"params": raw["params"], "batch_stats": raw.get("batch_stats", {})}

@@ -870,3 +870,44 @@ def test_nn_search(cuda, b, m, n):
         assert not bool(idx[1].any()) and bool((d2[1] >= 1e30).all())
     again = nn.nn_search(tmpl, tgt, mask)
     assert torch.equal(again[0], idx) and torch.equal(again[1], d2)
+
+
+def test_predict_and_calibrate_run_the_kernels(cuda, monkeypatch):
+    """One synthetic frame (over the point capacity) through ``predict``
+    and ``calibrate`` on the card, bf16: the sort (K1), the self-keyed conv
+    (K2) and the down / up convs (K3) launch, and no plain twin runs."""
+    from mrcc_tpu_torch.app import (InferenceConfig, InferenceEngine,
+                                    SyntheticDataEngine)
+
+    calls = []
+    for mod in (sort, conv, conv_q8, rank, nn):
+        for name in dir(mod):
+            if name.endswith("_plain"):
+                monkeypatch.setattr(
+                    mod, name, lambda *a, _n=name, _f=getattr(mod, name),
+                    **k: calls.append(_n) or _f(*a, **k))
+    cfg = InferenceConfig(
+        point_capacity=4096, seg_voxel_capacity=3072,
+        seg_hierarchy_caps=(2048, 1024, 512, 256), ee_point_capacity=1024,
+        ee_voxel_capacity=1024, ee_hierarchy_caps=(512, 256, 128, 128),
+        kp_voxel_capacity=1024, kp_hierarchy_caps=(768, 640, 384, 128),
+        seg_backbone="minkunet14A", rot_backbone="minkunet14A",
+        kp_backbone="minkunet14A", icp_iterations=5,
+        icp_template_points=256, ee_point_counts_threshold=16,
+        sanity_min_num_of_ee_points=16, rot_6d=True,
+        compute_confidence=True, rot_flip_disambiguation=True,
+        translation_z_percentile=2.0)
+    engine = InferenceEngine(cfg, device=cuda)
+    frame = SyntheticDataEngine(seed=7, n_ee=1024, n_arm=1500,
+                                n_bg=3000).get()
+    assert len(frame.points) > cfg.point_capacity
+    counters = (sort.SORT, conv.SK, conv.DOWN, conv.UP)
+    for ctr in counters:
+        ctr.launches = 0
+    result = engine.predict(frame)
+    launches = {ctr.name: ctr.launches for ctr in counters}
+    calib = engine.calibrate({"p1": [result, result]})
+    assert min(launches.values()) > 0, launches
+    assert not calls, calls
+    assert result.segmentation.shape == (len(frame.points),)
+    assert (calib.pose_camera_link is None) == (not result.is_confident)

@@ -131,9 +131,14 @@ def test_engine_defaults_to_the_card():
 
 
 def test_later_slices_raise():
-    for kw in (dict(rot_6d=True), dict(compute_confidence=True),
-               dict(rot_flip_disambiguation=True),
-               dict(kp_backbone="pointnet2"),
-               dict(translation_z_percentile=2.0)):
-        with pytest.raises(NotImplementedError):
-            InferenceConfig(**kw)
+    with pytest.raises(NotImplementedError):
+        InferenceConfig(kp_backbone="pointnet2")
+
+
+def test_opt_in_heads_configure():
+    cfg = InferenceConfig(rot_6d=True, compute_confidence=True,
+                          rot_flip_disambiguation=True,
+                          translation_z_percentile=2.0)
+    assert cfg.rot_6d and cfg.compute_confidence
+    assert cfg.rot_flip_disambiguation
+    assert cfg.translation_z_percentile == 2.0
