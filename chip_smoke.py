@@ -13,9 +13,10 @@ points, whose large levels take the k3-table route: rank-kernel tables and
 the k3-table convs), ``icp_refine(use_pallas=True)`` (the
 nearest-neighbour kernel), scene-scale segmentation training (its large
 levels on tables: the table conv's autograd Function and the k3-table dW
-kernel), pose training (``make_pose_train_step``) and the user's path to
+kernel), pose training (``make_pose_train_step``), the user's path to
 the extrinsic (an engine from checkpoint paths, ``predict`` frame by frame,
-``calibrate``).  Phases, each
+``calibrate``) and the voting, sparse keypoint and feature-extractor train
+steps.  Phases, each
 printing one line and its wall time (any failure exits non-zero before the
 last line):
 
@@ -135,10 +136,29 @@ last line):
     random nets' poses is chaotic, ROADMAP C5: reported after ICP),
     keypoint classes and ``is_confident`` equal; bf16 seg labels >= 98.5 %
     equal (random weights: bf16 alone moves ~1 % of the labels,
-    ``SEG_AGREE_BF16``).
+    ``SEG_AGREE_BF16``);
+12. the rest of training, run after phase 10 c (``train_more``), each cell
+    timed as phase 7 and run to 20 steps on its fixed batch: (a) the
+    voting step (``RobotNetVote`` 18D, 2 classes) and (b) the sparse
+    keypoint step (``RobotNetSegmentation`` 18D, 6 classes) on B = 8 EE
+    crops (seeds 50-57, ``AliveV2Dataset`` with ``voting_enabled`` /
+    ``keypoints_enabled``) at capacity 4096, 1 cm voxels, every level
+    self-keyed; (c) the feature-extractor step (``FeatureNet``,
+    minkunet34A -> 16, the mined triplet loss) on B = 8 ``YCBDataset``
+    clouds of 1024 points (two of each of classes 0-3 of its 8 classes),
+    5 mm voxels, capacity 1024, every level on tables.  Each cell first runs one step card vs CPU at a reduced copy
+    (minkunet14A, B = 2 crops at capacity 1024; B = 4 clouds of two classes
+    for (c)) at phase 5's gates, against the CPU step at the batch or, where
+    a ReLU gate of that reference sits within rounding of 0, at the batch's
+    features moved by +-1e-7 relative (ROADMAP C21), then checks finite
+    losses (for a and b the
+    last 5 of 20 below the first 5), every kernel of its k3 route launched
+    and none of the other route's, and no plain twin; it logs steps/s,
+    clouds/s, device busy ms and idle share, device time by kernel,
+    launches per step, voxels per level and the 20 losses.
 
 ``python3 chip_smoke.py --calibrate`` builds the kernels and runs only
-phase 11.  ``--pose-k2`` builds them and runs only that
+phase 11, ``--train-more`` only phase 12.  ``--pose-k2`` builds them and runs only that
 K2 breakdown; ``--dw`` (``--k3``) builds them and times each dW launch
 (each K3 down / up launch) of one phase-7 step and one phase-10 b step by
 kernel and shape (CUDA events), ``--inference`` runs only phase 6 and
@@ -2056,13 +2076,18 @@ def profile_device_ms(fn, launches=None):
     return out
 
 
-def _train_pair_errors(cpu, gpu, before):
+def _train_pair_errors(cpu, gpu, before, zero_grad=()):
     """Gradient, update and BN-statistic errors of a card model against a
     CPU model after one step from the same weights ``before``.  The update
     is compared where the CPU gradient is 0 or above 1 % of its tensor's
-    rms: Adam's first step is lr * g / (|g| + eps), noise where |g| is."""
+    rms: Adam's first step is lr * g / (|g| + eps), noise where |g| is.
+    ``zero_grad`` names tensors whose exact gradient is 0 (a bias before a
+    train-mode BN): their update is all noise and is left out, and
+    ``zero_grad_max`` reports their largest |g| on either side over the
+    CPU gradients' rms."""
     gd = gn = ud = un = 0.0
     worst = {"grad": 0.0, "update": 0.0, "bn": 0.0}
+    zero_max = 0.0
     gparams = dict(gpu.named_parameters())
     for name, p in cpu.named_parameters():
         q = gparams[name]
@@ -2070,6 +2095,10 @@ def _train_pair_errors(cpu, gpu, before):
         gd += float((gq - g).norm() ** 2)
         gn += float(g.norm() ** 2)
         worst["grad"] = max(worst["grad"], rel_err(gq, g))
+        if name in zero_grad:
+            zero_max = max(zero_max, float(g.abs().max()),
+                           float(gq.abs().max()))
+            continue
         keep = (g == 0) | (g.abs() > 1e-2 * g.pow(2).mean().sqrt())
         u = (p.detach() - before[name])[keep]
         uq = (q.detach().cpu() - before[name])[keep]
@@ -2079,8 +2108,10 @@ def _train_pair_errors(cpu, gpu, before):
     gbufs = dict(gpu.named_buffers())
     for name, buf in cpu.named_buffers():
         worst["bn"] = max(worst["bn"], rel_err(gbufs[name].cpu(), buf))
+    n_params = sum(p.numel() for p in cpu.parameters())
     return {"grad": (gd / gn) ** 0.5, "update": (ud / un) ** 0.5,
-            "bn": worst["bn"], "worst_tensor": worst}
+            "bn": worst["bn"], "worst_tensor": worst,
+            "zero_grad_max": zero_max / (gn / n_params) ** 0.5}
 
 
 def _cpu_noise_floor(start, reference, cfg, batch, before, rel=1e-7):
@@ -2187,14 +2218,15 @@ def phase_pose_card_vs_cpu():
     log("pose_card_vs_cpu", **report)
 
 
-def _train_run(step, batch, counters, warmup, timed, lr=1e-4):
+def _train_run(step, batch, counters, warmup, timed, lr=1e-4, falls=True):
     """Drive ``step`` on one fixed batch: ``warmup`` steps, then ``timed``
     steps timed one by one with every launch count set to 0 before the
     first (its launches are one step's; no plain twin may run in it) and
     read after the first and the last, one more step synchronised at the
     prepare / forward / backward / optimizer boundaries, one under
     torch.profiler.  Returns ``(launches of one step, report)``; the
-    report's losses must be finite and fall."""
+    report's losses must be finite and, with ``falls``, the last below the
+    first."""
     b = batch["points"].shape[0]
     losses = []
 
@@ -2253,7 +2285,8 @@ def _train_run(step, batch, counters, warmup, timed, lr=1e-4):
                         "dw_mma_kernel", "dw_reduce")}
     checks = {"finite_losses": bool(np.isfinite(losses).all()),
               "loss_first": losses[0], "loss_last": losses[-1]}
-    if not (checks["finite_losses"] and losses[-1] < losses[0]):
+    if not (checks["finite_losses"] and (losses[-1] < losses[0]
+                                         or not falls)):
         raise AssertionError(f"training sanity failed: {losses}")
     return launches, dict(
         batch=b, points=int(batch["points"].shape[1]), warmup_steps=warmup,
@@ -2652,6 +2685,191 @@ def phase_pose_train(counters, warmup=2, timed=6):
     return out
 
 
+# phase 12: which kernel counters each cell must move (the "yes" rows of
+# the kernel table for it) and which it must not (the other k3 route)
+SK_ROUTE = ("argsort", "conv_sk", "conv_down", "conv_up", "dw_sk", "dw_down",
+            "dw_up")
+TABLE_ROUTE = ("argsort", "rank", "conv_k3map", "conv_down", "conv_up",
+               "dw_k3map", "dw_down", "dw_up")
+LOSS_STEPS = 20  # phase 12: steps of the loss curve on the fixed batch
+
+
+def _labelled_crops(n, seed, sample_kw=None, **cfg_kw):
+    """``n`` AliveV2Dataset items of synthetic scenes ``seed``, ``seed +
+    1``, ... under ``DataConfig(**cfg_kw)`` (EE crops by default),
+    collated; every crop must hold points."""
+    from mrcc_tpu_torch.data.dataset import AliveV2Dataset, DataConfig
+    from mrcc_tpu_torch.data.synthetic import generate_sample
+
+    data = AliveV2Dataset(samples=[generate_sample(seed=seed + i,
+                                                   **(sample_kw or {}))
+                                   for i in range(n)],
+                          cfg=DataConfig(**cfg_kw))
+    items = [data[i] for i in range(n)]
+    if any(it is None for it in items):
+        raise AssertionError(f"an empty EE crop among seeds {seed}+{n}")
+    return data.collate(items)
+
+
+def _object_batch(n_classes, per_class, classes, seed=0):
+    """The first two clouds of each of ``classes`` in
+    ``YCBDataset(num_classes=n_classes, samples_per_class=per_class,
+    max_points=1024, seed=seed)``, collated: a triple needs a class twice
+    and a second class."""
+    from mrcc_tpu_torch.data.ycb import YCBDataset
+
+    data = YCBDataset(num_classes=n_classes, samples_per_class=per_class,
+                      max_points=1024, seed=seed)
+    return data.collate([data[i] for c in classes
+                         for i in [k for k, it in enumerate(data.items)
+                                   if it[1] == c][:2]])
+
+
+def _train_more_cells():
+    """Phase 12's cells: ``(name, model, step factory (model, device,
+    capacity), full-width batch, capacity, reduced model, reduced batch,
+    reduced capacity, k3 route, tensors with a zero exact gradient)``."""
+    from mrcc_tpu_torch.cli.train_mains import FEATURE_CAPACITY
+    from mrcc_tpu_torch.data.dataset import DataConfig
+    from mrcc_tpu_torch.models import (FeatureNet, RobotNetSegmentation,
+                                       RobotNetVote)
+    from mrcc_tpu_torch.data.ycb import YCBDataset
+    from mrcc_tpu_torch.sparse.nn import init_parameters
+    from mrcc_tpu_torch.train import (TrainConfig,
+                                      make_metric_learning_train_step,
+                                      make_segmentation_train_step)
+
+    small = dict(n_ee=2048, n_arm=1024, n_bg=2048)
+    cells = []
+    for name, cfg_kw, build in (
+            ("train_vote", dict(voting_enabled=True),
+             lambda bb: RobotNetVote(backbone=bb, num_classes=2)),
+            ("train_key_points", dict(keypoints_enabled=True),
+             lambda bb: RobotNetSegmentation(backbone=bb, num_classes=6))):
+        def make(model, dev, cap, _kw=cfg_kw):
+            return make_segmentation_train_step(
+                model, DataConfig(**_kw), TrainConfig(batch_size=8), cap,
+                device=dev)[0]
+
+        cells.append((name, init_parameters(build("minkunet"), 4), make,
+                      _labelled_crops(8, 50, **cfg_kw), POSE_CAPACITY,
+                      init_parameters(build("minkunet14A"), 6),
+                      _labelled_crops(2, 23, small, max_points=2048,
+                                      **cfg_kw), 1024, SK_ROUTE, ()))
+    ycb_cfg = YCBDataset(num_classes=1, samples_per_class=1,
+                         max_points=1024).cfg
+
+    def make_feature(model, dev, cap):
+        return make_metric_learning_train_step(
+            model, ycb_cfg, TrainConfig(batch_size=8), cap, device=dev)[0]
+
+    cells.append(("train_feature_extractor",
+                  init_parameters(FeatureNet(backbone="minkunet34A"), 4),
+                  make_feature, _object_batch(8, 6, range(4)),
+                  FEATURE_CAPACITY,
+                  init_parameters(FeatureNet(backbone="minkunet14A"), 6),
+                  _object_batch(2, 2, range(2), seed=4), FEATURE_CAPACITY,
+                  TABLE_ROUTE, ("final.bias",)))
+    return cells
+
+
+ULP_MOVE = 1e-7  # relative move of the features: about one f32 ulp
+
+
+def _head_card_vs_cpu(model, make, batch, capacity, zero_grad):
+    """One step of a phase-12 head on the card against the CPU step from
+    the same weights, f32, at phase 5's gates: loss 1e-5, gradients 1e-4
+    and the update 1e-3 in relative norm, BN statistics 1e-5; the tensors
+    of ``zero_grad`` held under 1e-4 of the gradients' rms instead of by
+    their update.
+
+    The CPU step's gradient is not continuous: where a ReLU gate of the
+    reference sits within rounding of 0, an input one ulp away takes the
+    other side and moves the gradients by up to ~1e-4 and the update by
+    ~1e-2 (ROADMAP C21), past the gates.  So the reference is the CPU step
+    at the batch and, in turn until one holds the card within every gate,
+    at the batch with its features moved by +-ULP_MOVE relative (seeded
+    draws 0-2): the card step must equal the CPU step at an input within
+    f32 resolution of the batch.  Every reference tried is reported."""
+    gpu = copy.deepcopy(model)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    card = float(make(gpu, "cuda", capacity)(batch, 1e-4)["loss"])
+    tried = []
+    for draw, sign in [(None, 0)] + [(d, sg) for d in range(3)
+                                     for sg in (1, -1)]:
+        moved = batch if draw is None else dict(batch, feats=(
+            batch["feats"] * (1 + sign * ULP_MOVE * np.random.default_rng(
+                draw).standard_normal(batch["feats"].shape))).astype(
+                    np.float32))
+        cpu = copy.deepcopy(model)
+        ref = float(make(cpu, "cpu", capacity)(moved, 1e-4)["loss"])
+        errs = _train_pair_errors(cpu, gpu, before, zero_grad)
+        errs.pop("worst_tensor")
+        rec = dict(cpu_features=("batch" if draw is None else
+                                f"{sign * ULP_MOVE:+g} relative, draw {draw}"),
+                   loss={"cpu": ref, "cuda": card},
+                   loss_rel_err=abs(card - ref) / max(abs(ref), 1e-3), **errs)
+        tried.append(rec)
+        if (rec["loss_rel_err"] <= 1e-5 and errs["grad"] <= 1e-4
+                and errs["update"] <= 1e-3 and errs["bn"] <= 1e-5
+                and errs["zero_grad_max"] <= 1e-4 and ref > 0):
+            return dict(held_by=rec, references_tried=tried,
+                        tolerance={"loss": 1e-5, "grad": 1e-4,
+                                   "update": 1e-3, "bn": 1e-5,
+                                   "zero_grad_max": 1e-4})
+    raise AssertionError(f"card vs CPU: no reference holds: {tried}")
+
+
+def phase_train_more(counters, warmup=2, timed=6):
+    """Phase 12: the voting, sparse keypoint and feature-extractor steps at
+    full width on one fixed batch each, timed as phase 7 and run to
+    LOSS_STEPS steps: (a) RobotNetVote 18D, 2 classes, and (b)
+    RobotNetSegmentation 18D, 6 keypoint classes, on B = 8 EE crops (seeds
+    50-57) at capacity POSE_CAPACITY, 1 cm voxels, every level self-keyed;
+    (c) FeatureNet (minkunet34A -> 16) with the mined triplet loss on B = 8
+    object clouds of 1024 points (two of each of classes 0-3 of the
+    feature extractor's 8-class dataset: its first shuffled batch of 8,
+    [4, 7, 6, 1, 6, 0, 2, 1], mines no triple at init, and its loss stays
+    0), 5 mm voxels, capacity 1024, every level on tables.  Each first checks one step card vs CPU at a reduced copy
+    (minkunet14A, B = 2 crops at capacity 1024; for (c) B = 4 clouds of two
+    classes, since a triple needs a positive and a negative).  Returns the
+    launches of one step of each."""
+    out = {}
+    for (name, model, make, batch, cap, small, small_batch, small_cap,
+         route, zero_grad) in _train_more_cells():
+        torch.cuda.empty_cache()
+        vs_cpu = _head_card_vs_cpu(small, make, small_batch, small_cap,
+                                   zero_grad)
+        step = make(model, "cuda", cap)
+        feature = name == "train_feature_extractor"
+        prepared = step.prepare(batch)
+        vox, levels = prepared[0], prepared[1 if feature else 2]
+        occupancy = dict(voxels=[lv.count.tolist() for lv in levels],
+                         labelled_voxels=None if feature else int(
+                             (vox.valid & (prepared[1] >= 0)).sum()))
+        del prepared, vox, levels
+        launches, report = _train_run(step, batch, counters, warmup, timed,
+                                      falls=not feature)
+        losses = report["losses"] + [
+            float(step(batch, 1e-4)["loss"])
+            for _ in range(LOSS_STEPS - len(report["losses"]))]
+        torch.cuda.synchronize()
+        other = [k for k in SK_ROUTE + TABLE_ROUTE if k not in route]
+        if (any(launches[k] <= 0 for k in route)
+                or any(launches[k] for k in other)
+                or not np.isfinite(losses).all()
+                or (not feature and np.mean(losses[-5:])
+                    >= np.mean(losses[:5]))):
+            raise AssertionError(f"{name}: launches {launches}, losses "
+                                 f"{losses}")
+        report["losses"] = losses
+        log(name, model=type(model).__name__, voxel_capacity=cap,
+            k3_tables=step.k3_tables, level_caps=(cap,) + step.caps,
+            vs_cpu=vs_cpu, **occupancy, **report)
+        out[name] = launches
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2671,6 +2889,10 @@ def main():
              "--dw": lambda: phase_step_breakdown(DW_WRAPPERS, "dw"),
              "--k3": lambda: phase_step_breakdown(K3_WRAPPERS, "k3"),
              "--q8": phase_q8_only,
+             "--train-more": lambda: phase_train_more(
+                 [sort.SORT, conv.SK, conv.DOWN, conv.UP, conv.K3_LISTS,
+                  conv.K3_SUM, conv.DW_SK, conv.DW_DOWN, conv.DW_UP,
+                  conv.DW_LISTS, rank.RANK, conv.K3MAP, conv.DW_K3MAP]),
              "--int8": phase_int8_paths,
              "--inference": lambda: phase_main_path(
                  *bench_levels(torch.device("cuda"))[:2],
@@ -2740,6 +2962,8 @@ def main():
                                        table_counters)
     torch.cuda.empty_cache()
     launches.update(phase("pose_train", phase_pose_train, table_counters))
+    torch.cuda.empty_cache()
+    launches.update(phase("train_more", phase_train_more, table_counters))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_by_path")

@@ -40,9 +40,11 @@ _RULES = [
     (re.compile(r"\bregression\.2\.linear\."), "regression_fc2.dense."),
     (re.compile(r"\blinear\."), "dense."),
 ]
-_BACKBONE_PREFIXES = ("conv0p1s1", "bn0", "conv1p1s2", "bn1", "conv2p2s2",
-                      "bn2", "conv3p4s2", "bn3", "conv4p8s2", "bn4", "block",
-                      "convtr", "bntr", "final")
+# the backbone's modules, matched as a whole path component: a head's own
+# module whose name starts like one (FeatureNet's ``final_bn``) stays at
+# the top level (ROADMAP C22)
+_BACKBONE = re.compile(r"conv0p1s1|bn[0-4]|conv[1-4]p\d+s2|block\d+_\d+"
+                       r"|convtr[4-7]p\d+s2|bntr[4-7]|final")
 _BN_FIELDS = {"weight": ("params", "scale"), "bias": ("params", "bias"),
               "running_mean": ("batch_stats", "mean"),
               "running_var": ("batch_stats", "var")}
@@ -50,7 +52,8 @@ _BN_FIELDS = {"weight": ("params", "scale"), "bias": ("params", "bias"),
 
 def translate_key(key: str) -> Tuple[str, tuple]:
     """Reference state-dict key -> (flax collection, flax path).  Backbone
-    keys move under ``unet`` (the RobotNet* wrappers' scope)."""
+    keys move under ``unet`` (the RobotNet* and FeatureNet wrappers'
+    scope)."""
     for pat, repl in _RULES:
         key = pat.sub(repl, key)
     m = re.match(r"^(.*)\.bn\.(weight|bias|running_mean|running_var)$", key)
@@ -68,9 +71,17 @@ def translate_key(key: str) -> Tuple[str, tuple]:
         else:
             coll_path = ("params", tuple(key.split(".")))
     coll, path = coll_path
-    if path[0].startswith(_BACKBONE_PREFIXES):
+    if _BACKBONE.fullmatch(path[0]):
         path = ("unet",) + path
     return coll, path
+
+
+def jax_path(module: nn.Module, name: str) -> Tuple[str, tuple]:
+    """A port tensor's ``(collection, path)`` in the JAX variables of
+    ``module``: :func:`translate_key` under the module's ``jax_scope``
+    (``RobotNetVote``'s ``seg``)."""
+    coll, path = translate_key(name)
+    return coll, tuple(getattr(module, "jax_scope", ())) + path
 
 
 def _flatten(tree, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -107,7 +118,7 @@ def load_jax_variables(module: nn.Module, variables) -> nn.Module:
     state = module.state_dict()
     with torch.no_grad():
         for name, tensor in state.items():
-            coll, path = translate_key(name)
+            coll, path = jax_path(module, name)
             arr = flat.get((coll, path))
             if arr is None:
                 errors.append(f"{name} -> {coll}:{'/'.join(path)} missing")

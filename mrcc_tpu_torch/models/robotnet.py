@@ -1,6 +1,6 @@
 """RobotNet heads on the MinkUNet backbone (port of
-``mrcc_tpu/models/robotnet.py``: RobotNet, RobotNetEncode and
-RobotNetSegmentation).
+``mrcc_tpu/models/robotnet.py``: RobotNet, RobotNetEncode,
+RobotNetSegmentation and RobotNetVote).
 
 The backbone's modules sit at the top level of each head, as in the
 reference state dict (``conv0p1s1.kernel``, ``regression.0.linear.weight``,
@@ -126,3 +126,17 @@ class RobotNetSegmentation(MinkUNetBase):
         out = F.leaky_relu(super().forward(feats, levels), 0.01)
         out = F.leaky_relu(self.regression[0](out, valid), 0.01)
         return self.regression[2](out, valid)
+
+
+class RobotNetVote(RobotNetSegmentation):
+    """Cross-section voting head: RobotNetSegmentation's body with 2
+    classes (``ee_seg`` crops) or 4 (whole scenes).  The JAX module wraps
+    the segmentation net under the flax scope ``seg`` (``jax_scope``, which
+    ``interop.load_jax_variables`` prepends); the state dict keeps the
+    segmentation net's names."""
+
+    jax_scope = ("seg",)
+
+    def __init__(self, backbone: str = "minkunet", in_channels: int = 3,
+                 num_classes: int = 2):
+        super().__init__(backbone, in_channels, num_classes)

@@ -1,7 +1,9 @@
 """Trainers (port of ``mrcc_tpu/train/trainer.py``: ``TrainConfig``,
 ``step_learning_rate``, ``make_optimizer``, ``AverageMeter``,
 ``MetricsWriter``, ``make_segmentation_train_step``,
-``make_pose_train_step`` and ``Trainer``).
+``make_pose_train_step`` and ``Trainer``), with the metric-learning step
+that ``mrcc_tpu/cli/train_mains.py::train_feature_extractor`` builds
+inline.
 
 The JAX step is one jit program over a functional ``TrainState``; here the
 model and the optimizer hold the state and the step runs eagerly:
@@ -40,6 +42,7 @@ from ..sparse import (build_hierarchy, hierarchy_caps, train_uses_k3_tables,
                       voxelize)
 from . import checkpoint as ckpt
 from .losses import LossConfig, LossType, get_criterion, segmentation_loss
+from .metric_learning import triplet_margin_loss
 
 
 @dataclasses.dataclass
@@ -273,6 +276,62 @@ def make_pose_train_step(model, data_cfg, loss_cfg: LossConfig,
     return PoseTrainStep(model, optimizer, get_criterion(loss_cfg), loss_cfg,
                          data_cfg, voxel_capacity, use_joint_angles, dev,
                          train_cfg.k3_self_keyed), optimizer
+
+
+class MetricLearningTrainStep(_TrainStep):
+    """One metric-learning train step (``train_feature-extractor.py`` hot
+    loop, the step the JAX ``train_feature_extractor`` main builds inline),
+    callable as ``step(batch, lr)``, with the stages of
+    :class:`SegmentationTrainStep`: :meth:`prepare` (voxelize,
+    ``build_hierarchy``), :meth:`forward` (the embedding net in train mode,
+    ``criterion(emb, labels)``), :meth:`backward` and :meth:`update`.
+    ``batch`` holds ``points``, ``feats``, ``mask`` and the clouds' class
+    ``labels [B]``.  As in the JAX step, the level capacities halve from
+    ``voxel_capacity`` with no floor, and the hierarchy is built with
+    ``k3_self_keyed`` off, so every level takes the k3-table route."""
+
+    def __init__(self, model, optimizer, criterion, data_cfg,
+                 voxel_capacity: int, device: torch.device):
+        super().__init__(model, optimizer, data_cfg, voxel_capacity, False,
+                         device)
+        self.caps = tuple(voxel_capacity >> l for l in range(4))
+        self.criterion = criterion
+
+    def prepare(self, batch):
+        """-> (SparseVoxels, levels, labels)."""
+        t = self._tensors(batch, ("points", "feats", "mask", "labels"))
+        with torch.no_grad():
+            vox, _ = voxelize(t["points"], t["feats"], t["mask"], self.qsize,
+                              self.capacity)
+            levels = self._levels(vox)
+        return vox, levels, t["labels"]
+
+    def forward(self, vox, levels, labels):
+        """-> (embeddings, loss)."""
+        self.model.train()
+        emb = self.model(vox.feats, levels)
+        return emb, self.criterion(emb, labels)
+
+    def __call__(self, batch, lr):
+        """Run every stage; returns ``{"loss"}`` as a device scalar."""
+        vox, levels, labels = self.prepare(batch)
+        _, loss = self.forward(vox, levels, labels)
+        self.backward(loss)
+        self.update(lr)
+        return {"loss": loss.detach()}
+
+
+def make_metric_learning_train_step(model, data_cfg, train_cfg: TrainConfig,
+                                    voxel_capacity: int, device=None):
+    """Move ``model`` to the device (the card unless ``device`` says
+    otherwise; raises where there is none) and return
+    ``(MetricLearningTrainStep, optimizer)`` with the mined triplet loss
+    (``metric_learning.triplet_margin_loss``)."""
+    dev = resolve_device(device)
+    model.to(dev)
+    optimizer = make_optimizer(model.parameters(), train_cfg)
+    return MetricLearningTrainStep(model, optimizer, triplet_margin_loss,
+                                   data_cfg, voxel_capacity, dev), optimizer
 
 
 class Trainer:

@@ -29,7 +29,10 @@ row within 1e-6 of |a|^2, the scale of the f32 rounding of
 ``K3MapConvFn`` the backward one.  The dW kernels' hit lists
 (``dw_hit_lists``) equal their plain twin integer for integer (border
 keys, overflowed parents, a level of padding rows), and the self-keyed
-and table dW give the same bits on one level.
+and table dW give the same bits on one level.  One vote step (self-keyed)
+and one metric-learning step (every level on tables) hold the card
+against the CPU at the train-step gates (loss 1e-5, gradients 1e-4, the
+update 1e-3, BN statistics 1e-5).
 """
 
 import pytest
@@ -911,3 +914,120 @@ def test_predict_and_calibrate_run_the_kernels(cuda, monkeypatch):
     assert not calls, calls
     assert result.segmentation.shape == (len(frame.points),)
     assert (calib.pose_camera_link is None) == (not result.is_confident)
+
+
+def _step_on(model, device, head, batch):
+    from mrcc_tpu_torch.data.dataset import DataConfig
+    from mrcc_tpu_torch.train import (TrainConfig,
+                                      make_metric_learning_train_step,
+                                      make_segmentation_train_step)
+
+    if head == "vote":
+        return make_segmentation_train_step(
+            model, DataConfig(voting_enabled=True), TrainConfig(), 1024,
+            device=device)[0](batch, 1e-4)
+    cfg = DataConfig(data_type=None, max_points=1024, scale=200)
+    return make_metric_learning_train_step(model, cfg, TrainConfig(), 1024,
+                                           device=device)[0](batch, 1e-4)
+
+
+def _pair_errors(cpu, gpu, before, zero_grad):
+    """(gradient, update) errors in relative norm of the card model against
+    the CPU one after a step from ``before``: the update where |g| is above
+    1 % of its tensor's rms; the tensors of ``zero_grad`` (exact gradient
+    0: FeatureNet's ``final.bias`` before a train-mode BN) held under 1e-4
+    of the gradients' rms instead (``inf`` where not); and the largest
+    BN-statistic error."""
+    gq = dict(gpu.named_parameters())
+    g_all = torch.cat([p.grad.flatten() for p in cpu.parameters()])
+    rms = float(g_all.pow(2).mean().sqrt())
+    gd, ud, un = 0.0, 0.0, 0.0
+    for name, p in cpu.named_parameters():
+        g, h = p.grad, gq[name].grad.cpu()
+        gd += float((h - g).norm() ** 2)
+        if name in zero_grad:
+            if max(float(g.abs().max()), float(h.abs().max())) > 1e-4 * rms:
+                return float("inf"), float("inf"), float("inf")
+            continue
+        keep = (g == 0) | (g.abs() > 1e-2 * g.pow(2).mean().sqrt())
+        u = (p.detach() - before[name])[keep]
+        v = (gq[name].detach().cpu() - before[name])[keep]
+        ud += float((v - u).norm() ** 2)
+        un += float(u.norm() ** 2)
+    bufs = dict(gpu.named_buffers())
+    bn = max(_rel(bufs[n].cpu(), b) for n, b in cpu.named_buffers())
+    return ((gd / float(g_all.norm() ** 2)) ** 0.5, (ud / un) ** 0.5, bn)
+
+
+@pytest.mark.parametrize("head", ["vote", "feature"])
+def test_vote_and_feature_steps_card_vs_cpu(cuda, monkeypatch, head):
+    """One train step of RobotNetVote (minkunet14A, 2 classes, B = 2 EE
+    crops with cross-section labels, capacity 1024, self-keyed) and of
+    FeatureNet (minkunet14A, the mined triplet loss, B = 4 clouds of two
+    classes, capacity 1024, every level on tables) on the card against the
+    CPU from the same weights: loss 1e-5, gradients 1e-4 and Adam's first
+    update 1e-3 in relative norm (the update where |g| is above 1 % of its
+    tensor's rms), BN statistics 1e-5.  The reference is the CPU step at
+    the batch or, where a ReLU gate of it sits within rounding of 0, at the
+    batch's features moved by +-1e-7 relative (seeded draws, tried in
+    turn; ROADMAP C21).  The card step launches its route's kernels and no
+    plain twin."""
+    import copy
+
+    import numpy as np
+
+    from mrcc_tpu_torch.data.dataset import AliveV2Dataset, DataConfig
+    from mrcc_tpu_torch.data.synthetic import generate_sample
+    from mrcc_tpu_torch.data.ycb import YCBDataset
+    from mrcc_tpu_torch.models import FeatureNet, RobotNetVote
+    from mrcc_tpu_torch.sparse.nn import init_parameters
+
+    if head == "vote":
+        data = AliveV2Dataset(
+            samples=[generate_sample(seed=23 + i, n_ee=2048, n_arm=1024,
+                                     n_bg=2048) for i in range(2)],
+            cfg=DataConfig(max_points=2048, voting_enabled=True))
+        batch = data.collate([data[0], data[1]])
+        model = RobotNetVote(backbone="minkunet14A")
+        route, off = (conv.SK, conv.DW_SK), (rank.RANK, conv.K3MAP)
+    else:
+        data = YCBDataset(num_classes=2, samples_per_class=2,
+                          max_points=1024, seed=4)
+        batch = data.collate([data[i] for i in range(4)])
+        model = FeatureNet(backbone="minkunet14A")
+        route, off = (rank.RANK, conv.K3MAP, conv.DW_K3MAP), (conv.SK,)
+    start = init_parameters(model, 6)
+    before = {n: p.detach().clone() for n, p in start.named_parameters()}
+
+    calls = []
+    for mod in (sort, conv, conv_q8, rank, nn):
+        for name in dir(mod):
+            if name.endswith("_plain"):
+                monkeypatch.setattr(
+                    mod, name, lambda *a, _n=name, _f=getattr(mod, name),
+                    **k: calls.append(_n) or _f(*a, **k))
+    for ctr in route + off:
+        ctr.launches = 0
+    gpu = copy.deepcopy(start)
+    got = float(_step_on(gpu, cuda, head, batch)["loss"])
+    assert not calls, calls
+    assert all(c.launches > 0 for c in route), [c.launches for c in route]
+    assert not any(c.launches for c in off), [c.launches for c in off]
+    monkeypatch.undo()
+
+    tried = []
+    for draw, sign in [(None, 0)] + [(d, s) for d in range(3)
+                                     for s in (1, -1)]:
+        moved = batch if draw is None else dict(batch, feats=(
+            batch["feats"] * (1 + sign * 1e-7 * np.random.default_rng(
+                draw).standard_normal(batch["feats"].shape))).astype(
+                    np.float32))
+        cpu = copy.deepcopy(start)
+        want = float(_step_on(cpu, "cpu", head, moved)["loss"])
+        errs = (abs(got - want) / want,) + _pair_errors(
+            cpu, gpu, before, () if head == "vote" else ("final.bias",))
+        tried.append(errs)
+        if want > 0 and all(e <= t for e, t in
+                            zip(errs, (1e-5, 1e-4, 1e-3, 1e-5))):
+            return
+    raise AssertionError(f"no CPU reference holds the card step: {tried}")

@@ -1,6 +1,7 @@
 """Package rules of mrcc_tpu_torch: no JAX, its own data, card by default.
 
-- Importing the package, every submodule and building a CPU engine leaves
+- Importing the package, every submodule (the training data, models and
+  criteria among them) and building a CPU engine leaves
   ``jax``, ``flax``, ``optax`` and ``mrcc_tpu`` (as a whole module name, not
   the ``mrcc_tpu_torch`` prefix) out of ``sys.modules``; no source of the
   package or ``chip_smoke.py`` imports them.
@@ -63,6 +64,10 @@ def test_no_jax_in_the_port_process():
     assert res.returncode == 0, res.stderr[-3000:]
     info = json.loads(res.stdout.strip().splitlines()[-1])
     assert len(info["modules"]) >= 20
+    for name in ("data.augmentation", "data.dataset", "data.labels",
+                 "data.ycb", "models.featurenet", "solve.vote",
+                 "train.metric_learning"):
+        assert f"mrcc_tpu_torch.{name}" in info["modules"], name
     assert "ee_pose" in info["keys"]
     leaked = [m for m in info["loaded"] if _forbidden(m)]
     assert not leaked, leaked
