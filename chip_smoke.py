@@ -15,8 +15,9 @@ nearest-neighbour kernel), scene-scale segmentation training (its large
 levels on tables: the table conv's autograd Function and the k3-table dW
 kernel), pose training (``make_pose_train_step``), the user's path to
 the extrinsic (an engine from checkpoint paths, ``predict`` frame by frame,
-``calibrate``) and the voting, sparse keypoint and feature-extractor train
-steps.  Phases, each
+``calibrate``), the voting, sparse keypoint and feature-extractor train
+steps, the sparse ResNet50 classifier on its strided pyramid and the
+engine on the minkunet50 (bottleneck) backbone.  Phases, each
 printing one line and its wall time (any failure exits non-zero before the
 last line):
 
@@ -155,7 +156,32 @@ last line):
     last 5 of 20 below the first 5), every kernel of its k3 route launched
     and none of the other route's, and no plain twin; it logs steps/s,
     clouds/s, device busy ms and idle share, device time by kernel,
-    launches per step, voxels per level and the 20 losses.
+    launches per step, voxels per level and the 20 losses;
+13. the strided-pyramid models (``resnet``), run after phase 12: (a) the
+    kernel cases of the two modes this path adds, at the full-width
+    ResNet's shapes (B = 8 x 12544 voxels of the bench clouds): K3's
+    strided map conv at the stem (8 x 12544 -> 6272, 3 -> 64, bf16) and
+    conv5 (8 x 196 -> 98, 2048 -> 2048, f32: after the stem the f32
+    instance-norm parameters promote the features, as in JAX), f32 1e-5
+    and bf16 2e-2 against the plain twin, two launches bit-equal, beside
+    ``torch.mm`` over each offset's gathered hits; the rank kernel's
+    child-table mode at the stem (k3 s2), its pool and the first stage
+    (k2 s2) and conv5 (k3 s3), exact against the rank kernel's twin and
+    on hits against ``child_table_plain``, beside ``torch.searchsorted``;
+    (b) a reduced SparseResNet50 (planes 8-32, B = 2, capacity 2048) on
+    the card and on the CPU with the same random weights: logits f32 1e-4
+    and bf16 2e-2, every child map and neighbour table of its pyramid
+    equal on hits; (c) SparseResNet50 at its published widths (planes
+    64-512 x 4, conv5 2048 -> 2048, 153 M parameters) at B = 8 x 12544
+    with the default stage capacities, in bf16 and in f32: one forward
+    with every launch count set to 0 before and read after, 8 forwards
+    timed -> forwards/s (median, quartiles), device busy ms and idle share
+    (torch.profiler), peak memory, finite [8, 40] logits;
+14. the bottleneck backbone (``bottleneck``): phase 4's f32 card-vs-CPU
+    engine pair with minkunet50 seg and keypoint nets, then the minkunet50
+    engine on phase 6's bench inputs in bf16 and in f32, each timed as
+    phase 6 (clouds/s, stages, profiler, launches of every kernel of its
+    k3 route).
 
 ``python3 chip_smoke.py --calibrate`` builds the kernels and runs only
 phase 11, ``--train-more`` only phase 12.  ``--pose-k2`` builds them and runs only that
@@ -164,7 +190,8 @@ K2 breakdown; ``--dw`` (``--k3``) builds them and times each dW launch
 kernel and shape (CUDA events), ``--inference`` runs only phase 6 and
 ``--q8`` only phase 3's int8 cases and phase 8, ``--int8`` only phases 6
 and 8, to compare two versions of the kernels in one call (copy this file
-into a checkout of the other version).  ``--rank-nn`` times the rank and
+into a checkout of the other version).  ``--resnet`` builds the kernels and runs only phases 13 and 14.
+``--rank-nn`` times the rank and
 NN kernels at phase 3's shapes under several values of their wrappers'
 constants (rank: query rows a block and shared-window keys; NN: blocks in
 flight), in turns, each run compared with its twin; ``--icp`` builds phase
@@ -224,6 +251,7 @@ SOURCES = {
     "conv_up_q8": "mrcc_tpu_torch/csrc/conv_map_q8.cu",
     "rank": "mrcc_tpu_torch/csrc/rank.cu",
     "conv_k3map": "mrcc_tpu_torch/csrc/conv_map.cu",
+    "conv_map": "mrcc_tpu_torch/csrc/conv_map.cu",
     "conv_k3map_q8": "mrcc_tpu_torch/csrc/conv_map_q8.cu",
     "q8_quantize": "mrcc_tpu_torch/csrc/q8_quantize.cuh",
     "nn_search": "mrcc_tpu_torch/csrc/nn_search.cu",
@@ -1182,7 +1210,7 @@ def _quat_close(a, b, tol):
     return bool((d <= tol).all()), float(d.max())
 
 
-def phase_card_vs_cpu():
+def phase_card_vs_cpu(seg_backbone="minkunet18", kp_backbone="minkunet18"):
     """Same weights, f32, small size: card engine vs CPU engine."""
     from mrcc_tpu_torch.app import (InferenceConfig, InferenceEngine,
                                     measure_seg_caps)
@@ -1196,8 +1224,8 @@ def phase_card_vs_cpu():
         ee_voxel_capacity=1024, kp_voxel_capacity=512,
         ee_hierarchy_caps=(512, 256, 128, 64),
         kp_hierarchy_caps=(384, 256, 128, 64), icp_iterations=15,
-        icp_template_points=512, seg_backbone="minkunet18",
-        rot_backbone="minkunet18", kp_backbone="minkunet18",
+        icp_template_points=512, seg_backbone=seg_backbone,
+        rot_backbone="minkunet18", kp_backbone=kp_backbone,
         compute_dtype="float32")
     cpu = InferenceEngine(cfg, device="cpu", seed=3)
     gpu = InferenceEngine(cfg, device="cuda", seed=5)
@@ -1217,7 +1245,8 @@ def phase_card_vs_cpu():
         report[k] = {"pos": pos_err, "quat": q_err}
         if pos_err > 1e-3 or not ok_q:
             raise AssertionError(f"card vs CPU: {k} off by {report[k]}")
-    log("card_vs_cpu", ee_count=want["ee_count"].tolist(), max_err=report)
+    log("card_vs_cpu", seg_backbone=seg_backbone, kp_backbone=kp_backbone,
+        ee_count=want["ee_count"].tolist(), max_err=report)
 
 
 def _small_bf16_config(**kw):
@@ -1319,9 +1348,10 @@ def bench_config(pts, caps, **kw):
         else (1024, 384, 128, 128),
         kp_hierarchy_caps=(3072, 2560, 1536, 512) if big
         else (768, 640, 384, 128), icp_iterations=15,
-        icp_template_points=1024, seg_backbone="minkunet18",
-        rot_backbone="minkunet", kp_backbone="minkunet18",
-        compute_dtype="bfloat16", **kw)
+        icp_template_points=1024, **{
+            **dict(seg_backbone="minkunet18", rot_backbone="minkunet",
+                   kp_backbone="minkunet18", compute_dtype="bfloat16"),
+            **kw})
 
 
 @contextlib.contextmanager
@@ -2870,6 +2900,384 @@ def phase_train_more(counters, warmup=2, timed=6):
     return out
 
 
+# ------------------------------------------- the strided-pyramid models
+
+RESNET_CAPACITY = 12544  # the bench profile's level-0 capacity
+RESNET_CLASSES = 40      # ModelNet40's classes (the classifier's head)
+
+
+def resnet_level0(device, batch=8, points=16384, seed=0,
+                  capacity=RESNET_CAPACITY):
+    """The ResNet's input: the bench profile's clouds (centred, 0.5 cm
+    voxels, colours as features) at ``capacity`` voxels an item, as a
+    depth-0 hierarchy.  Returns ``(features, level 0, points an item whose
+    voxel did not fit the capacity)``."""
+    from mrcc_tpu_torch.data.synthetic import build_batch
+    from mrcc_tpu_torch.geometry import center_at_origin
+    from mrcc_tpu_torch.sparse import build_hierarchy, voxelize
+
+    pts, rgb, mask = build_batch(batch, points, seed=seed)
+    m = torch.as_tensor(mask, device=device)
+    c, _ = center_at_origin(torch.as_tensor(pts, device=device), mask=m)
+    vox, p2v = voxelize(c, torch.as_tensor(rgb, device=device), m,
+                        1 / 200.0, capacity)
+    (level0,) = build_hierarchy(vox, 0)
+    return vox.feats, level0, ((p2v == capacity) & m).sum(dim=1)
+
+
+def resnet_pyramid(level0, caps=None):
+    """The pyramid ``SparseResNetBase.forward`` builds from ``level0``:
+    ``[(label, fine, coarse, stride, kernel_size)]`` for the stem (k3 s2),
+    its pool (k2 s2), the four stages (k2 s2) and conv5 (k3 s3)."""
+    from mrcc_tpu_torch.sparse import downsample_level
+
+    cap = level0.valid.shape[-1]
+    caps = caps or tuple(max(cap >> i, 64) for i in range(1, 8))
+    plan = ([("stem", caps[0], 2, 3), ("pool", caps[1], 2, 2)]
+            + [(f"stage{s + 1}", caps[2 + s], 2, 2) for s in range(4)]
+            + [("conv5", max(64, caps[-1]), 3, 3)])
+    out, level = [], level0
+    for label, c, stride, k in plan:
+        fine, coarse = downsample_level(level, c, stride=stride,
+                                        kernel_size=k)
+        out.append((label, fine, coarse, stride, k))
+        level = coarse
+    return out
+
+
+def _map_work(coarse, n_in):
+    """The strided map conv's work: the map's hits, the distinct input
+    rows they gather, the output rows with one, and the whole map (an int32
+    index and a bool a entry) read once."""
+    hit = coarse.child_hit
+    k, b, n = hit.shape
+    read = torch.zeros((b, n_in + 1), dtype=torch.bool, device=hit.device)
+    read.scatter_(1, torch.where(hit, coarse.child_idx, n_in)
+                  .permute(1, 0, 2).reshape(b, -1).long(), True)
+    return {"hits": int(hit.sum()), "read": int(read[:, :n_in].sum()),
+            "written": int(hit.any(dim=0).sum()), "map_bytes": 5 * k * b * n}
+
+
+def resnet_kernel_cases(device):
+    """Row 3's strided-map mode and row 8's child-table mode at the
+    full-width ResNet's shapes (B = 8 x 12544): the map conv at the stem
+    (3 -> 64, bf16 on the ResNet path) and at conv5 (2048 -> 2048, f32:
+    the f32 instance-norm parameters promote the features after the stem,
+    as in JAX), each against its plain twin in f32 (1e-5) and bf16 (2e-2)
+    with ``torch.mm`` over each offset's gathered hits as the yardstick;
+    the child tables at the stem (k3 s2), its pool and the first stage (k2
+    s2) and conv5 (k3 s3), exact against the rank kernel's plain twin and,
+    on hits, against the searchsorted twin ``child_table_plain``, beside
+    ``torch.searchsorted`` over the same queries."""
+    from mrcc_tpu_torch.ops import conv, rank
+    from mrcc_tpu_torch.sparse.hierarchy import (child_table_plain,
+                                                 kernel_offsets)
+
+    _, level0, _ = resnet_level0(device)
+    pyramid = {p[0]: p for p in resnet_pyramid(level0)}
+    gen, feats, weights = case_inputs(13, device)
+    records = []
+    for label, cin, cout, kind in (("stem", 3, 64, "bf16"),
+                                   ("conv5", 2048, 2048, "f32")):
+        _, fine, coarse, stride, _ = pyramid[label]
+        maps = (coarse.child_idx, coarse.child_hit)
+        f32 = feats(fine, cin)
+        w32 = weights(27, cin, cout)
+        want = conv.gather_gemm_map_plain(f32, w32, *maps)
+        got = {"f32": conv.gather_gemm_map(f32, w32, *maps),
+               "bf16": conv.gather_gemm_map(f32.bfloat16(), w32.bfloat16(),
+                                            *maps)}
+        errs = {k: rel_err(v, want) for k, v in got.items()}
+        if errs["f32"] > TOL_F32 or errs["bf16"] > TOL_BF16:
+            raise AssertionError(f"conv_map {label}: relative error {errs}")
+        if not torch.equal(conv.gather_gemm_map(f32, w32, *maps),
+                           got["f32"]):
+            raise AssertionError(f"conv_map {label}: two launches differ")
+        f, w = ((f32, w32) if kind == "f32"
+                else (f32.bfloat16(), w32.bfloat16()))
+        b, n_in = fine.key.shape
+        n_out = coarse.key.shape[1]
+        work = _map_work(coarse, n_in)
+        nbytes = ((4 if kind == "f32" else 2)
+                  * (work["read"] * cin + 27 * cin * cout + b * n_out * cout)
+                  + work["map_bytes"])
+        ops = 2 * work["hits"] * cin * cout
+        bms, by = bound_ms(nbytes, ops, kind)
+        # the yardstick: torch.mm of each offset's hit rows, gathered
+        # beforehand, by its weight slice (the GEMM alone)
+        ff = f.reshape(-1, cin)
+        rows = torch.arange(b, device=device)[:, None] * n_in
+        gathered = [ff[(coarse.child_idx[k] + rows)[coarse.child_hit[k]]
+                       .long()] for k in range(27)]
+        records.append(dict(
+            name=f"conv_map[{label} {b}x{n_in}->{n_out} {cin}->{cout} "
+                 f"{kind}]", kernel="conv_map", path="resnet", route="cuda",
+            source=SOURCES["conv_map"], replaces=K3_TPU,
+            max_abs_err=float((got[kind].float() - want).abs().max()),
+            rel_err=errs, tolerance={"f32": TOL_F32, "bf16": TOL_BF16},
+            dtype=kind, work=work,
+            ms=cuda_ms(lambda: conv.gather_gemm_map(f, w, *maps)),
+            device_ms=kernel_device_ms(
+                lambda: conv.gather_gemm_map(f, w, *maps), "mrcc::tc::"),
+            plain_ms=cuda_ms(lambda: conv.gather_gemm_map_plain(f, w,
+                                                                *maps)),
+            library_ms=cuda_ms(lambda: [torch.mm(a, w[k]) for k, a in
+                                        enumerate(gathered)]),
+            library_call="torch.mm(A_k, W[k]) for each offset k, the hit "
+                         "rows gathered beforehand" + (", TF32 off"
+                                                       if kind == "f32"
+                                                       else ""),
+            bound_ms=bms, bound_by=by,
+            bound_3xtf32_ms=(max(1e3 * 3 * ops / PEAK_OPS["tf32"],
+                                 1e3 * nbytes / HBM_BYTES_PER_S)
+                             if kind == "f32" else None)))
+        del gathered
+    for label in ("stem", "pool", "stage1", "conv5"):
+        _, fine, coarse, stride, ks = pyramid[label]
+        offsets = kernel_offsets(ks)
+        k = len(offsets)
+        args = (coarse.off, coarse.key, coarse.valid, fine.key, offsets)
+        idx, hit = rank.child_tables(*args, stride=stride)
+        qbase = rank.child_query_base(coarse.key, coarse.valid, stride)
+        deltas = [int(d) for d in offsets @ np.array([1 << 20, 1 << 10, 1])]
+        qbits = rank.border_bits(coarse.off, coarse.valid, offsets, stride)
+        want = rank.rank_lookup_plain(fine.key, qbase, deltas, qbits)
+        p_idx, p_hit = child_table_plain(coarse.off, coarse.valid, fine.key,
+                                         offsets, stride=stride)
+        if not (torch.equal(idx, want[0]) and torch.equal(hit, want[1])
+                and torch.equal(hit, p_hit) and torch.equal(
+                    torch.where(hit, idx, -1), torch.where(hit, p_idx, -1))):
+            raise AssertionError(f"child_tables {label} differ from the "
+                                 "plain twins")
+        b, n = fine.key.shape
+        nq = coarse.key.shape[1]
+        d = torch.tensor(deltas, dtype=torch.int32, device=device)
+        q = (qbase[None] + d[:, None, None]).permute(1, 0, 2).reshape(b, -1)
+        groups = len(rank.rank_groups(deltas))
+        wide = rank.rank_windows(fine.key, qbase, deltas)[2]
+        # keys, query bases and bitmaps read once, K int32 + bool written;
+        # a search of log2(N) compares per chained group and K compares a
+        # query row
+        steps = groups * max(1, int(np.ceil(np.log2(n)))) + k
+        records.append(dict(
+            name=f"rank[child {label} k{ks}s{stride} {b}x{n}->{nq}]",
+            kernel="rank", path="resnet", route="cuda",
+            source=SOURCES["rank"], replaces=RANK_TPU, max_abs_err=0.0,
+            tolerance="exact", hits=int(hit.sum()),
+            global_share=float(wide.float().mean()),
+            block_windows=int(wide.numel()),
+            ms=cuda_ms(lambda: rank.child_tables(*args, stride=stride)),
+            device_ms=kernel_device_ms(
+                lambda: rank.child_tables(*args, stride=stride),
+                "rank_kernel"),
+            plain_ms=cuda_ms(lambda: child_table_plain(
+                coarse.off, coarse.valid, fine.key, offsets, stride=stride)),
+            library_ms=cuda_ms(lambda: torch.searchsorted(fine.key, q)),
+            library_call="torch.searchsorted (ranks only)",
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound_ms(4 * b * n + 8 * b * nq + 5 * k * b * nq,
+                                steps * b * nq, "f32")))))
+    log("resnet_kernels", cases=[{k: r.get(k) for k in CASE_KEYS}
+                                 for r in records])
+    return records
+
+
+def _resnet_net(device, **kw):
+    """SparseResNet50 (3 -> RESNET_CLASSES) with random weights from seed
+    0, in eval mode on ``device``."""
+    from mrcc_tpu_torch.models import SparseResNet50
+    from mrcc_tpu_torch.sparse.nn import init_parameters
+
+    net = init_parameters(SparseResNet50(3, RESNET_CLASSES, **kw), 0)
+    return net.to(device).eval()
+
+
+def phase_resnet_card_vs_cpu():
+    """A reduced SparseResNet50 (planes 8-32, init_dim 16), B = 2 clouds at
+    capacity 2048, on the card and on the CPU with the same weights: logits
+    f32 1e-4, bf16 2e-2 in relative norm; every child map of the pyramid
+    with equal hits and equal idx on hits, and the neighbour tables of the
+    coarse levels likewise."""
+    cpu, dev = torch.device("cpu"), torch.device("cuda")
+    kw = dict(planes=(8, 16, 16, 32), init_dim=16)
+    net_c = _resnet_net(cpu, **kw)
+    net_g = copy.deepcopy(net_c).to(dev)
+    fc, l0c, _ = resnet_level0(cpu, batch=2, points=4096, seed=21,
+                               capacity=2048)
+    fg, l0g, _ = resnet_level0(dev, batch=2, points=4096, seed=21,
+                               capacity=2048)
+    if not torch.equal(l0c.key, l0g.key.cpu()):
+        raise AssertionError("resnet card vs CPU: level-0 keys differ")
+    report = {}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, TOL_BF16)):
+        with torch.no_grad():
+            want = net_c(fc.to(dtype), l0c)
+            got = net_g(fg.to(dtype), l0g).cpu()
+        err = rel_err(got, want)
+        report[str(dtype).removeprefix("torch.")] = err
+        if not err <= tol:
+            raise AssertionError(f"resnet card vs CPU {dtype}: logits off "
+                                 f"by {err} (tolerance {tol})")
+    maps = {}
+    for (label, _, cc, _, _), (_, _, cg, _, _) in zip(resnet_pyramid(l0c),
+                                                      resnet_pyramid(l0g)):
+        for name in ("child", "nbr"):
+            hit = getattr(cc, f"{name}_hit")
+            idx = getattr(cc, f"{name}_idx")
+            if not (torch.equal(getattr(cg, f"{name}_hit").cpu(), hit)
+                    and torch.equal(
+                        torch.where(hit, getattr(cg, f"{name}_idx").cpu(),
+                                    -1), torch.where(hit, idx, -1))):
+                raise AssertionError(f"resnet card vs CPU: {label} "
+                                     f"{name} map differs")
+        maps[label] = int(cc.child_hit.sum())
+    log("resnet_card_vs_cpu", logits_rel_err=report, map_hits=maps)
+
+
+def phase_resnet(counters, iters=8):
+    """Full-width SparseResNet50 (published widths, conv5 2048 -> 2048) at
+    B = 8 x 12544 with the default stage capacities, in bf16 and in f32:
+    one forward with every launch count set to 0 before and read after
+    (each of ``counters`` must have launched), then ``iters`` forwards
+    timed one by one -> forwards/s (median, quartiles), one under
+    torch.profiler (device busy ms, idle share, device time by kernel),
+    peak memory, and sanity checks (finite [8, 40] logits)."""
+    dev = torch.device("cuda")
+    feats, level0, dropped = resnet_level0(dev)
+    net = _resnet_net(dev)
+    n_params = sum(p.numel() for p in net.parameters())
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x = feats.to(dtype)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            net(x, level0)  # warm-up (allocator)
+            torch.cuda.synchronize()
+            for ctr in counters:
+                ctr.launches = 0
+            logits = net(x, level0)
+            torch.cuda.synchronize()
+            launches = {ctr.name: ctr.launches for ctr in counters}
+            if min(launches.values()) <= 0:
+                raise AssertionError(f"a kernel never ran on the ResNet "
+                                     f"path: {launches}")
+            if logits.shape != (8, RESNET_CLASSES) or not bool(
+                    torch.isfinite(logits).all()):
+                raise AssertionError(f"ResNet logits {tuple(logits.shape)} "
+                                     "not finite")
+            times = []
+            for _ in range(iters):
+                t0 = time.perf_counter()
+                net(x, level0)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            kernel_launches = {}
+            device_ms = profile_device_ms(lambda: net(x, level0),
+                                          kernel_launches)
+        q1, med, q3 = np.percentile(times, [25, 50, 75])
+        busy = sum(device_ms.values())
+        name = "resnet" if dtype == torch.bfloat16 else "resnet_f32"
+        out[name] = launches
+        log(name, batch=8, capacity=RESNET_CAPACITY,
+            voxels=level0.count.tolist(), points_dropped=dropped.tolist(),
+            params=n_params,
+            launches=launches, forwards=iters,
+            forwards_per_s_median=1 / med,
+            forwards_per_s_q1_q3=[1 / q3, 1 / q1],
+            clouds_per_s_median=8 / med,
+            forward_ms_all=[1e3 * t for t in times],
+            device_busy_ms=busy, device_idle_share=1 - busy / (1e3 * med),
+            top_device_ms=dict(sorted(device_ms.items(),
+                                      key=lambda kv: -kv[1])[:12]),
+            map_conv_device_ms=sum(v for k, v in device_ms.items()
+                                   if "StridedMap" in k),
+            rank_device_ms=sum(v for k, v in device_ms.items()
+                               if "rank_kernel" in k),
+            cuda_kernel_launches=sum(kernel_launches.values()),
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            card=smi_line())
+    return out
+
+
+def resnet_counters():
+    """The kernels of the ResNet path: the key sort of every
+    ``downsample_level``, the rank kernel (child maps and neighbour
+    tables), the strided map conv (stem, conv5), K3 down (the strided
+    blocks' k2 s2 convs, with its list stage and child sum) and the
+    k3-table conv (the blocks on the coarse levels)."""
+    from mrcc_tpu_torch.ops import conv, rank, sort
+
+    return [sort.SORT, rank.RANK, conv.MAP, conv.DOWN, conv.K3_LISTS,
+            conv.K3_SUM, conv.K3MAP]
+
+
+def bottleneck_counters():
+    """The kernels of the minkunet50 engine by compute dtype: bf16 runs
+    phase 6's (self-keyed k3 convs), f32 takes tables on every level (the
+    rank kernel and the k3-table conv instead of the self-keyed one)."""
+    from mrcc_tpu_torch.ops import conv, rank, sort
+
+    shared = [sort.SORT, conv.DOWN, conv.UP, conv.K3_LISTS, conv.K3_SUM]
+    return {"bfloat16": shared + [conv.SK],
+            "float32": shared + [rank.RANK, conv.K3MAP]}
+
+
+def phase_resnet_only(counters, engine_counters):
+    """``--resnet``: the ResNet's kernel cases, its card-vs-CPU pair, the
+    full-width ResNet and the minkunet50 engine, with the launches of each
+    kernel case's path."""
+    records = resnet_kernel_cases(torch.device("cuda"))
+    phase_resnet_card_vs_cpu()
+    launches = phase_resnet(counters)
+    launches.update(phase_bottleneck(engine_counters))
+    for r in records:
+        r["launches"] = launches[r["path"]][r["kernel"]]
+    log("resnet_records", records=[
+        {k: r.get(k) for k in ("name", "launches", "ms", "device_ms",
+                               "plain_ms", "library_ms", "bound_ms",
+                               "bound_by", "max_abs_err")}
+        for r in records])
+
+
+def phase_bottleneck(counters, iters=8):
+    """The minkunet50 engine (seg and keypoint nets on the bottleneck
+    backbone, rotation on the default 18D encoder): first phase 4's small
+    f32 card-vs-CPU pair on that backbone (integer outputs exact, poses
+    1e-3), then on the bench inputs (B = 8, P = 16384) in bf16 and in f32,
+    each as phase 6 (launches of every counter of its dtype in
+    ``counters``, batches timed, stages, profiler, sanity)."""
+    from mrcc_tpu_torch.app import InferenceEngine
+
+    backbones = dict(seg_backbone="minkunet50", kp_backbone="minkunet50")
+    phase_card_vs_cpu(**backbones)
+    (pts, rgb, mask), caps, _ = bench_levels(torch.device("cuda"))
+    out = {}
+    for dtype, ctrs in counters.items():
+        engine = InferenceEngine(bench_config(pts, caps, **dict(
+            backbones, compute_dtype=dtype)), seed=0)
+        dev = engine.device
+        p, c, m = (torch.as_tensor(a, device=dev) for a in (pts, rgb, mask))
+        torch.cuda.reset_peak_memory_stats()
+        engine.predict_batch_arrays(p, c, m)  # warm-up
+        torch.cuda.synchronize()
+        for ctr in ctrs:
+            ctr.launches = 0
+        res = engine.predict_batch_arrays(p, c, m)
+        torch.cuda.synchronize()
+        launches = {ctr.name: ctr.launches for ctr in ctrs}
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"a kernel never ran on the minkunet50 "
+                                 f"path: {launches}")
+        report = _inference_report(engine, (p, c, m), res, iters)
+        name = "bottleneck" if dtype == "bfloat16" else "bottleneck_f32"
+        out[name] = launches
+        log(name, batch=int(pts.shape[0]), points=int(pts.shape[1]),
+            seg_caps=list(caps), launches=launches, **report)
+        del engine
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2894,6 +3302,8 @@ def main():
                   conv.K3_SUM, conv.DW_SK, conv.DW_DOWN, conv.DW_UP,
                   conv.DW_LISTS, rank.RANK, conv.K3MAP, conv.DW_K3MAP]),
              "--int8": phase_int8_paths,
+             "--resnet": lambda: phase_resnet_only(
+                 resnet_counters(), bottleneck_counters()),
              "--inference": lambda: phase_main_path(
                  *bench_levels(torch.device("cuda"))[:2],
                  [sort.SORT, conv.SK, conv.DOWN, conv.UP]),
@@ -2964,6 +3374,13 @@ def main():
     launches.update(phase("pose_train", phase_pose_train, table_counters))
     torch.cuda.empty_cache()
     launches.update(phase("train_more", phase_train_more, table_counters))
+    torch.cuda.empty_cache()
+    records += phase("resnet_kernels", resnet_kernel_cases, dev)
+    phase("resnet_card_vs_cpu", phase_resnet_card_vs_cpu)
+    launches.update(phase("resnet", phase_resnet, resnet_counters()))
+    torch.cuda.empty_cache()
+    launches.update(phase("bottleneck", phase_bottleneck,
+                          bottleneck_counters()))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_by_path")

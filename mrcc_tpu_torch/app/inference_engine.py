@@ -51,6 +51,7 @@ from ..geometry.transform import (base2cam_pose, rot6d_to_quat,
                                   transform_pose2pose)
 from ..interop import import_pth_variables, load_jax_variables
 from ..models import RobotNetEncode, RobotNetSegmentation
+from ..models.minkunet import variant
 from ..solve import (default_template, disambiguate_flip, icp_refine,
                      key_point_predictions, largest_cluster_mask,
                      pose_from_key_points, predict_translation)
@@ -148,7 +149,14 @@ class InferenceConfig:
         stages = {"seg": (self.seg_voxel_capacity, self.seg_hierarchy_caps),
                   "kp": (self.kp_voxel_capacity, self.kp_hierarchy_caps),
                   "rot": (self.ee_voxel_capacity, self.ee_hierarchy_caps)}
+        backbones = {"seg": self.seg_backbone, "kp": self.kp_backbone,
+                     "rot": self.rot_backbone}
         for stage in q8_stages(self):
+            if variant(backbones[stage])["block"] == "bottleneck":
+                raise NotImplementedError(
+                    f"int8 {stage} stage on the bottleneck backbone "
+                    f"{backbones[stage]!r}: not held against the JAX int8 "
+                    "engine yet (ROADMAP A7)")
             if self.compute_dtype != "bfloat16":
                 raise NotImplementedError(
                     "int8 convs with compute_dtype float32: the JAX engine "

@@ -1,9 +1,13 @@
 // K3 — gather-GEMMs over explicit kernel maps: the k=2 s=2 down conv, its
-// transpose (the up conv), and the k=3 s=1 conv over neighbour tables.
+// transpose (the up conv), the k=3 s=1 conv over neighbour tables, and the
+// generic strided map conv (the sparse ResNet's k=3 s=2 stem and k=3 s=3
+// conv5).
 //
-// Replaces: mrcc_tpu/ops/conv_pallas.py::_gather_gemm_call in its three
-// modes: the 8-child down map, the broadcast-k up map (bcast_k), and the
-// 27-offset k3 table (identity_k = 13); and _gather_gemm_call_hbm, the same
+// Replaces: mrcc_tpu/ops/conv_pallas.py::_gather_gemm_call in its four
+// modes: the 8-child down map, the broadcast-k up map (bcast_k), the
+// 27-offset k3 table (identity_k = 13) and a [K, B, N_out] map into a
+// [B, N_in] table with N_in != N_out (gather_gemm_conv, the Pallas route of
+// sparse/conv.py::conv_kernel_map); and _gather_gemm_call_hbm, the same
 // function over an HBM-resident table (these kernels read global memory at
 // any N).
 //
@@ -11,6 +15,8 @@
 //                               * feats[b, child_idx[k, b, p]] @ W[k]
 //   k3:   out[b, i] = sum_{k<27} nbr_hit[k, b, i]
 //                                * feats[b, nbr_idx[k, b, i]] @ W[k]
+//   map:  out[b, i] = sum_{k<K} map_hit[k, b, i]
+//                               * feats[b, map_idx[k, b, i]] @ W[k], K <= 27
 //   up:   out[b, c] = row_ok[b, c]
 //                     * feats[b, parent_idx[b, c]] @ W[octant[b, c]]
 //
@@ -37,7 +43,11 @@
 // tensor-core tile (gather_mma.cuh) with a table load for the key search:
 // its neighbour list is the same as K2's (the identity offset's entry is
 // the row itself where valid), so the two k3 routes give the same bits,
-// forward and backward.
+// forward and backward.  The strided map conv runs the same tile with a
+// map source of K <= 27 offsets and separate input and output row counts:
+// a k=3 s=2 map sends one output row up to 27 input rows and one input row
+// to several outputs, so it is no list GEMM (which needs each output row
+// in one list at most).
 
 #include "gather_mma.cuh"
 #include "hit_lists.cuh"
@@ -57,6 +67,31 @@ struct K3ParentMap : hitlist::ParentMap {};
 
 // The k3 table conv's row source (k3_sources.cuh) under K3's name.
 struct NbrTable : tc::NbrTable {};
+
+// The strided map conv's row source: map_idx / map_hit [taps, B, n] (n the
+// output rows), indices into the item's input rows.  Offsets past taps
+// name no row.
+struct StridedMap {
+  const int* idx;
+  const uint8_t* hit;
+  int batch;
+  int taps;
+
+  __device__ __forceinline__ void resolve(int b, int m0, int n,
+                                          int* nbr) const {
+    for (int e = threadIdx.x; e < tc::K3 * tc::BM; e += tc::THREADS) {
+      const int k = e / tc::BM;
+      const int row = m0 + e % tc::BM;
+      int j = -1;
+      if (k < taps && row < n) {
+        const size_t o = (static_cast<size_t>(k) * batch + b) * n + row;
+        if (hit[o]) j = idx[o];
+      }
+      nbr[e] = j;
+    }
+    __syncthreads();
+  }
+};
 
 }  // namespace
 
@@ -174,4 +209,40 @@ extern "C" int mrcc_conv_k3map_bf16(const void* feats, const void* w,
       feats, w, NbrTable{{nbr_idx, nbr_hit, batch}}, lists, out, batch, n, cin,
       cout, stream);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// Strided map: feats [B, n_in, cin], w [taps, cin, cout], map_idx [taps, B,
+// n_out] int32 (indices below n_in), map_hit [taps, B, n_out] bool, out [B,
+// n_out, cout]; taps <= 27.  lists: int32 scratch of B * ceil(n_out / 64) *
+// (27 * 64 + 28) where cout > 128, else may be null.  Returns
+// cudaGetLastError().
+template <typename T>
+static int conv_map(const void* feats, const void* w, const int* map_idx,
+                    const uint8_t* map_hit, int* lists, void* out, int batch,
+                    int n_in, int n_out, int taps, int cin, int cout,
+                    cudaStream_t stream) {
+  if (taps < 1 || taps > tc::K3 || n_in < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = tc::launch_gather_mma<T>(
+      feats, w, StridedMap{map_idx, map_hit, batch, taps}, lists, out, batch,
+      n_out, cin, cout, stream, n_in, taps);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+extern "C" int mrcc_conv_map_f32(const void* feats, const void* w,
+                                 const int* map_idx, const uint8_t* map_hit,
+                                 int* lists, void* out, int batch, int n_in,
+                                 int n_out, int taps, int cin, int cout,
+                                 cudaStream_t stream) {
+  return conv_map<float>(feats, w, map_idx, map_hit, lists, out, batch, n_in,
+                         n_out, taps, cin, cout, stream);
+}
+
+extern "C" int mrcc_conv_map_bf16(const void* feats, const void* w,
+                                  const int* map_idx, const uint8_t* map_hit,
+                                  int* lists, void* out, int batch, int n_in,
+                                  int n_out, int taps, int cin, int cout,
+                                  cudaStream_t stream) {
+  return conv_map<__nv_bfloat16>(feats, w, map_idx, map_hit, lists, out,
+                                 batch, n_in, n_out, taps, cin, cout, stream);
 }

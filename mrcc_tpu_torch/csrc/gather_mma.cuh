@@ -438,16 +438,18 @@ resolve_kernel(Source source, int* __restrict__ lists, int n) {
 }
 
 // out[b] = sum over the source's (offset, row) hits of feats rows x W[k].
-// SPLIT: block (x, y, b) reads row tile x's lists and computes column tile
-// y; else it resolves its row tile itself and loops over every column
-// tile.  grid (ceil(n / BM), SPLIT ? ceil(cout / BN) : 1, B), THREADS
-// threads, smem_bytes<T>() dynamic shared memory.
+// n output rows of an item, n_in input rows (n for the k3 convs), taps
+// offsets of W (27; a strided map may have fewer, which no source row
+// names).  SPLIT: block (x, y, b) reads row tile x's lists and computes
+// column tile y; else it resolves its row tile itself and loops over every
+// column tile.  grid (ceil(n / BM), SPLIT ? ceil(cout / BN) : 1, B),
+// THREADS threads, smem_bytes<T>() dynamic shared memory.
 template <typename T, class Source, bool SPLIT>
 __global__ void __launch_bounds__(THREADS, 2)
 gather_mma_kernel(const T* __restrict__ feats, const T* __restrict__ w,
                   Source source, const int* __restrict__ lists,
-                  T* __restrict__ out, int n, int cin, int cout, int vec_a,
-                  int vec_b) {
+                  T* __restrict__ out, int n, int n_in, int taps, int cin,
+                  int cout, int vec_a, int vec_b) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int STAGES = Geometry<T>::STAGES;
   constexpr int SE = stage_elems<T>();
@@ -473,12 +475,12 @@ gather_mma_kernel(const T* __restrict__ feats, const T* __restrict__ w,
   // packed: K runs over the flattened (offset, channel) pairs, W read as
   // one [27 * cin, cout] matrix; else over (offset with a hit, chunk)
   const bool packed = cin * 4 <= BK;
-  const int kdim = K3 * cin;
+  const int kdim = taps * cin;
   const int nchunk = (cin + BK - 1) / BK;
   const int steps = klist[K3] == 0 ? 0
                     : packed       ? (kdim + BK - 1) / BK
                                    : klist[K3] * nchunk;
-  const T* fb = feats + static_cast<size_t>(b) * n * cin;
+  const T* fb = feats + static_cast<size_t>(b) * n_in * cin;
   T* ob = out + static_cast<size_t>(b) * n * cout;
 
   auto load_stage = [&](int s, int n0) {
@@ -530,13 +532,17 @@ gather_mma_kernel(const T* __restrict__ feats, const T* __restrict__ w,
 // Launch the tile for a row source: one kernel where Cout fits one column
 // tile, else the resolve kernel and one MMA block per (row tile, column
 // tile); lists is a scratch of B * ceil(n / BM) * LIST ints (unused and may
-// be null where cout <= BN).  Returns the first CUDA error.
+// be null where cout <= BN).  n output rows an item; n_in input rows
+// (default n) and taps offsets of W (default 27) for a strided map.
+// Returns the first CUDA error.
 template <typename T, class Source>
 cudaError_t launch_gather_mma(const void* feats, const void* w,
                               const Source& source, int* lists, void* out,
                               int batch, int n, int cin, int cout,
-                              cudaStream_t stream) {
+                              cudaStream_t stream, int n_in = -1,
+                              int taps = K3) {
   if (n <= 0 || batch <= 0 || cout <= 0) return cudaSuccess;
+  if (n_in < 0) n_in = n;
   constexpr int V = Geometry<T>::VEC;
   const auto aligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
@@ -559,7 +565,8 @@ cudaError_t launch_gather_mma(const void* feats, const void* w,
   kernel<<<dim3(tiles, split ? (cout + BN - 1) / BN : 1, batch), THREADS,
            smem, stream>>>(static_cast<const T*>(feats),
                            static_cast<const T*>(w), source, lists,
-                           static_cast<T*>(out), n, cin, cout, vec_a, vec_b);
+                           static_cast<T*>(out), n, n_in, taps, cin, cout,
+                           vec_a, vec_b);
   return cudaGetLastError();
 }
 

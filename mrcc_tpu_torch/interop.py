@@ -30,7 +30,9 @@ from .sparse.nn import q8_convs
 
 _RULES = [
     (re.compile(r"^module\."), ""),
-    (re.compile(r"\bblock(\d+)\.(\d+)\."), r"block\1_\2."),
+    # blocks of a stage: MinkUNet ``block1.0``, ResNet ``layer1.0``,
+    # AliveUNet ``enc0.1`` / ``dec0.1`` -> ``block1_0`` ... ``dec0_1``
+    (re.compile(r"\b(block|layer|enc|dec)(\d+)\.(\d+)\."), r"\1\2_\3."),
     (re.compile(r"\bdownsample\.0\."), "downsample_conv."),
     (re.compile(r"\bdownsample\.1\."), "downsample_norm."),
     (re.compile(r"\boutput_layer\.0\."), "output_bn."),
@@ -50,10 +52,12 @@ _BN_FIELDS = {"weight": ("params", "scale"), "bias": ("params", "bias"),
               "running_var": ("batch_stats", "var")}
 
 
-def translate_key(key: str) -> Tuple[str, tuple]:
-    """Reference state-dict key -> (flax collection, flax path).  Backbone
-    keys move under ``unet`` (the RobotNet* and FeatureNet wrappers'
-    scope)."""
+def translate_key(key: str, unet: bool = True) -> Tuple[str, tuple]:
+    """Reference state-dict key -> (flax collection, flax path).  With
+    ``unet``, backbone keys move under ``unet`` (the RobotNet* and
+    FeatureNet wrappers' scope); the sparse ResNets and AliveUNet have no
+    such scope, though their ``final`` / ``bn0`` match the backbone's
+    names."""
     for pat, repl in _RULES:
         key = pat.sub(repl, key)
     m = re.match(r"^(.*)\.bn\.(weight|bias|running_mean|running_var)$", key)
@@ -71,7 +75,7 @@ def translate_key(key: str) -> Tuple[str, tuple]:
         else:
             coll_path = ("params", tuple(key.split(".")))
     coll, path = coll_path
-    if _BACKBONE.fullmatch(path[0]):
+    if unet and _BACKBONE.fullmatch(path[0]):
         path = ("unet",) + path
     return coll, path
 
@@ -79,8 +83,9 @@ def translate_key(key: str) -> Tuple[str, tuple]:
 def jax_path(module: nn.Module, name: str) -> Tuple[str, tuple]:
     """A port tensor's ``(collection, path)`` in the JAX variables of
     ``module``: :func:`translate_key` under the module's ``jax_scope``
-    (``RobotNetVote``'s ``seg``)."""
-    coll, path = translate_key(name)
+    (``RobotNetVote``'s ``seg``), with the ``unet`` prefix unless the
+    module sets ``jax_unet = False`` (the sparse ResNets, AliveUNet)."""
+    coll, path = translate_key(name, getattr(module, "jax_unet", True))
     return coll, tuple(getattr(module, "jax_scope", ())) + path
 
 

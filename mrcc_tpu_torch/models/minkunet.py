@@ -54,9 +54,6 @@ def variant(name: str) -> dict:
     if letter is not None:
         cfg["planes"] = _PLANES[base.replace("minkunet", "") + letter
                                 if base == "minkunet34" else letter]
-    if cfg["block"] not in BLOCKS:
-        raise NotImplementedError(f"{name}: block '{cfg['block']}' is not "
-                                  "ported yet")
     return cfg
 
 

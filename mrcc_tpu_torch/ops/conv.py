@@ -7,11 +7,13 @@ tensor-core tile of ``csrc/gather_mma.cuh``.
 
 K3 (``csrc/conv_map.cu``) replaces ``conv_pallas._gather_gemm_call`` in its
 k2-down and broadcast-k up modes, convs over the explicit stride-2 maps
-that ``build_hierarchy`` scatters, and in its k3-table mode
+that ``build_hierarchy`` scatters, in its k3-table mode
 (:func:`gather_gemm_k3_map`), the k=3 s=1 conv over the rank kernel's
 neighbour tables (K2's tile with a table load for the key search, so the
-two k3 routes give the same bits); reading global memory at any N, it also
-stands in for ``conv_pallas._gather_gemm_call_hbm``.  The down and up convs
+two k3 routes give the same bits), and in its generic strided-map mode
+(:func:`gather_gemm_map`, K2's tile over a [K, B, N_out] map into another
+level's rows: the sparse ResNet's stem and conv5); reading global memory
+at any N, it also stands in for ``conv_pallas._gather_gemm_call_hbm``.  The down and up convs
 are a list GEMM on tensor cores (``csrc/list_mma.cuh``) over per-octant
 hit lists built on the card by the dW kernels' list kernel: up stores each
 fine row's parent times ``W[octant]`` in place, down stores each fine
@@ -67,6 +69,8 @@ MAP_LIB = KernelLibrary("conv_map", {
     "mrcc_zero_rows_bf16": (P, P, P, I, I, P),
     "mrcc_conv_k3map_f32": (P, P, P, P, P, P, I, I, I, I, P),
     "mrcc_conv_k3map_bf16": (P, P, P, P, P, P, I, I, I, I, P),
+    "mrcc_conv_map_f32": (P, P, P, P, P, P, I, I, I, I, I, I, P),
+    "mrcc_conv_map_bf16": (P, P, P, P, P, P, I, I, I, I, I, I, P),
 })
 DW_SK_LIB = KernelLibrary("conv_dw_sk", {
     "mrcc_dw_sk_f32": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, P),
@@ -89,6 +93,7 @@ SK = LaunchCounter("conv_sk")
 DOWN = LaunchCounter("conv_down")
 UP = LaunchCounter("conv_up")
 K3MAP = LaunchCounter("conv_k3map")
+MAP = LaunchCounter("conv_map")  # the strided map conv
 DW_SK = LaunchCounter("dw_sk")
 DW_DOWN = LaunchCounter("dw_down")
 DW_UP = LaunchCounter("dw_up")
@@ -368,6 +373,52 @@ def gather_gemm_k3_map(feats, weights, nbr_idx, nbr_hit):
                  ptr(weights), ptr(nbr_idx), ptr(nbr_hit), ptr(lists),
                  ptr(out), b, n, feats.shape[-1], cout, stream_ptr(feats))
     K3MAP.launches += 1
+    return out
+
+
+def gather_gemm_map_plain(feats, weights, map_idx, map_hit):
+    """Plain twin of :func:`gather_gemm_map` (the JAX ``"xla"``
+    ``conv_kernel_map``)."""
+    return _map_conv(feats, weights, map_idx, map_hit)
+
+
+def gather_gemm_map(feats, weights, map_idx, map_hit):
+    """Strided sparse conv over an explicit kernel map.
+
+    ``out[b, i] = sum_k map_hit[k, b, i] * feats[b, map_idx[k, b, i]] @ W[k]``
+
+    for K <= 27 offsets and an output level of its own (N_in != N_out): the
+    sparse ResNet's k=3 s=2 stem and k=3 s=3 conv5 over the child maps of
+    ``sparse.hierarchy.downsample_level``.  Inference only: no backward.
+
+    Args:
+      feats: [B, N_in, Cin] f32/bf16; weights: [K, Cin, Cout] same dtype.
+      map_idx: int32 [K, B, N_out] (rows of feats where hit);
+      map_hit: bool [K, B, N_out].
+    Returns [B, N_out, Cout] in the feature dtype (f32 accumulation).
+    """
+    if not _route(feats, weights, map_idx, map_hit):
+        return gather_gemm_map_plain(feats, weights, map_idx, map_hit)
+    k = map_idx.shape[0] if map_idx.dim() == 3 else -1
+    if not 1 <= k <= 27:
+        raise ValueError(f"gather_gemm_map: map {tuple(map_idx.shape)}, "
+                         "need [K <= 27, B, N_out]")
+    _check("gather_gemm_map", feats, weights, k,
+           ((map_idx, torch.int32), (map_hit, torch.bool)))
+    b, n_in, cin = feats.shape
+    n_out = map_idx.shape[2]
+    cout = weights.shape[-1]
+    if map_idx.shape != (k, b, n_out) or map_hit.shape != (k, b, n_out):
+        raise ValueError("gather_gemm_map: maps must be [K, B, N_out]")
+    feats, weights = feats.contiguous(), weights.contiguous()
+    map_idx, map_hit = map_idx.contiguous(), map_hit.contiguous()
+    out = torch.empty((b, n_out, cout), dtype=feats.dtype,
+                      device=feats.device)
+    lists = _k3_lists(b, n_out, cout, feats.device)
+    MAP_LIB.call(f"mrcc_conv_map_{_SUFFIX[feats.dtype]}", ptr(feats),
+                 ptr(weights), ptr(map_idx), ptr(map_hit), ptr(lists),
+                 ptr(out), b, n_in, n_out, k, cin, cout, stream_ptr(feats))
+    MAP.launches += 1
     return out
 
 

@@ -11,10 +11,14 @@ slices; the function is
 
 at any N and Nq.  Query validity travels as the per-row int32 bitmap of
 ``sparse.hierarchy.k3_bits`` (``rank_pallas._border_qvalid`` packed), so
-K <= 32.  A miss's ``idx`` is its query's clamped rank; nothing reads it.
-The card kernel searches each block of ``RANK_ROWS`` query rows inside the
-windows of keys its ranks can take (:func:`rank_windows`), staged side by
-side in shared memory while they fit in ``RANK_WINDOW`` keys.
+K <= 32.  :func:`child_tables` is the kernel's child-table mode
+(``rank_pallas.child_tables``): the strided kernel maps of
+``hierarchy.downsample_level``, queries ``pack(parent * stride) + delta_k``
+in the finer level's keys.  A miss's ``idx`` is its query's clamped rank;
+nothing reads it.  The card kernel searches each block of ``RANK_ROWS``
+query rows inside the windows of keys its ranks can take
+(:func:`rank_windows`), staged side by side in shared memory while they
+fit in ``RANK_WINDOW`` keys.
 """
 
 from __future__ import annotations
@@ -165,3 +169,67 @@ def rank_lookup(keys, qbase, deltas, qbits):
              RANK_ROWS, RANK_WINDOW, stream_ptr(keys))
     RANK.launches += 1
     return idx, hit
+
+
+@functools.lru_cache(maxsize=16)
+def _device_offsets(offsets, device):
+    """Kernel offsets ``[K, 3]`` as an int32 tensor on ``device``, copied
+    once per offset set."""
+    return torch.tensor(offsets, dtype=torch.int32, device=device)
+
+
+def border_bits(off, valid, offsets, scaled=1):
+    """Per-row query-validity bitmap ``[B, N]`` int32 of ``offsets`` [K, 3]
+    (K <= 32): bit k is set iff the row is valid and ``off * scaled +
+    offsets[k]`` lies inside the coordinate window on every axis
+    (``rank_pallas._border_qvalid(scaled=...)`` packed as ``sk_bits``
+    packs it).  All K offsets in one pass of a few launches."""
+    from ..sparse.types import COORD_RANGE
+
+    d = _device_offsets(tuple(tuple(int(v) for v in o) for o in offsets),
+                        off.device)
+    q = (off * scaled)[None] + d[:, None, None, :]            # [K, B, N, 3]
+    inside = ((q >= 0) & (q < COORD_RANGE)).all(dim=-1) & valid[None]
+    shift = torch.arange(d.shape[0], device=off.device)[:, None, None]
+    return (inside.long() << shift).sum(dim=0).to(torch.int32)
+
+
+def child_query_base(parent_key, parent_valid, stride):
+    """Query bases of the child-table mode: ``stride * parent_key`` on valid
+    rows, ``KEY_PAD`` on padding rows (never a scaled ``KEY_PAD``)."""
+    from ..sparse.types import KEY_PAD
+
+    return (parent_key.masked_fill(~parent_valid, 0) * stride).masked_fill(
+        ~parent_valid, KEY_PAD)
+
+
+def child_tables(parent_off, parent_key, parent_valid, child_key, offsets,
+                 stride=2):
+    """Strided kernel maps through the rank kernel (port of
+    ``rank_pallas.child_tables``): for each parent row and offset d, the
+    row of the child level at ``parent * stride + d``.
+
+    The query base is ``stride * parent_key``, which equals
+    ``pack(parent_off * stride)``: a parent's coordinates times the stride
+    stay under 1024 (at most 2 * 511 or 3 * 341), so no field carries.
+    Padding rows take ``KEY_PAD`` and are never shifted or multiplied
+    (ROADMAP C15: ``KEY_PAD << 1`` wraps to INT32_MIN).  The query bits are
+    the scaled border masks of :func:`border_bits`.
+
+    Args:
+      parent_off: int32 [B, Np, 3]; parent_key: int32 [B, Np] (the coarse
+        level's sorted keys, KEY_PAD padding); parent_valid: bool [B, Np].
+      child_key: int32 [B, N] sorted keys of the finer level.
+      offsets: [K, 3] kernel offsets (K2_OFFSETS, or the k=3 cube centred
+        on ``parent * stride``).
+    Returns ``(idx int32 [K, B, Np], hit bool [K, B, Np])``; a miss's
+    ``idx`` is its query's clamped rank (compare ``idx`` where ``hit``).
+    """
+    from ..sparse.types import COORD_BITS
+
+    offsets = [tuple(int(v) for v in d) for d in offsets]
+    deltas = [(d[0] << (2 * COORD_BITS)) + (d[1] << COORD_BITS) + d[2]
+              for d in offsets]
+    qbase = child_query_base(parent_key, parent_valid, stride)
+    qbits = border_bits(parent_off, parent_valid, offsets, scaled=stride)
+    return rank_lookup(child_key, qbase, deltas, qbits)

@@ -14,9 +14,11 @@ through the autograd Functions of ``ops/conv.py`` (``SkConvFn``,
 the same kernels over the reverse maps and the dW kernels; the trainers
 build tables where ``hierarchy.train_uses_k3_tables`` says the JAX train
 step does.  Where autograd records nothing (inference under ``no_grad``)
-they call the forward wrappers directly.  ``q8=True`` routes the convs to the
-int8 wrappers of ``ops/conv_q8.py`` (inference only), quantising with the
-calibrated ``act_absmax`` when one is given, else the dynamic absmax.
+they call the forward wrappers directly.  The strided map conv of the
+sparse ResNets (:func:`conv_kernel_map`) is inference only.  ``q8=True``
+routes the convs to the int8 wrappers of ``ops/conv_q8.py`` (inference
+only), quantising with the calibrated ``act_absmax`` when one is given,
+else the dynamic absmax.
 """
 
 from __future__ import annotations
@@ -24,8 +26,8 @@ from __future__ import annotations
 import torch
 
 from ..ops.conv import (DownConvFn, K3MapConvFn, SkConvFn, UpConvFn,
-                        gather_gemm_down, gather_gemm_k3_map, gather_gemm_sk,
-                        gather_gemm_up)
+                        gather_gemm_down, gather_gemm_k3_map, gather_gemm_map,
+                        gather_gemm_sk, gather_gemm_up)
 from ..ops.conv_q8 import (gather_gemm_down_q8, gather_gemm_k3_map_q8,
                            gather_gemm_sk_q8, gather_gemm_up_q8)
 
@@ -99,6 +101,42 @@ def conv_transpose_up(feats, weights, coarse_level, fine_level, bias=None,
     else:
         out = gather_gemm_up(feats, w, *maps)
     return _with_bias(out, bias, fine_level.valid)
+
+
+def conv_kernel_map(feats, weights, nbr_idx, nbr_hit, out_valid,
+                    bias=None):
+    """Generic sparse conv over an explicit kernel map into another level:
+    ``out[i] = sum_k hit[k, i] * feats[idx[k, i]] @ W[k]`` (the strided map
+    conv, K3's map mode), then the bias in the feature dtype and the
+    invalid output rows zeroed.
+
+    Inference only, as the reference's ``gather_gemm_conv`` route (no
+    VJP): a call that autograd would record raises ``ValueError``."""
+    w = weights.to(feats.dtype)
+    if _recorded(feats, w):
+        raise ValueError("conv_kernel_map: the strided map conv has no "
+                         "backward (inference only); run under no_grad")
+    out = gather_gemm_map(feats, w, nbr_idx, nbr_hit)
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    return torch.where(out_valid[..., None], out, 0.0)
+
+
+def max_pool_down(feats, fine_level, coarse_level):
+    """Max pool over the coarse level's child map (fine -> coarse): the
+    masked max over the hit children, 0 where none hit (``-inf`` -> 0) and
+    on invalid coarse rows.  Plain tensor code, as in JAX (no kernel)."""
+    del fine_level  # the child map lives on the coarse level
+    neg = torch.full((), float("-inf"), dtype=feats.dtype,
+                     device=feats.device)
+    acc = None
+    for idx, hit in zip(coarse_level.child_idx, coarse_level.child_hit):
+        g = feats.gather(1, idx.long()[..., None].expand(
+            -1, -1, feats.shape[-1]))
+        g = torch.where(hit[..., None], g, neg)
+        acc = g if acc is None else torch.maximum(acc, g)
+    acc = torch.where(torch.isfinite(acc), acc, 0.0)
+    return torch.where(coarse_level.valid[..., None], acc, 0.0)
 
 
 def conv1x1(feats, weights, valid, bias=None):

@@ -1,6 +1,7 @@
 """Coordinate hierarchy for sparse U-Nets (port of
 ``mrcc_tpu/sparse/hierarchy.py``: the self-keyed and the k3-table routes of
-inference and of training).
+inference and of training, and the strided pyramid of the sparse ResNets,
+:func:`downsample_level`).
 
 Per stride level: the unique voxel set (sorted packed keys), parent links
 into the next-coarser level (``parent_idx``, ``parent_ok``, ``octant``) for
@@ -11,7 +12,10 @@ kernel read (port of ``ops/rank_pallas.py::sk_bits``; plain tensor code,
 no kernel), and on the levels :func:`uses_k3_tables` (inference) or
 :func:`train_uses_k3_tables` (training) names, the 27-offset neighbour
 tables ``nbr_idx``/``nbr_hit`` built by the rank kernel
-(:func:`neighbor_tables`).
+(:func:`neighbor_tables`).  :func:`downsample_level` builds one coarser
+level for any (kernel size, stride): parents by floor division and a
+strided child map from the rank kernel's child-table mode
+(``ops.rank.child_tables``).
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..ops.rank import rank_lookup
+from ..ops.rank import border_bits, child_tables, rank_lookup
 from .quantize import run_ids, segment_ids, segment_min, segment_sum
 from .sorting import argsort_keys
 from .types import (COORD_BITS, COORD_RANGE, KEY_PAD, SparseVoxels,
@@ -57,19 +61,18 @@ def k3_bits(off, valid):
     """Per-row k=3 query-validity bitmap ``[B, N]`` int32: bit k is set iff
     the row is valid and ``off + K3_OFFSETS[k]`` lies inside the coordinate
     window (``rank_pallas.sk_bits`` over ``_border_qvalid``)."""
-    ax = [off[..., i] for i in range(3)]
-    lo = [ax[i] >= 1 for i in range(3)]                  # d = -1 stays >= 0
-    hi = [ax[i] < COORD_RANGE - 1 for i in range(3)]     # d = +1 stays < 1024
-    bits = torch.zeros_like(off[..., 0], dtype=torch.int32)
-    for k, d in enumerate(K3_OFFSETS):
-        m = valid
-        for i in range(3):
-            if d[i] < 0:
-                m = m & lo[i]
-            elif d[i] > 0:
-                m = m & hi[i]
-        bits = bits | (m.to(torch.int32) << k)
-    return bits
+    return border_bits(off, valid, K3_OFFSETS)
+
+
+def kernel_offsets(kernel_size: int) -> np.ndarray:
+    """Offsets of a strided conv's kernel: K2_OFFSETS for k=2, else the
+    k^3 cube centred on ``parent * stride`` (z fastest; K3_OFFSETS for
+    k=3), as ``downsample_level`` enumerates them."""
+    if kernel_size == 2:
+        return K2_OFFSETS
+    r = range(-(kernel_size // 2), kernel_size // 2 + 1)
+    return np.array([[dx, dy, dz] for dx in r for dy in r for dz in r],
+                    dtype=np.int32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,18 +157,24 @@ def neighbor_tables(level: Level):
     return rank_lookup(level.key, level.key, K3_DELTAS, level.kbits)
 
 
-def downsample(off, valid, capacity):
-    """Stride-2 parents of one level (``_downsample_sort`` +
-    ``_downsample_one(child_table=True)``, batched).
+def downsample(off, valid, capacity, stride=2, child_table=True):
+    """Stride-``stride`` parents of one level (``_downsample_sort`` +
+    ``_downsample_one``, batched).
 
     One stable sort of the parent keys does everything: the sorted run id of
-    a child is its parent's slot, scattered back through the permutation,
-    and ``(run_id, octant)`` addresses the child map (each slot/octant pair
-    holds at most one child).  Returns ``(coarse Level, parent_idx,
-    parent_ok, octant)``.
+    a child is its parent's slot, scattered back through the permutation.
+    With ``child_table`` (stride 2 only) ``(run_id, octant)`` also
+    addresses the k=2 s=2 child map (each slot/octant pair holds at most
+    one child).  ``octant`` packs ``off % stride`` per axis into bits 2, 1
+    and 0 as JAX does: for stride 3 the fields overlap (ROADMAP C24) and no
+    conv reads them.  Returns ``(coarse Level, parent_idx, parent_ok,
+    octant)``.
     """
+    if child_table and stride != 2:
+        raise ValueError(f"child_table by scatter needs stride 2, not "
+                         f"{stride}")
     b, n = valid.shape
-    p_key = torch.where(valid, pack_key(off // 2), KEY_PAD)
+    p_key = torch.where(valid, pack_key(off // stride), KEY_PAD)
     skey, order = argsort_keys(p_key)
     order_l = order.long()
     run_id = run_ids(skey)
@@ -186,9 +195,13 @@ def downsample(off, valid, capacity):
     parent_idx.scatter_(1, order_l, torch.clamp_max(run_id, capacity - 1))
     parent_ok = torch.zeros((b, n), dtype=torch.bool, device=off.device)
     parent_ok.scatter_(1, order_l, ok)
-    octant = (((off[..., 0] % 2) << 2) | ((off[..., 1] % 2) << 1)
-              | (off[..., 2] % 2))
+    octant = (((off[..., 0] % stride) << 2) | ((off[..., 1] % stride) << 1)
+              | (off[..., 2] % stride))
     octant = torch.where(valid, octant, 0).to(torch.int32)
+    count = uvalid.sum(dim=1, dtype=torch.int32)
+    if not child_table:
+        return (Level(off=uoff, key=ukey, valid=uvalid, count=count),
+                parent_idx, parent_ok, octant)
 
     oct_s = octant.gather(1, order_l)
     slot = torch.where(ok, run_id * 8 + oct_s, capacity * 8).long()
@@ -200,8 +213,7 @@ def downsample(off, valid, capacity):
     chit.scatter_(1, slot, ok)
     child_idx = cidx[:, :capacity * 8].reshape(b, capacity, 8).permute(2, 0, 1)
     child_hit = chit[:, :capacity * 8].reshape(b, capacity, 8).permute(2, 0, 1)
-    coarse = Level(off=uoff, key=ukey, valid=uvalid,
-                   count=uvalid.sum(dim=1, dtype=torch.int32),
+    coarse = Level(off=uoff, key=ukey, valid=uvalid, count=count,
                    child_idx=child_idx.contiguous(),
                    child_hit=child_hit.contiguous())
     return coarse, parent_idx, parent_ok, octant
@@ -262,3 +274,55 @@ def build_hierarchy(voxels: SparseVoxels, depth: int,
         cur = coarse
     levels.append(with_k3(cur, tables[-1]))
     return tuple(levels)
+
+
+def child_table_plain(parent_off, parent_valid, child_key, offsets, stride=2):
+    """Plain twin of ``ops.rank.child_tables`` (JAX ``_child_table_one``,
+    batched): per offset d, the coordinates ``parent * stride + d`` packed
+    and searched in the sorted child keys.  Returns ``(idx [K, B, Np]
+    int32 clamped to N - 1, hit [K, B, Np] bool)``."""
+    n = child_key.shape[1]
+    key = child_key.contiguous()
+    idx, hit = [], []
+    for d in np.asarray(offsets):
+        q_off = parent_off.to(torch.int32) * stride + torch.as_tensor(
+            d, dtype=torch.int32, device=parent_off.device)
+        in_range = ((q_off >= 0) & (q_off < COORD_RANGE)).all(dim=-1)
+        q = torch.where(parent_valid & in_range, pack_key(q_off), KEY_PAD)
+        i = torch.searchsorted(key, q.contiguous()).clamp_max(n - 1)
+        idx.append(i.to(torch.int32))
+        hit.append((key.gather(1, i) == q) & (q < KEY_PAD))
+    return torch.stack(idx), torch.stack(hit)
+
+
+def downsample_level(level: Level, capacity: int, stride: int = 2,
+                     kernel_size: int = 2, build_k3: bool = True):
+    """The next-coarser level for a (kernel_size, stride) conv (port of
+    ``mrcc_tpu/sparse/hierarchy.py::downsample_level``), the sparse ResNet's
+    pyramid: its k=3 s=2 stem, k=2 s=2 pools and stages, k=3 s=3 conv5.
+
+    Parents are the unique ``off // stride`` within ``capacity`` (children
+    of parents past it get ``parent_ok`` False and no entry in any map).
+    The coarse level carries the strided kernel map ``child_idx`` /
+    ``child_hit`` [K, B, Np] (K = 8 for k=2, 27 for k=3, offsets centred on
+    ``parent * stride``) from the rank kernel's child-table mode, and with
+    ``build_k3`` its ``kbits`` and 27-offset neighbour tables (the JAX
+    function always builds tables here, never a self-keyed pack).
+    Returns ``(fine level with parent links, coarse level)``.
+    """
+    coarse, parent_idx, parent_ok, octant = downsample(
+        level.off, level.valid, capacity, stride=stride, child_table=False)
+    child_idx, child_hit = child_tables(
+        coarse.off, coarse.key, coarse.valid, level.key,
+        kernel_offsets(kernel_size), stride=stride)
+    fine = dataclasses.replace(level, parent_idx=parent_idx,
+                               parent_ok=parent_ok,
+                               row_ok=level.valid & parent_ok, octant=octant)
+    coarse = dataclasses.replace(coarse, child_idx=child_idx,
+                                 child_hit=child_hit)
+    if build_k3:
+        coarse = dataclasses.replace(coarse, kbits=k3_bits(coarse.off,
+                                                           coarse.valid))
+        idx, hit = neighbor_tables(coarse)
+        coarse = dataclasses.replace(coarse, nbr_idx=idx, nbr_hit=hit)
+    return fine, coarse

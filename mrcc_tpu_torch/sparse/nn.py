@@ -20,6 +20,7 @@ import contextlib
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from . import conv as C
@@ -201,6 +202,74 @@ class SparseBatchNorm(nn.Module):
         return torch.where(valid[..., None], out.to(feats.dtype), 0.0)
 
 
+class SparseInstanceNorm(nn.Module):
+    """Per-item masked instance norm (ME ``MinkowskiInstanceNorm``, eps
+    1e-5), affine ``scale`` / ``bias``.  Unlike :class:`SparseBatchNorm`
+    the statistics are computed in the *feature* dtype, as the JAX module
+    does (sums accumulate in f32 and round to it, as ``jnp.sum``); the
+    affine step promotes to the parameters' dtype (f32 parameters turn a
+    bf16 input into an f32 output, as in JAX)."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, feats, valid):
+        dtype = feats.dtype
+        v = valid[..., None].to(dtype)
+
+        def masked_sum(x):
+            return x.float().sum(dim=1, keepdim=True).to(dtype)
+
+        n = torch.clamp_min(masked_sum(v), 1.0)
+        mean = masked_sum(feats * v) / n
+        var = masked_sum(((feats - mean) ** 2) * v) / n
+        out = (feats - mean) * torch.rsqrt(var + self.eps)
+        out = out * self.scale + self.bias
+        return torch.where(valid[..., None], out, 0.0)
+
+
+class SparseDropout(nn.Module):
+    """Voxel-feature dropout (ME ``MinkowskiDropout``, flax ``nn.Dropout``):
+    identity in eval mode; in train mode each element is kept with
+    probability ``1 - rate`` and scaled by ``1 / (1 - rate)``.  The mask
+    comes from an explicit ``torch.Generator`` on the features' device,
+    seeded with ``seed`` at its first use there."""
+
+    def __init__(self, rate: float = 0.5, seed: int = 0):
+        super().__init__()
+        self.rate = rate
+        self.seed = seed
+        self._generator = None
+
+    def forward(self, feats):
+        if not self.training or self.rate == 0.0:
+            return feats
+        if self.rate >= 1.0:
+            return torch.zeros_like(feats)
+        gen = self._generator
+        if gen is None or gen.device != feats.device:
+            gen = self._generator = torch.Generator(
+                device=feats.device).manual_seed(self.seed)
+        keep_prob = 1.0 - self.rate
+        keep = torch.rand(feats.shape, generator=gen,
+                          device=feats.device) < keep_prob
+        return torch.where(keep, feats / keep_prob, 0.0)
+
+
+def gelu(feats):
+    """GELU with the tanh approximation: ``jax.nn.gelu``'s default (torch's
+    own default is the erf form)."""
+    return F.gelu(feats, approximate="tanh")
+
+
 class SparseLinear(nn.Module):
     """Per-voxel dense layer (ME ``MinkowskiLinear``).  Like flax's
     ``nn.Dense`` with f32 parameters, it computes and returns f32."""
@@ -226,10 +295,18 @@ def reset_linear(linear: nn.Linear, generator: torch.Generator) -> None:
 
 def init_parameters(module: nn.Module, seed: int) -> nn.Module:
     """Random weights for every sparse layer of ``module`` from one seeded
-    CPU ``torch.Generator`` (module order), then BN at identity."""
+    CPU ``torch.Generator`` (module order), then the norms at identity.  A
+    module's raw kernels (the names in its ``raw_kernels``, [K, Cin, Cout]
+    parameters outside a conv module) take the convs' He-normal fan-out
+    draw."""
     gen = torch.Generator().manual_seed(seed)
     for m in module.modules():
-        if isinstance(m, (_KernelConv, SparseBatchNorm)):
+        for name in getattr(m, "raw_kernels", ()):
+            kernel = getattr(m, name)
+            with torch.no_grad():
+                kernel.copy_(torch.randn(kernel.shape, generator=gen)
+                             * math.sqrt(2.0 / kernel.shape[-1]))
+        if isinstance(m, (_KernelConv, SparseBatchNorm, SparseInstanceNorm)):
             m.reset_parameters(gen)
         elif isinstance(m, nn.Linear):
             reset_linear(m, gen)

@@ -32,9 +32,13 @@ keys, overflowed parents, a level of padding rows), and the self-keyed
 and table dW give the same bits on one level.  One vote step (self-keyed)
 and one metric-learning step (every level on tables) hold the card
 against the CPU at the train-step gates (loss 1e-5, gradients 1e-4, the
-update 1e-3, BN statistics 1e-5).
+update 1e-3, BN statistics 1e-5).  The strided map conv holds the conv
+tolerances (two launches bit-equal), the child tables equal the rank
+kernel's plain twin, and the reduced SparseResNet50 (f32 1e-4, bf16 2e-2)
+and AliveUNet (f32 1e-4) hold the card against the CPU.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -1031,3 +1035,170 @@ def test_vote_and_feature_steps_card_vs_cpu(cuda, monkeypatch, head):
                             zip(errs, (1e-5, 1e-4, 1e-3, 1e-5))):
             return
     raise AssertionError(f"no CPU reference holds the card step: {tried}")
+
+
+# ----------------------------------------- the strided pyramid (ResNet)
+
+RESNET_CAPS = (6272, 3136, 1568, 784, 392, 196, 98)
+
+
+@pytest.fixture(scope="module")
+def resnet_levels(cuda):
+    """The full-width ResNet's pyramid: level 0 of B = 8 x 12544 rows (the
+    bench profile's voxels), the k3 s2 stem level, the k2 s2 levels down to
+    196 rows and conv5's k3 s3 level of 98 rows, built on the card."""
+    from mrcc_tpu_torch.geometry import center_at_origin
+    from mrcc_tpu_torch.sparse import downsample_level
+
+    pts, rgb, mask = build_batch(8, 16384, seed=0)
+    m = torch.as_tensor(mask, device=cuda)
+    c, _ = center_at_origin(torch.as_tensor(pts, device=cuda), mask=m)
+    vox, _ = voxelize(c, torch.as_tensor(rgb, device=cuda), m, 1 / 200.0,
+                      12544)
+    (level,) = build_hierarchy(vox, 0)
+    out = [level]
+    for cap, (stride, k) in zip(RESNET_CAPS, [(2, 3)] + [(2, 2)] * 5
+                                + [(3, 3)]):
+        _, level = downsample_level(level, cap, stride=stride, kernel_size=k)
+        out.append((level, stride, k))
+    return out
+
+
+def _level_of(resnet_levels, i):
+    entry = resnet_levels[i]
+    return entry if i == 0 else entry[0]
+
+
+@pytest.mark.parametrize("i", [1, 2, 6, 7])
+def test_child_tables(cuda, resnet_levels, i):
+    """The child-table mode on the card: equal to the rank kernel's plain
+    twin (idx included) and to the searchsorted twin on hits, at the stem
+    (k3 s2), the first pool (k2 s2), the last stage (k2 s2) and conv5
+    (k3 s3)."""
+    from mrcc_tpu_torch.sparse.hierarchy import (child_table_plain,
+                                                 kernel_offsets)
+
+    fine = _level_of(resnet_levels, i - 1)
+    coarse, stride, k = resnet_levels[i]
+    offsets = kernel_offsets(k)
+    args = (coarse.off, coarse.key, coarse.valid, fine.key, offsets)
+    before = rank.RANK.launches
+    idx, hit = rank.child_tables(*args, stride=stride)
+    assert rank.RANK.launches == before + 1
+    assert torch.equal(idx, coarse.child_idx)
+    assert torch.equal(hit, coarse.child_hit)
+    qbase = rank.child_query_base(coarse.key, coarse.valid, stride)
+    deltas = [int(d) for d in offsets @ np.array([1 << 20, 1 << 10, 1])]
+    qbits = rank.border_bits(coarse.off, coarse.valid, offsets, stride)
+    want = rank.rank_lookup_plain(fine.key, qbase, deltas, qbits)
+    assert torch.equal(idx, want[0]) and torch.equal(hit, want[1])
+    p_idx, p_hit = child_table_plain(coarse.off, coarse.valid, fine.key,
+                                     offsets, stride=stride)
+    assert torch.equal(hit, p_hit)
+    assert torch.equal(torch.where(hit, idx, -1), torch.where(hit, p_idx, -1))
+    assert int(hit.sum()) >= int(coarse.valid.sum())
+
+
+@pytest.mark.parametrize("case", ["stem", "conv5", "k2-ragged", "k3-wide"])
+def test_conv_map(cuda, resnet_levels, case):
+    """The strided map conv against its plain twin: the stem (3 -> 64 at
+    8 x 12544 -> 6272), conv5 (2048 -> 2048 at 8 x 196 -> 98), an 8-offset
+    map with ragged widths (130 -> 70) and a 27-offset one past a column
+    tile (96 -> 200); f32 1e-5, bf16 2e-2, two launches bit-equal."""
+    i, cin, cout = {"stem": (1, 3, 64), "conv5": (7, 2048, 2048),
+                    "k2-ragged": (2, 130, 70), "k3-wide": (1, 96, 200)}[case]
+    fine = _level_of(resnet_levels, i - 1)
+    coarse = resnet_levels[i][0]
+    maps = (coarse.child_idx, coarse.child_hit)
+    taps = maps[0].shape[0]
+    f = _feats(fine, cin)
+    w = torch.randn((taps, cin, cout), device=cuda) / np.sqrt(taps * cin)
+    want = conv.gather_gemm_map_plain(f, w, *maps)
+    before = conv.MAP.launches
+    got = conv.gather_gemm_map(f, w, *maps)
+    assert conv.MAP.launches == before + 1
+    assert got.shape == (8, coarse.key.shape[1], cout)
+    assert _rel(got, want) <= 1e-5
+    assert torch.equal(conv.gather_gemm_map(f, w, *maps), got)
+    got16 = conv.gather_gemm_map(f.bfloat16(), w.bfloat16(), *maps)
+    assert got16.dtype == torch.bfloat16 and _rel(got16, want) <= 2e-2
+    assert not got[~coarse.valid].any()
+
+
+def test_conv_map_rejects(cuda, resnet_levels):
+    coarse = resnet_levels[1][0]
+    f = _feats(resnet_levels[0], 3)
+    w = torch.randn((27, 3, 8), device=cuda)
+    idx, hit = coarse.child_idx, coarse.child_hit
+    with pytest.raises(ValueError):
+        conv.gather_gemm_map(f, w[:8], idx, hit)          # K mismatch
+    with pytest.raises(ValueError):
+        conv.gather_gemm_map(f, w.bfloat16(), idx, hit)   # dtype mismatch
+    with pytest.raises(ValueError):
+        conv.gather_gemm_map(f, torch.randn((28, 3, 8), device=cuda),
+                             torch.cat([idx, idx[:1]]),
+                             torch.cat([hit, hit[:1]]))   # K > 27
+    with pytest.raises(ValueError):
+        conv.gather_gemm_map(f, w, idx.long(), hit)       # index dtype
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resnet50_card_vs_cpu(cuda, dtype):
+    """A narrow SparseResNet50 on the card against the same weights on the
+    CPU: logits f32 1e-4, bf16 2e-2; every child map equal on hits."""
+    import copy
+
+    from mrcc_tpu_torch.models import SparseResNet50
+    from mrcc_tpu_torch.sparse import downsample_level
+    from mrcc_tpu_torch.sparse.nn import init_parameters
+
+    pts, rgb, mask = build_batch(2, 4096, seed=5)
+    args = [torch.as_tensor(a) for a in (pts, rgb, mask)]
+    cpu_vox, _ = voxelize(*args, 1 / 100.0, 2048)
+    gpu_vox, _ = voxelize(*(a.to(cuda) for a in args), 1 / 100.0, 2048)
+    (l0c,) = build_hierarchy(cpu_vox, 0)
+    (l0g,) = build_hierarchy(gpu_vox, 0)
+    net = init_parameters(SparseResNet50(3, 7, planes=(8, 16, 16, 32),
+                                         init_dim=16), 1).eval()
+    gnet = copy.deepcopy(net).to(cuda)
+    launches = conv.MAP.launches, rank.RANK.launches
+    with torch.no_grad():
+        want = net(cpu_vox.feats.to(dtype), l0c)
+        got = gnet(gpu_vox.feats.to(dtype), l0g)
+    assert conv.MAP.launches == launches[0] + 2       # stem, conv5
+    assert rank.RANK.launches >= launches[1] + 14     # maps and tables
+    assert _rel(got.cpu(), want) <= (1e-4 if dtype == torch.float32
+                                     else 2e-2)
+    lc, lg = l0c, l0g
+    for cap, stride, k in ((1024, 2, 3), (512, 2, 2), (256, 2, 2),
+                           (64, 3, 3)):
+        _, lc = downsample_level(lc, cap, stride=stride, kernel_size=k)
+        _, lg = downsample_level(lg, cap, stride=stride, kernel_size=k)
+        h = lc.child_hit
+        assert torch.equal(lg.child_hit.cpu(), h)
+        assert torch.equal(torch.where(h, lg.child_idx.cpu(), -1),
+                           torch.where(h, lc.child_idx, -1))
+
+
+@pytest.mark.parametrize("block", ["basic", "bottleneck"])
+def test_aliveunet_card_vs_cpu(cuda, block):
+    """AliveUNet (depth 4, m = 8) on a build_hierarchy pyramid, the card
+    against the CPU with the same weights, f32: 1e-4 in relative norm,
+    padding rows exactly 0."""
+    import copy
+
+    from mrcc_tpu_torch.models import AliveUNet
+    from mrcc_tpu_torch.sparse.nn import init_parameters
+
+    pts, rgb, mask = build_batch(2, 4096, seed=7)
+    args = [torch.as_tensor(a) for a in (pts, rgb, mask)]
+    caps = (1024, 512, 256, 128)
+    cpu_vox, _ = voxelize(*args, 1 / 100.0, 2048)
+    gpu_vox, _ = voxelize(*(a.to(cuda) for a in args), 1 / 100.0, 2048)
+    net = init_parameters(AliveUNet(3, 5, m=8, depth=4, block=block), 2)
+    gnet = copy.deepcopy(net).to(cuda)
+    with torch.no_grad():
+        want = net.eval()(cpu_vox.feats, build_hierarchy(cpu_vox, 4, caps))
+        got = gnet.eval()(gpu_vox.feats, build_hierarchy(gpu_vox, 4, caps))
+    assert _rel(got.cpu(), want) <= 1e-4
+    assert not got[~gpu_vox.valid].any()

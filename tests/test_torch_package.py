@@ -66,7 +66,8 @@ def test_no_jax_in_the_port_process():
     assert len(info["modules"]) >= 20
     for name in ("data.augmentation", "data.dataset", "data.labels",
                  "data.ycb", "models.featurenet", "solve.vote",
-                 "train.metric_learning"):
+                 "train.metric_learning", "models.resnet_sparse",
+                 "models.aliveunet"):
         assert f"mrcc_tpu_torch.{name}" in info["modules"], name
     assert "ee_pose" in info["keys"]
     leaked = [m for m in info["loaded"] if _forbidden(m)]
