@@ -16,8 +16,10 @@ levels on tables: the table conv's autograd Function and the k3-table dW
 kernel), pose training (``make_pose_train_step``), the user's path to
 the extrinsic (an engine from checkpoint paths, ``predict`` frame by frame,
 ``calibrate``), the voting, sparse keypoint and feature-extractor train
-steps, the sparse ResNet50 classifier on its strided pyramid and the
-engine on the minkunet50 (bottleneck) backbone.  Phases, each
+steps, the sparse ResNet50 classifier on its strided pyramid, the
+engine on the minkunet50 (bottleneck) backbone, and the dense PointNet2
+path (the engine's ``kp_backbone="pointnet2"`` stage, dense keypoint and
+keypoint-to-pose training).  Phases, each
 printing one line and its wall time (any failure exits non-zero before the
 last line):
 
@@ -181,7 +183,26 @@ last line):
     engine pair with minkunet50 seg and keypoint nets, then the minkunet50
     engine on phase 6's bench inputs in bf16 and in f32, each timed as
     phase 6 (clouds/s, stages, profiler, launches of every kernel of its
-    k3 route).
+    k3 route);
+15. the dense PointNet2 path (``dense``; no kernel of its own: its point
+    ops are plain PyTorch, as the JAX package's are plain ``jnp``): (a)
+    phase 4's small f32 engine with ``kp_backbone="pointnet2"`` (crops of
+    1024 points, 512 dense inputs), uniform and farthest sampling, card vs
+    CPU: the crop and the integer outputs equal, every FPS index equal,
+    ball groups equal but for rows with a member whose f64 squared
+    distance lies within 1e-6 of r^2 (counted), poses 1e-3; then the
+    card's dense stage again with ``allow_tf32 = True``: the same indices
+    and keypoints; (b) phase 6's inputs and configuration with the dense
+    stage (2048 dense inputs), uniform, farthest and int8 + uniform, each
+    as phase 6 (K1-K3 and, in int8, B6 / B7 launches > 0, no plain twin)
+    with the keypoint stage split into sampling, model and Kabsch, and
+    the FPS calls' ms, steps and CUDA launches on a line of their own
+    (``dense_fps``); (c) dense keypoint training (PointNet2SSG, B = 32 x
+    2048 FPS samples) and (d) keypoint-to-pose training (a frozen
+    PointNet2SSG feeding PointNet(7), B = 32 x 4096 uniform samples), each
+    first one step card vs CPU in float64 at phase 5's gates (f32 reported
+    beside the CPU's own spread: ROADMAP C31), then timed as phase 7 and
+    run to 20 steps, whose loss must fall.
 
 ``python3 chip_smoke.py --calibrate`` builds the kernels and runs only
 phase 11, ``--train-more`` only phase 12.  ``--pose-k2`` builds them and runs only that
@@ -190,7 +211,8 @@ K2 breakdown; ``--dw`` (``--k3``) builds them and times each dW launch
 kernel and shape (CUDA events), ``--inference`` runs only phase 6 and
 ``--q8`` only phase 3's int8 cases and phase 8, ``--int8`` only phases 6
 and 8, to compare two versions of the kernels in one call (copy this file
-into a checkout of the other version).  ``--resnet`` builds the kernels and runs only phases 13 and 14.
+into a checkout of the other version).  ``--resnet`` builds the kernels and runs only phases 13 and 14,
+``--dense`` only phase 15.
 ``--rank-nn`` times the rank and
 NN kernels at phase 3's shapes under several values of their wrappers'
 constants (rank: query rows a block and shared-window keys; NN: blocks in
@@ -3278,6 +3300,471 @@ def phase_bottleneck(counters, iters=8):
     return out
 
 
+# ------------------------------------------------- the dense PointNet2 path
+
+DENSE_POINTS = 2048    # num_of_dense_input_points (override_key_points.yaml)
+KP_POSE_POINTS = 4096  # override_kp_to_pose.yaml's dense sample
+DENSE_BATCH = 32       # both overrides' batch_size
+DENSE_SEED = 70        # the dense training batches' first scene
+# the frozen keypoint predictor of (d): its head's weights scaled so that a
+# random net's softmax passes the 0.75 gate (in eval mode its logits are
+# ~1e-2: no class is found and kp_pose_match is 0; scaled, one class of
+# six is found in each cloud)
+KP_HEAD_SCALE = 300.0
+BALL_EDGE = 1e-6  # a ball row may differ where a member's f64 d2 is this
+                  # close to r^2
+
+
+@contextlib.contextmanager
+def dense_index_calls():
+    """Record every FPS and ball query of a run, in order: ``("fps",
+    (xyz, npoint), idx)`` and ``("ball", (radius, xyz, new_xyz), idx)``
+    (the model and the engine look both up on ``ops.points``)."""
+    from mrcc_tpu_torch.ops import points
+
+    calls = []
+    fps, ball = points.farthest_point_sample, points.query_ball_point
+
+    def rec_fps(xyz, npoint, start_idx=0):
+        out = fps(xyz, npoint, start_idx)
+        calls.append(("fps", (xyz, npoint), out))
+        return out
+
+    def rec_ball(radius, nsample, xyz, new_xyz):
+        out = ball(radius, nsample, xyz, new_xyz)
+        calls.append(("ball", (radius, xyz, new_xyz), out))
+        return out
+
+    points.farthest_point_sample, points.query_ball_point = rec_fps, rec_ball
+    try:
+        yield calls
+    finally:
+        points.farthest_point_sample, points.query_ball_point = fps, ball
+
+
+def _fps_divergence(xyz, got, want):
+    """Where two FPS index rows first part: the step, both picks and the
+    f64 distance of each to the points picked before (the step's key)."""
+    b, i = [int(v) for v in (got != want).nonzero()[0]]
+    x = xyz[b].double()
+    chosen = x[want[b, :i].long()]
+    d = lambda j: float(((x[j] - chosen) ** 2).sum(-1).min())  # noqa: E731
+    return dict(item=b, step=i, card=int(got[b, i]), cpu=int(want[b, i]),
+                card_d2_f64=d(int(got[b, i])), cpu_d2_f64=d(int(want[b, i])))
+
+
+def compare_dense_calls(gpu_calls, cpu_calls):
+    """Card against CPU record of :func:`dense_index_calls`: FPS indices
+    exactly (a difference raises, with :func:`_fps_divergence`); ball
+    groups exactly except rows where a point's f64 squared distance to
+    the query lies within BALL_EDGE of r^2 (counted).  Returns the
+    counts."""
+    if [c[0] for c in gpu_calls] != [c[0] for c in cpu_calls]:
+        raise AssertionError("dense card vs CPU: other FPS / ball calls")
+    report = {"fps_calls": 0, "fps_indices": 0, "ball_calls": 0,
+              "ball_rows": 0, "ball_rows_differ": 0, "ball_rows_at_edge": 0}
+    for (kind, args, got), (_, cargs, want) in zip(gpu_calls, cpu_calls):
+        got = got.cpu()
+        if kind == "fps":
+            report["fps_calls"] += 1
+            report["fps_indices"] += want.numel()
+            if not torch.equal(got, want):
+                raise AssertionError(f"dense card vs CPU: FPS indices differ "
+                                     f"{_fps_divergence(cargs[0], got, want)}")
+            continue
+        radius, xyz, new_xyz = cargs
+        report["ball_calls"] += 1
+        report["ball_rows"] += want.shape[0] * want.shape[1]
+        rows = (got != want).any(-1).nonzero().tolist()
+        report["ball_rows_differ"] += len(rows)
+        for b, s in rows:
+            d2 = ((xyz[b].double() - new_xyz[b, s].double()) ** 2).sum(-1)
+            if not bool(((d2 - radius ** 2).abs() < BALL_EDGE).any()):
+                raise AssertionError(
+                    f"dense card vs CPU: ball row {(b, s)} at radius "
+                    f"{radius} differs with no member at the edge")
+            report["ball_rows_at_edge"] += 1
+    return report
+
+
+def _dense_small_config(method):
+    """Phase 4's small f32 engine with the dense keypoint stage: B = 2,
+    crops of 1024 points, 512 dense inputs."""
+    from mrcc_tpu_torch.app import InferenceConfig, measure_seg_caps
+    from mrcc_tpu_torch.data.synthetic import build_batch
+
+    pts, rgb, mask = build_batch(2, 2048, seed=11)
+    caps = measure_seg_caps(pts, rgb, mask, device="cpu")
+    cfg = InferenceConfig(
+        point_capacity=2048, seg_voxel_capacity=caps[0],
+        seg_hierarchy_caps=caps[1:], ee_point_capacity=1024,
+        ee_voxel_capacity=1024, ee_hierarchy_caps=(512, 256, 128, 64),
+        icp_iterations=15, icp_template_points=512,
+        seg_backbone="minkunet18", rot_backbone="minkunet18",
+        kp_backbone="pointnet2", kp_sampling_method=method,
+        num_of_dense_input_points=512, compute_dtype="float32")
+    return (pts, rgb, mask), cfg
+
+
+def phase_dense_card_vs_cpu():
+    """Phase 15 (a): the dense engine on the card against the CPU, same
+    weights, f32, both sampling methods: the crop and every integer
+    output equal, every FPS index equal, ball groups as
+    :func:`compare_dense_calls`, poses 1e-3; then the card's dense stage
+    again with ``torch.backends.cuda.matmul.allow_tf32 = True``: the same
+    indices and outputs bit for bit."""
+    from mrcc_tpu_torch.app import InferenceEngine
+
+    out = {}
+    for method in ("uniform", "farthest"):
+        (pts, rgb, mask), cfg = _dense_small_config(method)
+        cpu = InferenceEngine(cfg, device="cpu", seed=3)
+        gpu = InferenceEngine(cfg, device="cuda", seed=5)
+        for stage, model in gpu.models().items():
+            model.load_state_dict(cpu.models()[stage].state_dict())
+        seg = {}
+        for name, eng in (("cpu", cpu), ("cuda", gpu)):
+            args = [torch.as_tensor(a, device=eng.device)
+                    for a in (pts, rgb, mask)]
+            seg[name] = [t.cpu() if torch.is_tensor(t) else t
+                         for t in eng.seg_stage(*args)]
+        if not all(torch.equal(a, b) for a, b in zip(seg["cpu"],
+                                                     seg["cuda"])):
+            raise AssertionError(f"dense card vs CPU ({method}): the "
+                                 "segmentation stage differs")
+        ee = seg["cpu"][2:5]
+        with dense_index_calls() as cpu_calls:
+            want = cpu.kp_stage(*ee)
+        ee_g = [t.cuda() for t in ee]
+        with dense_index_calls() as gpu_calls:
+            got = [t.cpu() for t in gpu.kp_stage(*ee_g)]
+        report = compare_dense_calls(gpu_calls, cpu_calls)
+        for i, k in ((1, "kp_ok"), (2, "kp_coords"), (3, "kp_found")):
+            if not torch.equal(got[i], want[i]):
+                raise AssertionError(f"dense card vs CPU ({method}): {k} "
+                                     "differs")
+        pos_err = float((got[0][:, :3] - want[0][:, :3]).abs().max())
+        ok_q, q_err = _quat_close(got[0][:, 3:], want[0][:, 3:], 1e-3)
+        if pos_err > 1e-3 or not ok_q:
+            raise AssertionError(f"dense card vs CPU ({method}): kp_pose off "
+                                 f"by {pos_err}, {q_err}")
+        full = {k: v.cpu() for k, v in gpu.predict_batch_arrays(
+            *[torch.as_tensor(a, device="cuda")
+              for a in (pts, rgb, mask)]).items()}
+        full_cpu = cpu.predict_batch_arrays(pts, rgb, mask)
+        for k in ("segmentation", "ee_count", "kp_found", "kp_ok"):
+            if not torch.equal(full[k], full_cpu[k]):
+                raise AssertionError(f"dense card vs CPU ({method}): "
+                                     f"predict_batch_arrays {k} differs")
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            with dense_index_calls() as tf32_calls:
+                tf32 = [t.cpu() for t in gpu.kp_stage(*ee_g)]
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        # indices, keypoints and confidences; Kabsch's own 3 x 3 matmuls
+        # follow the global flag
+        same = (len(tf32_calls) == len(gpu_calls)
+                and all(torch.equal(a[2], b[2])
+                        for a, b in zip(tf32_calls, gpu_calls)))
+        if not (same and all(torch.equal(tf32[i], got[i])
+                             for i in (1, 2, 3, 4))):
+            raise AssertionError(f"dense ({method}): TF32 on moved the "
+                                 "dense stage's indices or keypoints")
+        out[method] = dict(report, ee_count=seg["cpu"][1].tolist(),
+                           kp_found=int(want[3].sum()),
+                           kp_pose_err={"pos": pos_err, "quat": q_err},
+                           tf32_same_indices=same,
+                           tf32_kp_pose_max_diff=float(
+                               (tf32[0] - got[0]).abs().max()))
+    log("dense_card_vs_cpu", **out)
+
+
+def _fps_profile(shapes):
+    """CUDA kernel launches and device ms of the FPS calls ``shapes``
+    ((B, N, npoint) each) on random clouds, under torch.profiler."""
+    from mrcc_tpu_torch.ops import points
+
+    clouds = [(torch.rand((b, n, 3), device="cuda"), k)
+              for b, n, k in shapes]
+    launches = {}
+    device_ms = profile_device_ms(
+        lambda: [points.farthest_point_sample(x, k) for x, k in clouds],
+        launches)
+    return sum(launches.values()), sum(device_ms.values())
+
+
+def _dense_kp_split(engine, p, c, m, variant):
+    """One batch's dense keypoint stage split into the sample (with its
+    FPS when farthest), the model (its set abstractions' FPS timed apart)
+    and the keypoints + Kabsch, synchronised at each boundary; the FPS
+    calls' ms, steps and CUDA launches are logged on a line of their own
+    (``dense_fps``)."""
+    from mrcc_tpu_torch.ops import points
+
+    ee = engine.seg_stage(p, c, m)[2:5]
+    fps, calls = points.farthest_point_sample, []
+
+    def timed_fps(xyz, npoint, start_idx=0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fps(xyz, npoint, start_idx)
+        torch.cuda.synchronize()
+        calls.append((tuple(xyz.shape[:2]) + (npoint,),
+                      time.perf_counter() - t0))
+        return out
+
+    split = {}
+    points.farthest_point_sample = timed_fps
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        x, order, s_valid = engine.dense_sample(*ee)
+        torch.cuda.synchronize()
+        split["sampling"] = time.perf_counter() - t
+        n_sample = len(calls)
+        t = time.perf_counter()
+        with torch.no_grad(), points.full_f32():
+            logits, _ = engine.kp_model(x)
+        torch.cuda.synchronize()
+        split["model"] = time.perf_counter() - t
+    finally:
+        points.farthest_point_sample = fps
+    t = time.perf_counter()
+    engine.dense_key_points(logits, order, s_valid, ee[0], ee[2])
+    torch.cuda.synchronize()
+    split["kabsch"] = time.perf_counter() - t
+    split = {k: 1e3 * v for k, v in split.items()}
+    split["fps_in_sampling"] = 1e3 * sum(s for _, s in calls[:n_sample])
+    split["fps_in_model"] = 1e3 * sum(s for _, s in calls[n_sample:])
+    shapes = [s for s, _ in calls]
+    launches, device_ms = _fps_profile(shapes)
+    fps_ms = split["fps_in_sampling"] + split["fps_in_model"]
+    log("dense_fps", variant=variant, calls=shapes,
+        steps=sum(k for _, _, k in shapes), ms=fps_ms,
+        share_of_kp=fps_ms / (split["sampling"] + split["model"]
+                              + split["kabsch"]),
+        cuda_launches=launches, device_ms=device_ms, card=smi_line())
+    return split
+
+
+def phase_dense(counters, q8_counters, iters=12):
+    """Phase 15 (b): the bench configuration (B = 8, P = 16384, phase 6's
+    inputs) with ``kp_backbone="pointnet2"`` and 2048 dense inputs, by
+    uniform and by farthest sampling, and int8 + uniform (after
+    ``calibrate_q8``), each as phase 6 (launches of one batch with no
+    plain twin, 12 batches timed, stages, profiler, sanity, peak memory)
+    with the keypoint stage split by :func:`_dense_kp_split`.  Returns
+    each variant's launches."""
+    from mrcc_tpu_torch.app import InferenceEngine
+
+    (pts, rgb, mask), caps, _ = bench_levels(torch.device("cuda"))
+    variants = (("dense_uniform", {}, counters),
+                ("dense_farthest", dict(kp_sampling_method="farthest"),
+                 counters),
+                # the int8 seg net's up convs are int8; the rotation
+                # encoder has none in bf16
+                ("dense_int8", dict(conv_impl="pallas-int8"),
+                 [c for c in counters if c.name != "conv_up"]
+                 + q8_counters))
+    out = {}
+    for name, kw, ctrs in variants:
+        engine = InferenceEngine(bench_config(
+            pts, caps, kp_backbone="pointnet2",
+            num_of_dense_input_points=DENSE_POINTS, **kw), seed=0)
+        dev = engine.device
+        p, c, m = (torch.as_tensor(a, device=dev) for a in (pts, rgb, mask))
+        if "conv_impl" in kw:
+            engine.calibrate_q8(p, c, m)
+        torch.cuda.reset_peak_memory_stats()
+        engine.predict_batch_arrays(p, c, m)  # warm-up
+        torch.cuda.synchronize()
+        for ctr in ctrs:
+            ctr.launches = 0
+        with plain_calls() as plain:
+            res = engine.predict_batch_arrays(p, c, m)
+            torch.cuda.synchronize()
+        launches = {ctr.name: ctr.launches for ctr in ctrs}
+        if min(launches.values()) <= 0 or plain:
+            raise AssertionError(f"{name}: a kernel never ran or a plain "
+                                 f"twin did: {launches}, {plain}")
+        report = _inference_report(engine, (p, c, m), res, iters)
+        split = _dense_kp_split(engine, p, c, m, name)
+        log(name, batch=int(pts.shape[0]), points=int(pts.shape[1]),
+            dense_points=DENSE_POINTS, seg_caps=list(caps),
+            launches=launches, kp_split_ms=split,
+            kp_found=res["kp_found"].sum(dim=-1).tolist(), **report)
+        out[name] = launches
+        del engine
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dense_batch(n, num_points, sampling, seed=DENSE_SEED):
+    """``n`` AliveV2DenseDataset items (keypoint labels, unit-scaled
+    coordinates as features) of synthetic scenes ``seed``, ``seed + 1``,
+    ..., collated."""
+    from mrcc_tpu_torch.data.dataset import DataConfig
+    from mrcc_tpu_torch.data.dense import AliveV2DenseDataset
+    from mrcc_tpu_torch.data.synthetic import generate_sample
+
+    data = AliveV2DenseDataset(
+        samples=[generate_sample(seed=seed + i) for i in range(n)],
+        cfg=DataConfig(keypoints_enabled=True), num_points=num_points,
+        sampling=sampling)
+    items = [data[i] for i in range(n)]
+    if any(it is None for it in items):
+        raise AssertionError(f"a crop under {num_points} points")
+    return data.collate(items)
+
+
+@contextlib.contextmanager
+def cpu_masks(*models):
+    """Every dropout of ``models`` draws its mask on the CPU from a fresh
+    generator seeded with its seed, then moves it to the features' device:
+    one mask a shape on the card and on the CPU, call after call."""
+    from mrcc_tpu_torch.sparse.nn import SparseDropout
+
+    mods = [m for model in models for m in model.modules()
+            if isinstance(m, SparseDropout)]
+
+    def fixed(self, feats):
+        if not self.training:
+            return feats
+        gen = torch.Generator().manual_seed(self.seed)
+        keep = (torch.rand(feats.shape, generator=gen) < 1 - self.rate).to(
+            feats.device)
+        return torch.where(keep, feats / (1 - self.rate), 0.0)
+
+    for m in mods:
+        m.forward = fixed.__get__(m)
+    try:
+        yield
+    finally:
+        for m in mods:
+            del m.forward
+
+
+def _dense_cells():
+    """Phase 15 (c) and (d): ``(name, model, step factory (model, device,
+    capacity), full-width batch, reduced model, reduced batch, zero_grad)``;
+    the reduced batches are B = 2 x 1024."""
+    from mrcc_tpu_torch.models import PointNet, PointNet2SSG
+    from mrcc_tpu_torch.sparse.nn import init_parameters
+    from mrcc_tpu_torch.train import (TrainConfig,
+                                      make_dense_key_point_train_step,
+                                      make_kp_to_pose_train_step)
+
+    def kp_net(seed, dropout_seed=0):
+        return init_parameters(PointNet2SSG(num_classes=6,
+                                            dropout_seed=dropout_seed), seed)
+
+    predictor = kp_net(0)
+    with torch.no_grad():
+        predictor.conv2.weight.mul_(KP_HEAD_SCALE)
+
+    def make_kp(model, dev, _cap):
+        return make_dense_key_point_train_step(model, TrainConfig(),
+                                               device=dev)[0]
+
+    def make_pose(model, dev, _cap):
+        frozen = copy.deepcopy(predictor).to(next(model.parameters()).dtype)
+        return make_kp_to_pose_train_step(model, frozen, TrainConfig(), True,
+                                          device=dev)[0]
+
+    def pose_net():
+        return init_parameters(PointNet(out_channels=7, in_channels=4,
+                                        dropout_seed=1), 1)
+
+    return (("dense_key_points", kp_net(1, 1), make_kp,
+             _dense_batch(DENSE_BATCH, DENSE_POINTS, "farthest"),
+             kp_net(2, 1), _dense_batch(2, 1024, "farthest"), ("conv1.bias",)),
+            ("kp_to_pose", pose_net(), make_pose,
+             _dense_batch(DENSE_BATCH, KP_POSE_POINTS, "uniform"),
+             pose_net(), _dense_batch(2, 1024, "uniform"), ()))
+
+
+def _dense_card_vs_cpu(model, make, batch, zero_grad):
+    """One dense step on the card against the CPU step from the same
+    weights, batch and dropout masks.  Held in float64 at phase 5's gates
+    (loss 1e-5, gradients 1e-4, update 1e-3 in relative norm, BN
+    statistics 1e-5, the ``zero_grad`` tensors' |g| under 1e-4 of the
+    gradients' rms).  In f32 the card is only reported, beside the CPU
+    step's own spread over its features moved by +-ULP_MOVE relative: the
+    dense nets' f32 gradients move by tens of per cent under such a move
+    (ROADMAP C31), so f32 cannot hold them to 1e-4."""
+    def cast(b, dtype):
+        return dict(b, **{k: b[k].astype(dtype)
+                          for k in ("points", "feats", "pose")})
+
+    def pair(start, ref_batch, other_batch, dev):
+        before = {n: p.detach().clone() for n, p in start.named_parameters()}
+        a, b = copy.deepcopy(start), copy.deepcopy(start)
+        with cpu_masks(a, b):
+            la = float(make(a, "cpu", None)(ref_batch, 1e-4)["loss"])
+            lb = float(make(b, dev, None)(other_batch, 1e-4)["loss"])
+        errs = _train_pair_errors(a, b, before, zero_grad)
+        errs.pop("worst_tensor")
+        return dict(loss={"cpu": la,
+                          "cpu_moved" if dev == "cpu" else dev: lb},
+                    loss_rel_err=abs(lb - la) / max(abs(la), 1e-3), **errs)
+
+    b64 = cast(batch, np.float64)
+    f64 = pair(copy.deepcopy(model).double(), b64, b64, "cuda")
+    if not (f64["loss_rel_err"] <= 1e-5 and f64["grad"] <= 1e-4
+            and f64["update"] <= 1e-3 and f64["bn"] <= 1e-5
+            and f64["zero_grad_max"] <= 1e-4):
+        raise AssertionError(f"dense step card vs CPU (f64): {f64}")
+    b32 = cast(batch, np.float32)
+    moved = dict(b32, feats=(b32["feats"] * (1 + ULP_MOVE * np.random.
+                 default_rng(0).standard_normal(b32["feats"].shape))).astype(
+                     np.float32))
+    return dict(f64=f64, f32=pair(model, b32, b32, "cuda"),
+                f32_cpu_vs_moved_cpu=pair(model, b32, moved, "cpu"),
+                tolerance_f64={"loss": 1e-5, "grad": 1e-4, "update": 1e-3,
+                               "bn": 1e-5, "zero_grad_max": 1e-4})
+
+
+def phase_dense_train(warmup=2, timed=6):
+    """Phase 15 (c) dense keypoint training (PointNet2SSG, 6 classes, B =
+    32 clouds of 2048 FPS samples, coordinates as features) and (d)
+    keypoint-to-pose training (the frozen PointNet2SSG predictor, head
+    scaled by KP_HEAD_SCALE, feeding PointNet(7) with kp_pose_match, B =
+    32 clouds of 4096 uniform samples), f32 with TF32 off, AdamW lr 1e-4:
+    each first one step card vs CPU at B = 2 x 1024
+    (:func:`_dense_card_vs_cpu`), then timed as phase 7 on its fixed batch
+    and run to LOSS_STEPS steps, whose loss must fall."""
+    out = {}
+    for name, model, make, batch, small, small_batch, zero_grad in \
+            _dense_cells():
+        torch.cuda.empty_cache()
+        vs_cpu = _dense_card_vs_cpu(small, make, small_batch, zero_grad)
+        step = make(model, "cuda", None)
+        extra = {}
+        if name == "kp_to_pose":
+            extra["kp_found_share"] = float(
+                step.prepare(batch)[2].float().mean())
+        _, report = _train_run(step, batch, [], warmup, timed, falls=False)
+        losses = report["losses"] + [
+            float(step(batch, 1e-4)["loss"])
+            for _ in range(LOSS_STEPS - len(report["losses"]))]
+        if (not np.isfinite(losses).all()
+                or np.mean(losses[-5:]) >= np.mean(losses[:5])):
+            raise AssertionError(f"{name}: losses {losses}")
+        report["losses"] = losses
+        log(name, model=type(model).__name__, vs_cpu=vs_cpu, **extra,
+            **report)
+        out[name] = report["launches_per_step"]
+    return out
+
+
+def phase_dense_only(counters, q8_counters):
+    """``--dense``: phase 15 alone."""
+    phase_dense_card_vs_cpu()
+    phase_dense(counters, q8_counters)
+    phase_dense_train()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3309,7 +3796,12 @@ def main():
                  [sort.SORT, conv.SK, conv.DOWN, conv.UP]),
              "--calibrate": lambda: phase_calibrate(
                  bench_levels(torch.device("cuda"))[0],
-                 [sort.SORT, conv.SK, conv.DOWN, conv.UP])}
+                 [sort.SORT, conv.SK, conv.DOWN, conv.UP]),
+             "--dense": lambda: phase_dense_only(
+                 [sort.SORT, conv.SK, conv.DOWN, conv.UP, conv.K3_LISTS,
+                  conv.K3_SUM],
+                 [conv_q8.SK_Q8, conv_q8.DOWN_Q8, conv_q8.UP_Q8,
+                  conv_q8.Q8_QUANT, conv_q8.Q8_LISTS, conv_q8.Q8_SUM])}
     if len(sys.argv) == 2 and sys.argv[1] in modes:
         phase_build()
         modes[sys.argv[1]]()
@@ -3381,6 +3873,10 @@ def main():
     torch.cuda.empty_cache()
     launches.update(phase("bottleneck", phase_bottleneck,
                           bottleneck_counters()))
+    torch.cuda.empty_cache()
+    phase("dense_card_vs_cpu", phase_dense_card_vs_cpu)
+    launches.update(phase("dense", phase_dense, counters, q8_counters))
+    launches.update(phase("dense_train", phase_dense_train))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_by_path")

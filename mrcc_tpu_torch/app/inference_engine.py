@@ -5,7 +5,10 @@ batched stages and ``predict_batch_arrays``, and the host entry points
 Stages run eagerly in the JAX engine's order: colour normalisation ->
 voxelize -> hierarchy -> RobotNetSegmentation -> slice to points ->
 largest cluster -> EE crop -> RobotNetEncode rotation + magic translation
--> sparse keypoint net + Kabsch -> optional flip disambiguation -> 2x ICP.
+-> keypoint net + Kabsch -> optional flip disambiguation -> 2x ICP.  The
+keypoint net is a sparse RobotNetSegmentation or, with
+``kp_backbone="pointnet2"``, the dense PointNet2SSG on a fixed-size sample
+of the crop (uniform or farthest-point), in f32 at full precision.
 Every key sort and sparse conv on a CUDA device runs the hand-written
 kernels (``ops/``).  ``predict`` pads one cloud into the batch of one,
 scatters the labels back to every input point and gates the frame with
@@ -23,7 +26,8 @@ twins.
 int8 inference (``conv_impl="pallas-int8"``): the segmentation and
 keypoint nets run their k3, down and transpose convs through the int8
 kernels (``ops/conv_q8.py``), the rotation net stays on the bf16 kernels
-unless ``rot_conv_impl`` asks for int8 too.  ``calibrate_q8`` records each
+unless ``rot_conv_impl`` asks for int8 too; a dense keypoint net has no
+sparse conv and stays f32.  ``calibrate_q8`` records each
 conv's activation absmax once; without it every int8 conv quantises with
 the dynamic absmax of its input.
 
@@ -46,19 +50,21 @@ from ..data.labels import get_6_key_points
 from ..device import resolve_device
 from ..geometry import calibration as calib_util
 from ..geometry.metrics import compute_kp_error
-from ..geometry.preprocess import center_at_origin, normalize_colors
+from ..geometry.preprocess import (center_at_origin, normalize_colors,
+                                   normalize_points)
 from ..geometry.transform import (base2cam_pose, rot6d_to_quat,
                                   transform_pose2pose)
-from ..interop import import_pth_variables, load_jax_variables
-from ..models import RobotNetEncode, RobotNetSegmentation
+from ..interop import load_jax_variables, load_weights
+from ..models import PointNet2SSG, RobotNetEncode, RobotNetSegmentation
 from ..models.minkunet import variant
+from ..ops import points
+from ..ops.prng import uniform
 from ..solve import (default_template, disambiguate_flip, icp_refine,
                      key_point_predictions, largest_cluster_mask,
                      pose_from_key_points, predict_translation)
 from ..sparse import (build_hierarchy, hierarchy_caps, slice_to_points,
                       uses_k3_tables, voxelize)
 from ..sparse.nn import init_parameters, q8_calibration, set_q8
-from ..train.checkpoint import checkpoint_format, load_stage_variables
 from .dto import CalibrationResultDTO, PointCloudDTO, ResultDTO, TestResultDTO
 
 # The JAX engine's conv_impl values: every one but "pallas-int8" means the
@@ -68,8 +74,9 @@ CONV_IMPLS = ("auto", "pallas", "xla", "pallas-int8")
 
 @dataclasses.dataclass
 class InferenceConfig:
-    """The JAX engine's configuration without the dense keypoint path's
-    fields; ``kp_backbone="pointnet2"`` raises ``NotImplementedError``."""
+    """The JAX engine's configuration (``mrcc_tpu/app/inference_engine.py::
+    InferenceConfig``); ``kp_backbone="pointnet2"`` is the dense keypoint
+    path."""
 
     point_capacity: int = 32768
     seg_voxel_capacity: int = 16384
@@ -103,6 +110,11 @@ class InferenceConfig:
     kp_conf_threshold: float = 0.75
     num_of_keypoints: int = 6
     kp_error_margin: float = 0.05
+    # dense (pointnet2) keypoint path: a fixed-size sample of the crop
+    # through PointNet2SSG
+    num_of_dense_input_points: int = 2048
+    kp_sampling_method: str = "uniform"   # "uniform" | "farthest"
+    kp_use_coordinates_as_features: bool = False
 
     # trained weights per stage: a reference .pth, a JAX package checkpoint
     # or the port trainer's .ckpt
@@ -137,9 +149,9 @@ class InferenceConfig:
     calibration_confident_count: int = 2
 
     def __post_init__(self):
-        if self.kp_backbone == "pointnet2":
-            raise NotImplementedError(
-                "not ported yet: kp_backbone=pointnet2")
+        if self.kp_sampling_method not in ("uniform", "farthest"):
+            raise ValueError(f"kp_sampling_method {self.kp_sampling_method!r}"
+                             ": uniform or farthest")
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise NotImplementedError(
                 f"compute_dtype {self.compute_dtype!r}: float32 or bfloat16")
@@ -170,12 +182,18 @@ class InferenceConfig:
                         "XLA; not ported")
 
 
+def dense_kp(cfg: InferenceConfig) -> bool:
+    """True where the keypoint stage is the dense PointNet2 path."""
+    return cfg.kp_backbone == "pointnet2"
+
+
 def q8_stages(cfg: InferenceConfig):
-    """The stages whose k3 / down / transpose convs run in int8."""
+    """The stages whose k3 / down / transpose convs run in int8 (a dense
+    keypoint stage has none)."""
     seg_kp = cfg.conv_impl == "pallas-int8"
     rot = cfg.rot_conv_impl == "pallas-int8"
     return tuple(s for s, on in (("seg", seg_kp), ("rot", rot),
-                                 ("kp", seg_kp)) if on)
+                                 ("kp", seg_kp and not dense_kp(cfg))) if on)
 
 
 def _k3_route(cfg: InferenceConfig, stage: str, caps):
@@ -208,19 +226,6 @@ def _take(x, order):
     return x.gather(1, idx.expand(order.shape + x.shape[2:]))
 
 
-def _load_stage(model, path):
-    """Trained weights into one stage's module, strictly: a reference
-    ``.pth`` state dict by name, else by the file's first bytes a JAX
-    package checkpoint (msgpack) or the port trainer's ``.ckpt``."""
-    if path.endswith(".pth"):
-        import_pth_variables(model, path)
-    elif checkpoint_format(path) == "msgpack":
-        load_jax_variables(model, load_stage_variables(path))
-    else:
-        state = torch.load(path, map_location="cpu", weights_only=True)
-        model.load_state_dict(state["model"], strict=True)
-
-
 class InferenceEngine:
     """EE pose, keypoints and the camera extrinsic from point clouds:
     ``predict(PointCloudDTO) -> ResultDTO``, ``calibrate({position:
@@ -248,16 +253,20 @@ class InferenceEngine:
             out_channels=((9 if cfg.rot_6d else 7)
                           + (3 if cfg.compute_confidence else 0)),
             rot_dims=6 if cfg.rot_6d else 4)
-        self.kp_model = RobotNetSegmentation(
-            backbone=cfg.kp_backbone, in_channels=3,
-            num_classes=cfg.num_of_keypoints)
+        if dense_kp(cfg):
+            self.kp_model = PointNet2SSG(num_classes=cfg.num_of_keypoints,
+                                         in_channels=3)
+        else:
+            self.kp_model = RobotNetSegmentation(
+                backbone=cfg.kp_backbone, in_channels=3,
+                num_classes=cfg.num_of_keypoints)
         for i, model in enumerate(self.models().values()):
             init_parameters(model, seed * 3 + i)
         for model, path in zip(self.models().values(),
                                (cfg.seg_checkpoint, cfg.rot_checkpoint,
                                 cfg.kp_checkpoint)):
             if path:
-                _load_stage(model, path)
+                load_weights(model, path)
         for model in self.models().values():
             model.to(self.device).eval()
         on = q8_stages(cfg)
@@ -269,6 +278,8 @@ class InferenceEngine:
                 ("seg", cfg.seg_voxel_capacity, cfg.seg_hierarchy_caps),
                 ("rot", cfg.ee_voxel_capacity, cfg.ee_hierarchy_caps),
                 ("kp", cfg.kp_voxel_capacity, cfg.kp_hierarchy_caps))}
+        # the uniform dense sample's draws by (B, crop rows)
+        self._draws = {}
         # per stage and level: True where the k3 convs run over tables
         self.k3_tables = {stage: _k3_route(cfg, stage, caps)
                           for stage, caps in self.level_caps.items()}
@@ -287,9 +298,10 @@ class InferenceEngine:
     @torch.no_grad()
     def calibrate_q8(self, points, rgb, mask):
         """Record every sparse conv's activation absmax (all three stages,
-        rotation included, as the JAX engine's ``calibrate_q8``) from one
-        representative batch; the int8 convs then quantise with it.  A
-        second call widens the running maximum."""
+        rotation included, as the JAX engine's ``calibrate_q8``; a dense
+        keypoint stage has nothing to calibrate) from one representative
+        batch; the int8 convs then quantise with it.  A second call widens
+        the running maximum."""
         points = self._tensor(points, torch.float32)
         rgb = self._tensor(rgb, torch.float32)
         mask = self._tensor(mask, torch.bool)
@@ -297,8 +309,9 @@ class InferenceEngine:
             ee = self.seg_stage(points, rgb, mask)[2:5]
         with q8_calibration(self.rot_model):
             self.pose_stage(*ee)
-        with q8_calibration(self.kp_model):
-            self.kp_stage(*ee)
+        if not dense_kp(self.cfg):
+            with q8_calibration(self.kp_model):
+                self.kp_stage(*ee)
         return self
 
     def _hierarchy(self, vox, stage):
@@ -368,8 +381,15 @@ class InferenceEngine:
 
     @torch.no_grad()
     def kp_stage(self, ee_pts, ee_rgb, ee_valid):
-        """Sparse keypoint net + Kabsch ->
-        ``(kp_pose, kp_ok, kp_coords, kp_found, kp_conf)``."""
+        """Keypoint net + Kabsch ->
+        ``(kp_pose, kp_ok, kp_coords, kp_found, kp_conf)``: the sparse net
+        over the crop's voxels, or the dense path."""
+        if dense_kp(self.cfg):
+            x, order, s_valid = self.dense_sample(ee_pts, ee_rgb, ee_valid)
+            with points.full_f32():
+                logits, _ = self.kp_model(x)
+            return self.dense_key_points(logits, order, s_valid, ee_pts,
+                                         ee_valid)
         cfg = self.cfg
         kp_pts = (center_at_origin(ee_pts, mask=ee_valid)[0]
                   if cfg.kp_center_at_origin else ee_pts)
@@ -380,6 +400,51 @@ class InferenceEngine:
         pt_logits = slice_to_points(logits, kpv, fill_value=-1e9)
         kp_idx, kp_found, kp_conf = key_point_predictions(
             pt_logits, ee_valid, conf_threshold=cfg.kp_conf_threshold)
+        kp_coords = _take(ee_pts, kp_idx)
+        kp_pose, kp_ok = pose_from_key_points(kp_coords, kp_found)
+        return kp_pose, kp_ok, kp_coords, kp_found, kp_conf
+
+    @torch.no_grad()
+    def dense_sample(self, ee_pts, ee_rgb, ee_valid):
+        """The dense stage's input (JAX ``_kp_stage_dense``): the crop
+        centred, ``num_of_dense_input_points`` rows of it chosen uniformly
+        (a stable argsort of the JAX package's ``uniform(PRNGKey(0), (B,
+        E))`` draws, invalid rows at 2.0, so last) or by FPS (invalid rows
+        parked on the first row: distance 0, never chosen while a valid
+        row is left), and beside each row's xyz its colour or, with
+        ``kp_use_coordinates_as_features``, its unit-sphere coordinates.
+        Returns ``(x [B, N, 6], order [B, N], valid [B, N])``."""
+        cfg = self.cfg
+        kp_pts = (center_at_origin(ee_pts, mask=ee_valid)[0]
+                  if cfg.kp_center_at_origin else ee_pts)
+        feats = (normalize_points(kp_pts, mask=ee_valid)
+                 if cfg.kp_use_coordinates_as_features else ee_rgb)
+        nd = cfg.num_of_dense_input_points
+        if cfg.kp_sampling_method == "farthest":
+            fps_in = torch.where(ee_valid[..., None], kp_pts, kp_pts[:, :1])
+            order = points.farthest_point_sample(fps_in, nd)
+        else:
+            shape = tuple(ee_valid.shape)
+            if shape not in self._draws:
+                self._draws[shape] = torch.as_tensor(uniform(shape),
+                                                     device=self.device)
+            r = torch.where(ee_valid, self._draws[shape], 2.0)
+            order = torch.argsort(r, dim=-1, stable=True)[:, :nd]
+            order = order.to(torch.int32)
+        x = torch.cat([_take(kp_pts, order), _take(feats, order)], dim=-1)
+        return x, order, ee_valid.gather(1, order.long())
+
+    @torch.no_grad()
+    def dense_key_points(self, logits, order, s_valid, ee_pts, ee_valid):
+        """Keypoints of the dense net's logits over the sample: the
+        per-class softmax maximum, found only where the crop holds
+        ``num_of_dense_input_points`` valid rows, mapped back to the crop's
+        rows, then Kabsch."""
+        kp_idx_s, kp_found, kp_conf = key_point_predictions(
+            logits.float(), s_valid, conf_threshold=self.cfg.kp_conf_threshold)
+        enough = ee_valid.sum(dim=-1) >= self.cfg.num_of_dense_input_points
+        kp_found = kp_found & enough[:, None]
+        kp_idx = order.gather(1, kp_idx_s.long())
         kp_coords = _take(ee_pts, kp_idx)
         kp_pose, kp_ok = pose_from_key_points(kp_coords, kp_found)
         return kp_pose, kp_ok, kp_coords, kp_found, kp_conf

@@ -1,6 +1,6 @@
 """Trainer entry mains (port of ``mrcc_tpu/cli/train_mains.py``: the pose,
-segmentation, voting, sparse keypoint and feature-extractor mains, with
-``cli/common.py::select_pose_model``).
+segmentation, voting, keypoint (sparse and dense), keypoint-to-pose and
+feature-extractor mains, with ``cli/common.py::select_pose_model``).
 
 Dataclass configs stand in for the YAML ``Config`` (``config/`` is not
 ported yet): ``PoseModelConfig`` carries the STRUCTURE keys the model
@@ -15,12 +15,16 @@ import dataclasses
 
 from ..data.dataset import (AliveV2Dataset, DataConfig, PoseDataset,
                             SceneDataset)
+from ..data.dense import AliveV2DenseDataset
 from ..data.synthetic import generate_sample
 from ..data.ycb import YCBDataset
-from ..models import (FeatureNet, RobotNet, RobotNetEncode,
-                      RobotNetSegmentation, RobotNetVote)
+from ..interop import load_weights
+from ..models import (FeatureNet, PointNet, PointNet2SSG, RobotNet,
+                      RobotNetEncode, RobotNetSegmentation, RobotNetVote)
 from ..sparse.nn import init_parameters
 from ..train import (LossConfig, Trainer, TrainConfig,
+                     make_dense_key_point_train_step,
+                     make_kp_to_pose_train_step,
                      make_metric_learning_train_step, make_pose_train_step,
                      make_segmentation_train_step)
 
@@ -58,13 +62,13 @@ class PoseModelConfig:
 def select_pose_model(model_cfg: PoseModelConfig, data_cfg: DataConfig):
     """``cli/common.py::select_pose_model``: RobotNet, or RobotNetEncode
     with ``encode_only`` (which takes ``voxelize_position``), over RGB
-    features; 10 outputs with ``compute_confidence``, else 7."""
+    features; 10 outputs with ``compute_confidence``, else 7.  A
+    ``pointnet*`` backbone gives ``PointNet2SSG`` with that many classes,
+    as in JAX (no pose step can train it: ROADMAP C29)."""
+    out_channels = 10 if model_cfg.compute_confidence else 7
     if model_cfg.backbone.startswith("pointnet"):
-        raise NotImplementedError(
-            f"{model_cfg.backbone}: the dense PointNet2 paths are not ported "
-            "(ROADMAP A6)")
-    kw = dict(backbone=model_cfg.backbone,
-              out_channels=10 if model_cfg.compute_confidence else 7,
+        return PointNet2SSG(num_classes=out_channels)
+    kw = dict(backbone=model_cfg.backbone, out_channels=out_channels,
               use_joint_angles=model_cfg.use_joint_angles)
     if model_cfg.encode_only:
         return RobotNetEncode(voxelize_position=data_cfg.voxelize_position,
@@ -86,10 +90,17 @@ def train_pose(train_cfg: TrainConfig = None, model_cfg: PoseModelConfig = None,
     AdamW at lr 1e-4.  ``dataset``: any object with ``batches(batch_size,
     shuffle, seed)`` (default: ``4 * batch_size`` synthetic samples).  Runs
     on the card unless ``device="cpu"``.  Returns the per-epoch history of
-    :meth:`Trainer.fit`.
+    :meth:`Trainer.fit`.  A ``pointnet*`` backbone raises
+    ``NotImplementedError``: the JAX pose step calls the model on voxels
+    and levels, which ``PointNet2SSG`` cannot take (ROADMAP C29).
     """
     train_cfg = train_cfg or TrainConfig(batch_size=8)
     model_cfg = model_cfg or PoseModelConfig()
+    if model_cfg.backbone.startswith("pointnet"):
+        raise NotImplementedError(
+            f"train_pose with {model_cfg.backbone!r}: the pose step feeds "
+            "voxels and levels, which PointNet2SSG cannot take, and the JAX "
+            "train_pose fails the same way (ROADMAP C29)")
     data_cfg = data_cfg or DataConfig()
     capacity = capacity or (ee_capacity(data_cfg)
                             if data_cfg.data_type == "ee_seg"
@@ -181,27 +192,91 @@ def train_vote(train_cfg: TrainConfig = None, capacity=None, epochs=None,
 
 def train_key_points(train_cfg: TrainConfig = None, capacity=None,
                      epochs=None, device=None, data_cfg: DataConfig = None,
-                     dataset=None, backbone="minkunet",
-                     exp_path="exp/key_points", exp_name="key_points"):
-    """``train_key_points.py`` parity, the sparse branch:
-    RobotNetSegmentation with ``num_of_keypoints`` classes + CE on the
-    keypoint labels of EE crops (``keypoints_enabled``, ``data_type=
-    "ee_seg"``).  A ``pointnet*`` backbone (the dense branch) raises.
+                     dataset=None, backbone="minkunet", num_points=2048,
+                     sampling="farthest", exp_path="exp/key_points",
+                     exp_name="key_points"):
+    """``train_key_points.py`` parity: CE on the keypoint labels of EE
+    crops (``keypoints_enabled``, ``data_type="ee_seg"``).
 
-    Defaults, ``dataset``, device and the return value as
-    :func:`train_vote`.
+    The sparse branch: RobotNetSegmentation with ``num_of_keypoints``
+    classes; defaults, ``dataset``, device and the return value as
+    :func:`train_vote`.  A ``pointnet*`` backbone takes the dense branch
+    (JAX ``_train_key_points_dense``): PointNet2SSG over ``num_points``
+    samples of each crop (``sampling`` ``"farthest"`` or ``"uniform"``)
+    with their unit-scaled coordinates as features
+    (``AliveV2DenseDataset``), AdamW; its defaults are
+    ``override_key_points.yaml``'s: batch 32 of 2048 FPS samples.
+    ``capacity`` is the sparse branch's only.
     """
-    if backbone.startswith("pointnet"):
-        raise NotImplementedError(
-            f"{backbone}: the dense PointNet2 paths are not ported "
-            "(ROADMAP A6)")
-    train_cfg = train_cfg or TrainConfig(batch_size=8)
     data_cfg = dataclasses.replace(data_cfg or DataConfig(),
                                    keypoints_enabled=True, data_type="ee_seg")
+    if backbone.startswith("pointnet"):
+        train_cfg = train_cfg or TrainConfig(batch_size=32)
+        dataset = dataset or _dense_items(data_cfg, 4 * train_cfg.batch_size,
+                                          train_cfg.seed, num_points,
+                                          sampling)
+        model = init_parameters(PointNet2SSG(
+            num_classes=data_cfg.num_of_keypoints,
+            dropout_seed=train_cfg.seed), train_cfg.seed)
+        step, optimizer = make_dense_key_point_train_step(
+            model, train_cfg, ignore_label=data_cfg.ignore_label,
+            device=device)
+        trainer = Trainer(model, dataset, step, optimizer, train_cfg,
+                          exp_path=exp_path, exp_name=exp_name)
+        return trainer.fit(epochs=epochs)
+    train_cfg = train_cfg or TrainConfig(batch_size=8)
     model = RobotNetSegmentation(backbone=backbone, in_channels=3,
                                  num_classes=data_cfg.num_of_keypoints)
     return _fit_per_voxel(model, data_cfg, train_cfg, capacity, epochs,
                           device, dataset, exp_path, exp_name)
+
+
+def _dense_items(data_cfg: DataConfig, n: int, seed: int, num_points: int,
+                 sampling: str):
+    """``AliveV2DenseDataset`` items of ``n`` synthetic scenes from
+    ``seed`` (EE crops of 4096 points)."""
+    return AliveV2DenseDataset(
+        samples=[generate_sample(seed=seed + i) for i in range(n)],
+        cfg=data_cfg, num_points=num_points, sampling=sampling)
+
+
+def train_kp_to_pose(train_cfg: TrainConfig = None, epochs=None, device=None,
+                     data_cfg: DataConfig = None, dataset=None,
+                     num_points=4096, sampling="uniform",
+                     kp_prediction_checkpoint=None, kp_use_probabilities=True,
+                     exp_path="exp/kp_to_pose", exp_name="kp_to_pose"):
+    """``train_kp_to_pose.py`` parity: a frozen PointNet2SSG keypoint
+    predictor (eval mode) picks each class's most probable point of the
+    dense sample; ``PointNet(out_channels=7)`` (embedding 1024) regresses
+    the pose from those [B, K, 3] coordinates and, with
+    ``kp_use_probabilities``, their probabilities, under the
+    ``kp_pose_match`` criterion; AdamW on the head only.
+
+    The predictor's weights come from ``kp_prediction_checkpoint`` (a JAX
+    package msgpack or the port's ``.ckpt``) or, without one, from seed 0
+    (the head from seed 1, as the JAX main's keys).  Defaults are
+    ``override_kp_to_pose.yaml``'s: batch 32 of 4096 uniform samples of
+    each EE crop (``AliveV2DenseDataset``, default: ``4 * batch_size``
+    synthetic scenes).  Runs on the card unless ``device="cpu"``.  Returns
+    the per-epoch history of :meth:`Trainer.fit`.
+    """
+    train_cfg = train_cfg or TrainConfig(batch_size=32)
+    data_cfg = dataclasses.replace(data_cfg or DataConfig(),
+                                   keypoints_enabled=True, data_type="ee_seg")
+    dataset = dataset or _dense_items(data_cfg, 4 * train_cfg.batch_size,
+                                      train_cfg.seed, num_points, sampling)
+    kp_model = init_parameters(
+        PointNet2SSG(num_classes=data_cfg.num_of_keypoints), 0)
+    if kp_prediction_checkpoint:
+        load_weights(kp_model, kp_prediction_checkpoint)
+    model = init_parameters(PointNet(
+        out_channels=7, in_channels=4 if kp_use_probabilities else 3,
+        dropout_seed=train_cfg.seed), 1)
+    step, optimizer = make_kp_to_pose_train_step(
+        model, kp_model, train_cfg, kp_use_probabilities, device=device)
+    trainer = Trainer(model, dataset, step, optimizer, train_cfg,
+                      exp_path=exp_path, exp_name=exp_name)
+    return trainer.fit(epochs=epochs)
 
 
 FEATURE_CAPACITY = 1024  # voxel capacity of the feature extractor's step

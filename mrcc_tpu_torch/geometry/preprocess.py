@@ -1,5 +1,6 @@
 """Point-cloud preprocessing (port of ``mrcc_tpu/geometry/preprocess.py``):
-masked bbox centering and the reference's colour normalisation."""
+masked bbox centering, the reference's colour normalisation and the unit
+sphere scaling of the dense keypoint path's coordinate features."""
 
 from __future__ import annotations
 
@@ -50,3 +51,21 @@ def normalize_colors(rgb, mask=None):
     gmax2 = torch.where(v, rgb, -big).amax()
     in_unit = (gmin2 > -1e-6) & (gmax2 < 1.0 + 1e-6)
     return torch.where(in_unit, rgb - 0.5, rgb)
+
+
+def normalize_points(pc, mask=None):
+    """Centre at the (masked) mean and scale into the unit sphere
+    (``preprocess.py:40``, ver=2): the largest norm of the centred rows of
+    ``mask`` becomes 1.  Padding rows are moved and scaled too."""
+    if mask is None:
+        mean = pc.mean(dim=-2, keepdim=True)
+        centered = pc - mean
+        scale = torch.sqrt((centered * centered).sum(-1)).amax(dim=-1)
+    else:
+        m = mask[..., None].to(pc.dtype)
+        n = torch.clamp_min(m.sum(dim=-2, keepdim=True), 1.0)
+        mean = (pc * m).sum(dim=-2, keepdim=True) / n
+        centered = pc - mean
+        cm = centered * m
+        scale = torch.sqrt((cm * cm).sum(-1)).amax(dim=-1)
+    return centered / torch.clamp_min(scale, 1e-12)[..., None, None]

@@ -1,5 +1,6 @@
 """Weight bridges into port modules: JAX-package variables, and the
-reference's torch state dicts (``.pth``).
+reference's torch state dicts (``.pth``); :func:`load_weights` reads any
+of the checkpoint files a stage or a frozen net may name.
 
 Port modules carry the reference's state-dict names, the names
 ``mrcc_tpu/train/interop.py`` translates into flax paths.  This module keeps
@@ -27,6 +28,7 @@ import torch
 from torch import nn
 
 from .sparse.nn import q8_convs
+from .train.checkpoint import checkpoint_format, load_stage_variables
 
 _RULES = [
     (re.compile(r"^module\."), ""),
@@ -211,3 +213,16 @@ def import_pth_variables(module: nn.Module, path: str, k_perm=None,
     state = (blob.get("model_state_dict", blob) if isinstance(blob, dict)
              else blob)
     return import_state_dict(module, state, k_perm=k_perm, strict=strict)
+
+
+def load_weights(module: nn.Module, path: str) -> nn.Module:
+    """Trained weights into ``module``, strictly: a reference ``.pth``
+    state dict by name, else by the file's first bytes a JAX package
+    checkpoint (msgpack ``TrainState``) or the port trainer's ``.ckpt``."""
+    if path.endswith(".pth"):
+        return import_pth_variables(module, path)
+    if checkpoint_format(path) == "msgpack":
+        return load_jax_variables(module, load_stage_variables(path))
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    module.load_state_dict(state["model"], strict=True)
+    return module

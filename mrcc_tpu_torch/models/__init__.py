@@ -1,11 +1,14 @@
-"""Sparse U-Net models (port of ``mrcc_tpu/models``: MinkUNet, the
-RobotNet pose, encoder, segmentation and voting heads, FeatureNet, the
-sparse ResNet / ResFieldNet classifiers and AliveUNet)."""
+"""Models (port of ``mrcc_tpu/models``): the sparse MinkUNet, the RobotNet
+pose, encoder, segmentation and voting heads, FeatureNet, the sparse
+ResNet / ResFieldNet classifiers and AliveUNet; the dense PointNet2SSG,
+PointNet2MSGEncoder and PointNet."""
 
 from .aliveunet import AliveUNet
 from .blocks import BLOCKS, EXPANSION, SparseBasicBlock, SparseBottleneck
 from .featurenet import FeatureNet
 from .minkunet import MinkUNetBase, make_minkunet
+from .pointnet2 import (PointBatchNorm, PointNet, PointNet2MSGEncoder,
+                        PointNet2SSG)
 from .resnet_sparse import (SparseFieldNetwork, SparseResFieldNet,
                             SparseResNet14, SparseResNet18, SparseResNet34,
                             SparseResNet50, SparseResNet101, SparseResNetBase)
@@ -13,7 +16,8 @@ from .robotnet import (RobotNet, RobotNetEncode, RobotNetSegmentation,
                        RobotNetVote)
 
 __all__ = ["AliveUNet", "BLOCKS", "EXPANSION", "FeatureNet", "MinkUNetBase",
-           "RobotNet", "RobotNetEncode", "RobotNetSegmentation",
+           "PointBatchNorm", "PointNet", "PointNet2MSGEncoder",
+           "PointNet2SSG", "RobotNet", "RobotNetEncode", "RobotNetSegmentation",
            "RobotNetVote", "SparseBasicBlock", "SparseBottleneck",
            "SparseFieldNetwork", "SparseResFieldNet", "SparseResNet14",
            "SparseResNet18", "SparseResNet34", "SparseResNet50",

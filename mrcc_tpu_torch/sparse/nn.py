@@ -284,13 +284,14 @@ class SparseLinear(nn.Module):
 
 
 def reset_linear(linear: nn.Linear, generator: torch.Generator) -> None:
-    """LeCun-normal weight (std sqrt(1 / fan_in)), zero bias — flax's Dense
-    default."""
+    """LeCun-normal weight (std sqrt(1 / fan_in)), zero bias (where it has
+    one) — flax's Dense default."""
     std = math.sqrt(1.0 / linear.in_features)
     with torch.no_grad():
         linear.weight.copy_(torch.randn(linear.weight.shape,
                                         generator=generator) * std)
-        linear.bias.zero_()
+        if linear.bias is not None:
+            linear.bias.zero_()
 
 
 def init_parameters(module: nn.Module, seed: int) -> nn.Module:

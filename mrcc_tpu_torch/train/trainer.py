@@ -1,9 +1,11 @@
 """Trainers (port of ``mrcc_tpu/train/trainer.py``: ``TrainConfig``,
 ``step_learning_rate``, ``make_optimizer``, ``AverageMeter``,
 ``MetricsWriter``, ``make_segmentation_train_step``,
-``make_pose_train_step`` and ``Trainer``), with the metric-learning step
-that ``mrcc_tpu/cli/train_mains.py::train_feature_extractor`` builds
-inline.
+``make_pose_train_step`` and ``Trainer``), with the steps that
+``mrcc_tpu/cli/train_mains.py`` builds inline: the metric-learning step of
+``train_feature_extractor`` and the dense steps of ``train_key_points``
+(PointNet2SSG) and ``train_kp_to_pose`` (a frozen PointNet2SSG feeding a
+PointNet pose head).
 
 The JAX step is one jit program over a functional ``TrainState``; here the
 model and the optimizer hold the state and the step runs eagerly:
@@ -24,6 +26,10 @@ inference only.
 
 The steps run on the card unless ``device="cpu"`` is passed, and raise
 where there is none.
+
+The dense steps draw a fresh dropout mask each step from the models' seeded
+generators; the JAX dense steps pass ``PRNGKey(0)`` every step, so they
+drop the same units each time (ROADMAP C28).
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import torch
 from ..device import resolve_device
 from ..geometry.metrics import compute_pose_dist
 from ..geometry.transform import rot6d_to_quat
+from ..solve.keypoints import key_point_predictions
 from ..sparse import (build_hierarchy, hierarchy_caps, train_uses_k3_tables,
                       voxelize)
 from . import checkpoint as ckpt
@@ -112,29 +119,19 @@ class MetricsWriter:
                                 "step": int(step)}) + "\n")
 
 
-class _TrainStep:
-    """Stages shared by the train steps: the hierarchy of a voxelised batch
-    on the JAX step's k3 route, the backward pass and the optimizer step.
-    The parameters' ``.grad`` hold the step's gradients afterwards."""
+class _OptimizerStep:
+    """Stages shared by every train step: the batch's tensors on the
+    device, the backward pass and the optimizer step.  The parameters'
+    ``.grad`` hold the step's gradients afterwards."""
 
-    def __init__(self, model, optimizer, data_cfg, voxel_capacity: int,
-                 k3_self_keyed: bool, device: torch.device):
+    def __init__(self, model, optimizer, device: torch.device):
         self.model = model
         self.optimizer = optimizer
-        self.qsize = data_cfg.quantization_size
-        self.capacity = voxel_capacity
-        self.caps = hierarchy_caps(voxel_capacity)
-        self.k3_tables = tuple(train_uses_k3_tables(n, k3_self_keyed)
-                               for n in (voxel_capacity,) + self.caps)
         self.device = device
 
     def _tensors(self, batch, keys):
         return {k: torch.as_tensor(batch[k], device=self.device)
                 for k in keys}
-
-    def _levels(self, vox):
-        return build_hierarchy(vox, 4, capacities=self.caps,
-                               k3_tables=self.k3_tables)
 
     def backward(self, loss):
         self.optimizer.zero_grad(set_to_none=True)
@@ -144,6 +141,24 @@ class _TrainStep:
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.step()
+
+
+class _TrainStep(_OptimizerStep):
+    """The sparse steps' hierarchy of a voxelised batch on the JAX step's
+    k3 route."""
+
+    def __init__(self, model, optimizer, data_cfg, voxel_capacity: int,
+                 k3_self_keyed: bool, device: torch.device):
+        super().__init__(model, optimizer, device)
+        self.qsize = data_cfg.quantization_size
+        self.capacity = voxel_capacity
+        self.caps = hierarchy_caps(voxel_capacity)
+        self.k3_tables = tuple(train_uses_k3_tables(n, k3_self_keyed)
+                               for n in (voxel_capacity,) + self.caps)
+
+    def _levels(self, vox):
+        return build_hierarchy(vox, 4, capacities=self.caps,
+                               k3_tables=self.k3_tables)
 
 
 class SegmentationTrainStep(_TrainStep):
@@ -332,6 +347,115 @@ def make_metric_learning_train_step(model, data_cfg, train_cfg: TrainConfig,
     optimizer = make_optimizer(model.parameters(), train_cfg)
     return MetricLearningTrainStep(model, optimizer, triplet_margin_loss,
                                    data_cfg, voxel_capacity, dev), optimizer
+
+
+class DenseKeyPointTrainStep(_OptimizerStep):
+    """One dense keypoint train step (JAX ``_train_key_points_dense``'s
+    inline step), callable as ``step(batch, lr)``: :meth:`prepare` (the
+    network input ``[points, feats]``), :meth:`forward` (PointNet2SSG in
+    train mode, cross-entropy over the masked labelled points),
+    :meth:`backward` and :meth:`update`.  ``batch`` holds ``points
+    [B, N, 3]``, ``feats [B, N, C]``, ``labels [B, N]`` and ``mask``."""
+
+    def __init__(self, model, optimizer, ignore_label: int,
+                 device: torch.device):
+        super().__init__(model, optimizer, device)
+        self.ignore_label = ignore_label
+
+    def prepare(self, batch):
+        """-> (x [B, N, 3 + C], labels, mask)."""
+        t = self._tensors(batch, ("points", "feats", "labels", "mask"))
+        return (torch.cat([t["points"], t["feats"]], dim=-1), t["labels"],
+                t["mask"])
+
+    def forward(self, x, labels, mask):
+        """-> (logits, loss)."""
+        self.model.train()
+        logits, _ = self.model(x)
+        return logits, segmentation_loss(logits, labels, mask,
+                                          ignore_label=self.ignore_label)
+
+    def __call__(self, batch, lr):
+        """Run every stage; returns ``{"loss"}`` as a device scalar."""
+        _, loss = self.forward(*self.prepare(batch))
+        self.backward(loss)
+        self.update(lr)
+        return {"loss": loss.detach()}
+
+
+def make_dense_key_point_train_step(model, train_cfg: TrainConfig,
+                                    ignore_label=-100, device=None):
+    """Move ``model`` to the device (the card unless ``device`` says
+    otherwise; raises where there is none) and return
+    ``(DenseKeyPointTrainStep, optimizer)``."""
+    dev = resolve_device(device)
+    model.to(dev)
+    optimizer = make_optimizer(model.parameters(), train_cfg)
+    return DenseKeyPointTrainStep(model, optimizer, ignore_label,
+                                  dev), optimizer
+
+
+class KpToPoseTrainStep(_OptimizerStep):
+    """One keypoint-to-pose train step (JAX ``train_kp_to_pose``'s inline
+    step), callable as ``step(batch, lr)``: :meth:`prepare` runs the frozen
+    keypoint net (eval mode, no gradient) and gathers each class's most
+    probable point (``key_point_predictions`` over the mask) with its
+    probability; :meth:`forward` runs the pose head in train mode on the
+    [B, K, 3] coordinates (and, with ``use_probabilities``, the [B, K, 1]
+    probabilities) and the ``kp_pose_match`` criterion.  ``batch`` holds
+    ``points``, ``feats``, ``mask`` and ``pose [B, 7]``."""
+
+    def __init__(self, model, kp_model, optimizer, criterion,
+                 use_probabilities: bool, device: torch.device):
+        super().__init__(model, optimizer, device)
+        self.kp_model = kp_model
+        self.criterion = criterion
+        self.use_probabilities = use_probabilities
+
+    @torch.no_grad()
+    def prepare(self, batch):
+        """-> (head input, keypoint coords [B, K, 3], found [B, K],
+        probabilities [B, K], pose)."""
+        t = self._tensors(batch, ("points", "feats", "mask", "pose"))
+        self.kp_model.eval()
+        logits, _ = self.kp_model(torch.cat([t["points"], t["feats"]], -1))
+        idx, found, conf = key_point_predictions(logits, t["mask"])
+        coords = t["points"].gather(
+            1, idx.long()[..., None].expand(-1, -1, 3))
+        head_in = (torch.cat([coords, conf[..., None]], dim=-1)
+                   if self.use_probabilities else coords)
+        return head_in, coords, found, conf, t["pose"]
+
+    def forward(self, head_in, coords, found, conf, pose):
+        """-> (pose head output [B, 7], loss)."""
+        self.model.train()
+        out = self.model(head_in)
+        return out, self.criterion(
+            pose, out, coords=coords, coords_valid=found,
+            probs=conf if self.use_probabilities else None)
+
+    def __call__(self, batch, lr):
+        """Run every stage; returns ``{"loss"}`` as a device scalar."""
+        _, loss = self.forward(*self.prepare(batch))
+        self.backward(loss)
+        self.update(lr)
+        return {"loss": loss.detach()}
+
+
+def make_kp_to_pose_train_step(model, kp_model, train_cfg: TrainConfig,
+                               use_probabilities: bool = True, device=None):
+    """Move the pose head ``model`` and the frozen keypoint net
+    ``kp_model`` to the device (the card unless ``device`` says otherwise;
+    raises where there is none) and return ``(KpToPoseTrainStep,
+    optimizer)`` with the ``kp_pose_match`` criterion; the optimizer holds
+    only the head's parameters."""
+    dev = resolve_device(device)
+    model.to(dev)
+    kp_model.to(dev).eval().requires_grad_(False)
+    optimizer = make_optimizer(model.parameters(), train_cfg)
+    criterion = get_criterion(LossConfig(loss_type=LossType.KP_POSE_MATCH))
+    return KpToPoseTrainStep(model, kp_model, optimizer, criterion,
+                             use_probabilities, dev), optimizer
 
 
 class Trainer:

@@ -30,6 +30,19 @@ from mrcc_tpu_torch.geometry import metrics, quaternion, transform
 from mrcc_tpu_torch.solve import disambiguate_flip, predict_translation
 from mrcc_tpu_torch.solve.symmetry import _quat_angle
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's CPU ops: under the suite's
+    parallel workers torch's default of a thread a core oversubscribes the
+    CPU (one small engine call took 185 s at six-way contention on an
+    8-core CPU, 1.8 s at one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = 1e-5
 ANGLE_TOL = np.deg2rad(1e-3)
 

@@ -43,6 +43,19 @@ from mrcc_tpu_torch.train.checkpoint import (checkpoint_format,
                                              load_stage_variables)
 from mrcc_tpu_torch.train.msgpack_io import msgpack_restore
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's CPU ops: under the suite's
+    parallel workers torch's default of a thread a core oversubscribes the
+    CPU (one small engine call took 185 s at six-way contention on an
+    8-core CPU, 1.8 s at one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CFG = dict(point_capacity=1024, seg_voxel_capacity=768, ee_point_capacity=512,
            ee_voxel_capacity=512, kp_voxel_capacity=512,
            seg_hierarchy_caps=(512, 256, 128, 64),

@@ -52,6 +52,19 @@ from mrcc_tpu_torch.train import (TrainConfig,
 from mrcc_tpu_torch.train import metric_learning as ml
 from test_torch_train import _flat, _randomise, _rel
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's CPU ops: under the suite's
+    parallel workers torch's default of a thread a core oversubscribes the
+    CPU (one small engine call took 185 s at six-way contention on an
+    8-core CPU, 1.8 s at one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 Q = 1 / 200.0
 CAP = 256
 CAPS = (CAP, CAP // 2, CAP // 4, CAP // 8)  # the JAX main's halving

@@ -1202,3 +1202,185 @@ def test_aliveunet_card_vs_cpu(cuda, block):
         got = gnet.eval()(gpu_vox.feats, build_hierarchy(gpu_vox, 4, caps))
     assert _rel(got.cpu(), want) <= 1e-4
     assert not got[~gpu_vox.valid].any()
+
+
+# ------------------------------------------------ the dense PointNet2 path
+
+
+def _dense_engines(cuda, method):
+    """A small f32 engine pair with the dense keypoint stage (crops of 1024
+    rows, 512 dense inputs), the same weights on the card and the CPU."""
+    from mrcc_tpu_torch.app import InferenceConfig, InferenceEngine
+
+    cfg = InferenceConfig(
+        point_capacity=2048, seg_voxel_capacity=1536, ee_point_capacity=1024,
+        ee_voxel_capacity=1024, seg_backbone="minkunet14A",
+        rot_backbone="minkunet14A", kp_backbone="pointnet2",
+        kp_sampling_method=method, num_of_dense_input_points=512,
+        icp_iterations=5, icp_template_points=256, compute_dtype="float32")
+    cpu = InferenceEngine(cfg, device="cpu", seed=3)
+    gpu = InferenceEngine(cfg, device=cuda, seed=5)
+    for stage, model in gpu.models().items():
+        model.load_state_dict(cpu.models()[stage].state_dict())
+    return cpu, gpu
+
+
+def _index_calls(monkeypatch):
+    """Record every FPS and ball query's inputs and output, in order."""
+    from mrcc_tpu_torch.ops import points
+
+    calls = []
+    fps, ball = points.farthest_point_sample, points.query_ball_point
+    monkeypatch.setattr(points, "farthest_point_sample",
+                        lambda xyz, k, start_idx=0: calls.append(
+                            ("fps", None, fps(xyz, k, start_idx)))
+                        or calls[-1][2])
+    monkeypatch.setattr(points, "query_ball_point",
+                        lambda r, k, xyz, q: calls.append(
+                            ("ball", (r, xyz, q), ball(r, k, xyz, q)))
+                        or calls[-1][2])
+    return calls
+
+
+@pytest.mark.parametrize("method", ["uniform", "farthest"])
+def test_dense_engine_card_vs_cpu(cuda, monkeypatch, method):
+    """The dense keypoint stage on the card against the CPU from the same
+    crop and weights: every FPS index equal; ball groups equal except rows
+    with a member whose f64 squared distance lies within 1e-6 of r^2;
+    keypoints found and their coordinates equal, poses 1e-3; the whole
+    ``predict_batch_arrays``' integer outputs equal."""
+    cpu, gpu = _dense_engines(cuda, method)
+    pts, rgb, mask = build_batch(2, 2048, seed=11)
+    ee = cpu.seg_stage(*[torch.as_tensor(a) for a in (pts, rgb, mask)])[2:5]
+    calls = _index_calls(monkeypatch)
+    want = cpu.kp_stage(*ee)
+    n = len(calls)
+    got = [t.cpu() for t in gpu.kp_stage(*[t.to(cuda) for t in ee])]
+    assert n and len(calls) == 2 * n
+    for (kind, args, w), (_, _, g) in zip(calls[:n], calls[n:]):
+        g = g.cpu()
+        if kind == "fps":
+            assert torch.equal(g, w)
+            continue
+        radius, xyz, q = args
+        for b, s in (g != w).any(-1).nonzero().tolist():
+            d2 = ((xyz[b].double() - q[b, s].double()) ** 2).sum(-1)
+            assert ((d2 - radius ** 2).abs() < 1e-6).any(), (b, s)
+    for i in (1, 2, 3):
+        assert torch.equal(got[i], want[i])
+    assert (got[0] - want[0])[:, :3].abs().max() <= 1e-3
+    monkeypatch.undo()
+    full_g = gpu.predict_batch_arrays(pts, rgb, mask)
+    full_c = cpu.predict_batch_arrays(pts, rgb, mask)
+    for k in ("segmentation", "ee_count", "kp_found", "kp_ok"):
+        assert torch.equal(full_g[k].cpu(), full_c[k]), k
+
+
+def test_dense_stage_ignores_tf32(cuda, monkeypatch):
+    """With ``torch.backends.cuda.matmul.allow_tf32 = True`` the dense
+    stage's FPS and ball-query indices, keypoints and confidences are the
+    bits it gives with TF32 off (its distance matmuls and its net run at
+    full f32 precision)."""
+    _, gpu = _dense_engines(cuda, "farthest")
+    pts, rgb, mask = build_batch(2, 2048, seed=12)
+    ee = gpu.seg_stage(*[torch.as_tensor(a, device=cuda)
+                         for a in (pts, rgb, mask)])[2:5]
+    calls = _index_calls(monkeypatch)
+    off = gpu.kp_stage(*ee)
+    n = len(calls)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    on = gpu.kp_stage(*ee)
+    assert torch.backends.cuda.matmul.allow_tf32
+    assert len(calls) == 2 * n
+    assert all(torch.equal(a[2], b[2]) for a, b in zip(calls[:n], calls[n:]))
+    for i in (1, 2, 3, 4):
+        assert torch.equal(on[i], off[i])
+
+
+@pytest.mark.parametrize("head", ["key_points", "kp_to_pose"])
+def test_dense_steps_card_vs_cpu(cuda, head):
+    """One dense keypoint step (PointNet2SSG) and one keypoint-to-pose step
+    (frozen PointNet2SSG -> PointNet) on the card against the CPU from the
+    same weights, batch (B = 2 x 512) and dropout masks, in float64: loss
+    1e-5, gradients 1e-4 and the update 1e-3 in relative norm (the update
+    where |g| is above 1 % of its tensor's rms), running statistics 1e-5.
+    In f32 the dense nets' gradients move by tens of per cent under a 1e-7
+    relative move of the input (ROADMAP C31), so f32 is not held here."""
+    import copy
+
+    import numpy as np
+
+    from mrcc_tpu_torch.data.dataset import DataConfig
+    from mrcc_tpu_torch.data.dense import AliveV2DenseDataset
+    from mrcc_tpu_torch.data.synthetic import generate_sample
+    from mrcc_tpu_torch.models import PointNet, PointNet2SSG
+    from mrcc_tpu_torch.sparse.nn import SparseDropout, init_parameters
+    from mrcc_tpu_torch.train import (TrainConfig,
+                                      make_dense_key_point_train_step,
+                                      make_kp_to_pose_train_step)
+
+    data = AliveV2DenseDataset(
+        samples=[generate_sample(seed=70 + i, n_ee=1200, n_arm=600,
+                                 n_bg=600) for i in range(2)],
+        cfg=DataConfig(keypoints_enabled=True), num_points=512,
+        sampling="uniform" if head == "kp_to_pose" else "farthest")
+    batch = data.collate([data[0], data[1]])
+    batch = dict(batch, **{k: batch[k].astype(np.float64)
+                           for k in ("points", "feats", "pose")})
+    kp = init_parameters(PointNet2SSG(num_classes=6), 0).double()
+    if head == "key_points":
+        start = kp
+    else:
+        with torch.no_grad():
+            kp.conv2.weight.mul_(300.0)   # so that classes pass 0.75
+        start = init_parameters(PointNet(out_channels=7), 1).double()
+    masks = {}
+
+    def fixed(name, rate, feats):
+        """One mask per dropout and shape, drawn on the CPU."""
+        key = (name, feats.shape)
+        if key not in masks:
+            masks[key] = torch.rand(feats.shape, generator=torch.Generator(
+            ).manual_seed(len(masks))) < 1 - rate
+        return torch.where(masks[key].to(feats.device), feats / (1 - rate),
+                           0.0)
+
+    out = {}
+    for dev in ("cpu", cuda):
+        model = copy.deepcopy(start)
+        for name, mod in model.named_modules():
+            if isinstance(mod, SparseDropout):
+                mod.forward = (lambda f, _n=name, _r=mod.rate:
+                               fixed(_n, _r, f))
+        if head == "key_points":
+            step, _ = make_dense_key_point_train_step(model, TrainConfig(),
+                                                      device=dev)
+        else:
+            step, _ = make_kp_to_pose_train_step(model, copy.deepcopy(kp),
+                                                 TrainConfig(), True,
+                                                 device=dev)
+        loss = float(step(batch, 1e-4)["loss"])
+        out[str(dev)] = (loss, {n: p.grad.cpu() for n, p in
+                                model.named_parameters()},
+                         {n: p.detach().cpu() for n, p in
+                          model.named_parameters()},
+                         {n: b.cpu() for n, b in model.named_buffers()})
+    (lc, gc, pc, bc), (lg, gg, pg, bg) = out["cpu"], out[str(cuda)]
+    assert lc > 0 and abs(lg - lc) <= 1e-5 * abs(lc)
+    zero = ("conv1.bias",) if head == "key_points" else ()
+    num = sum(float((gg[n] - gc[n]).norm() ** 2) for n in gc if n not in zero)
+    den = sum(float(gc[n].norm() ** 2) for n in gc if n not in zero)
+    assert (num / den) ** 0.5 <= 1e-4
+    ud = un = 0.0
+    for n, p0 in start.named_parameters():
+        if n in zero:
+            continue
+        g = gc[n]
+        keep = (g == 0) | (g.abs() > 1e-2 * g.pow(2).mean().sqrt())
+        u_c = (pc[n] - p0.detach())[keep]
+        u_g = (pg[n] - p0.detach())[keep]
+        ud += float((u_g - u_c).norm() ** 2)
+        un += float(u_c.norm() ** 2)
+    assert (ud / un) ** 0.5 <= 1e-3
+    for n in bc:
+        assert _rel(bg[n], bc[n]) <= 1e-5, n

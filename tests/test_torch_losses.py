@@ -30,6 +30,19 @@ from mrcc_tpu.train.losses import get_criterion as jax_get_criterion
 from mrcc_tpu_torch.geometry import compute_pose_dist
 from mrcc_tpu_torch.train import LossConfig, LossType, get_criterion
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's CPU ops: under the suite's
+    parallel workers torch's default of a thread a core oversubscribes the
+    CPU (one small engine call took 185 s at six-way contention on an
+    8-core CPU, 1.8 s at one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 B, N = 8, 40
 TOL = 1e-5
 

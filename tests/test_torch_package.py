@@ -27,6 +27,19 @@ from mrcc_tpu_torch.app import InferenceConfig, InferenceEngine
 from mrcc_tpu_torch.data.synthetic import build_batch, generate_sample
 from mrcc_tpu_torch.solve import default_template
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's CPU ops: under the suite's
+    parallel workers torch's default of a thread a core oversubscribes the
+    CPU (one small engine call took 185 s at six-way contention on an
+    8-core CPU, 1.8 s at one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mrcc_tpu")
 
@@ -67,7 +80,8 @@ def test_no_jax_in_the_port_process():
     for name in ("data.augmentation", "data.dataset", "data.labels",
                  "data.ycb", "models.featurenet", "solve.vote",
                  "train.metric_learning", "models.resnet_sparse",
-                 "models.aliveunet"):
+                 "models.aliveunet", "ops.points", "ops.prng",
+                 "models.pointnet2", "data.dense"):
         assert f"mrcc_tpu_torch.{name}" in info["modules"], name
     assert "ee_pose" in info["keys"]
     leaked = [m for m in info["loaded"] if _forbidden(m)]
@@ -137,8 +151,16 @@ def test_engine_defaults_to_the_card():
 
 
 def test_later_slices_raise():
+    # int8 with f32 compute still raises (ROADMAP A7); the dense keypoint
+    # backend configures since the PointNet2 slice
     with pytest.raises(NotImplementedError):
-        InferenceConfig(kp_backbone="pointnet2")
+        InferenceConfig(conv_impl="pallas-int8", compute_dtype="float32")
+    cfg = InferenceConfig(kp_backbone="pointnet2")
+    assert cfg.num_of_dense_input_points == 2048
+    assert cfg.kp_sampling_method == "uniform"
+    assert not cfg.kp_use_coordinates_as_features
+    with pytest.raises(ValueError):
+        InferenceConfig(kp_backbone="pointnet2", kp_sampling_method="random")
 
 
 def test_opt_in_heads_configure():

@@ -50,11 +50,24 @@ from mrcc_tpu_torch.cli.train_mains import (PoseModelConfig, ee_capacity,
 from mrcc_tpu_torch.data.dataset import DataConfig, PoseDataset, pose_item
 from mrcc_tpu_torch.data.synthetic import generate_sample
 from mrcc_tpu_torch.interop import load_jax_variables
-from mrcc_tpu_torch.models import RobotNet, RobotNetEncode
+from mrcc_tpu_torch.models import PointNet2SSG, RobotNet, RobotNetEncode
 from mrcc_tpu_torch.models.robotnet import _finalize_pose_output
 from mrcc_tpu_torch.train import (LossConfig, TrainConfig,
                                   make_pose_train_step)
 from test_torch_train import _flat, _jax_leaf, _randomise, _rel
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's CPU ops: under the suite's
+    parallel workers torch's default of a thread a core oversubscribes the
+    CPU (one small engine call took 185 s at six-way contention on an
+    8-core CPU, 1.8 s at one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 CAP = 1024
 CAPS = (1024, 512, 256, 128)
@@ -233,8 +246,14 @@ def test_select_pose_model():
     assert model.pose_regression[2].out_features == 10
     assert model.quantization_size == 0.005 and model.use_joint_angles
     assert model.pose_regression[0].in_features == 256 + 9
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        select_pose_model(PoseModelConfig(backbone="pointnet2"), data)
+    # a pointnet* backbone selects PointNet2SSG, as JAX's; no pose step
+    # can train it (ROADMAP C29)
+    model = select_pose_model(PoseModelConfig(backbone="pointnet2"), data)
+    assert isinstance(model, PointNet2SSG)
+    assert model.conv2.out_features == 7
+    with pytest.raises(NotImplementedError, match="C29"):
+        train_pose(TrainConfig(batch_size=2),
+                   PoseModelConfig(backbone="pointnet2"), device="cpu")
     assert ee_capacity(DataConfig()) == 4096
     assert ee_capacity(DataConfig(max_points=1000)) == 1024
 

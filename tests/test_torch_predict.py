@@ -43,6 +43,19 @@ from mrcc_tpu_torch.app import (InferenceConfig, InferenceEngine,
                                 PointCloudDTO, ResultDTO)
 from mrcc_tpu_torch.app import inference_engine as engine_module
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's CPU ops: under the suite's
+    parallel workers torch's default of a thread a core oversubscribes the
+    CPU (one small engine call took 185 s at six-way contention on an
+    8-core CPU, 1.8 s at one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 P, E = 1024, 512
 CFG = dict(point_capacity=P, seg_voxel_capacity=768, ee_point_capacity=E,
            ee_voxel_capacity=512, kp_voxel_capacity=512,

@@ -43,6 +43,18 @@ from test_torch_conv import CASES, _points, _t
 from test_torch_conv import Q as VOXEL
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's CPU ops: under the suite's
+    parallel workers torch's default of a thread a core oversubscribes the
+    CPU (one small engine call took 185 s at six-way contention on an
+    8-core CPU, 1.8 s at one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module", params=["border", "overflow", "scattered"])
 def case(request):
     cloud, cin, cout, cap, caps = CASES[request.param]

@@ -33,6 +33,19 @@ from mrcc_tpu_torch.sparse import (K3_OFFSETS, KEY_PAD, Level,
                                    neighbor_tables, pack_key, uses_k3_tables)
 from mrcc_tpu_torch.sparse.hierarchy import K3_DELTAS, k3_bits
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's CPU ops: under the suite's
+    parallel workers torch's default of a thread a core oversubscribes the
+    CPU (one small engine call took 185 s at six-way contention on an
+    8-core CPU, 1.8 s at one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 B = 2
 
 

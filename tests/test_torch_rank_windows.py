@@ -35,6 +35,19 @@ from mrcc_tpu_torch.ops import rank
 from mrcc_tpu_torch.sparse import KEY_PAD, pack_key
 from mrcc_tpu_torch.sparse.hierarchy import K3_DELTAS, k3_bits
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's CPU ops: under the suite's
+    parallel workers torch's default of a thread a core oversubscribes the
+    CPU (one small engine call took 185 s at six-way contention on an
+    8-core CPU, 1.8 s at one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 I32 = np.iinfo(np.int32)
 OTHER_DELTAS = (-3, 5, 4, 0, 1, 2, 9, -4, 1 << 10)
 

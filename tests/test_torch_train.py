@@ -59,6 +59,19 @@ from mrcc_tpu_torch.train import (Trainer, TrainConfig, latest_checkpoint,
                                   make_segmentation_train_step,
                                   segmentation_loss, step_learning_rate)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's CPU ops: under the suite's
+    parallel workers torch's default of a thread a core oversubscribes the
+    CPU (one small engine call took 185 s at six-way contention on an
+    8-core CPU, 1.8 s at one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 Q = 0.01
 CAP = 256
 CAPS = (256, 128, 64, 64)

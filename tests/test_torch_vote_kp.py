@@ -14,8 +14,8 @@ plain twins).
   accuracy 1e-5, gradients 1e-4 in relative norm over all parameters, the
   update 1e-3 where the gradient is above the noise (ROADMAP C9);
 - the ``train_vote`` and ``train_key_points`` mains for one epoch on the
-  CPU, the dense keypoint branch's error, and the mains' device default
-  (the card; without one they raise).
+  CPU, the dense keypoint branch (PointNet2SSG) for one epoch, and the
+  mains' device default (the card; without one they raise).
 """
 
 import functools
@@ -40,6 +40,7 @@ from mrcc_tpu.train.trainer import \
     make_segmentation_train_step as jax_make_segmentation_train_step
 from mrcc_tpu_torch.cli.train_mains import train_key_points, train_vote
 from mrcc_tpu_torch.data.dataset import AliveV2Dataset, DataConfig
+from mrcc_tpu_torch.data.dense import AliveV2DenseDataset
 from mrcc_tpu_torch.data.synthetic import generate_sample
 from mrcc_tpu_torch.interop import jax_path, load_jax_variables
 from mrcc_tpu_torch.models import RobotNetSegmentation, RobotNetVote
@@ -48,6 +49,19 @@ from mrcc_tpu_torch.sparse import build_hierarchy, voxelize
 from mrcc_tpu_torch.train import TrainConfig
 from mrcc_tpu_torch.train import make_segmentation_train_step
 from test_torch_train import _flat, _randomise, _rel
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the port's CPU ops: under the suite's
+    parallel workers torch's default of a thread a core oversubscribes the
+    CPU (one small engine call took 185 s at six-way contention on an
+    8-core CPU, 1.8 s at one thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 CAP = 512
 CAPS = (512, 256, 128, 64)
@@ -227,9 +241,20 @@ def test_mains_run_one_epoch_on_cpu(tmp_path, main, kw):
     assert (tmp_path / "m-000000001.ckpt").exists()
 
 
-def test_dense_key_points_raise():
-    with pytest.raises(NotImplementedError, match="A6"):
-        train_key_points(backbone="pointnet2", device="cpu")
+def test_dense_key_points_raise(tmp_path):
+    """The dense branch of ``train_key_points`` (a ``pointnet*`` backbone
+    raised until the PointNet2 slice; the test keeps its name): one epoch
+    of PointNet2SSG on 256-point FPS samples of two EE crops."""
+    ds = AliveV2DenseDataset(
+        samples=[generate_sample(seed=60 + i) for i in range(2)],
+        cfg=DataConfig(keypoints_enabled=True), num_points=256,
+        sampling="farthest")
+    hist = train_key_points(TrainConfig(batch_size=2), epochs=1,
+                            device="cpu", dataset=ds, backbone="pointnet2",
+                            exp_path=str(tmp_path), exp_name="dense")
+    assert len(hist) == 1 and hist[0]["batches"] == 1
+    assert np.isfinite(hist[0]["loss"]) and hist[0]["loss"] > 0
+    assert (tmp_path / "dense-000000001.ckpt").exists()
 
 
 @pytest.mark.parametrize("main,kw", MAINS)
