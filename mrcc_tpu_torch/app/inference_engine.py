@@ -27,7 +27,10 @@ int8 inference (``conv_impl="pallas-int8"``): the segmentation and
 keypoint nets run their k3, down and transpose convs through the int8
 kernels (``ops/conv_q8.py``), the rotation net stays on the bf16 kernels
 unless ``rot_conv_impl`` asks for int8 too; a dense keypoint net has no
-sparse conv and stays f32.  ``calibrate_q8`` records each
+sparse conv and stays f32.  Each int8 stage's conv runs in int8 where the
+JAX engine's does (``sparse.hierarchy.q8_route``), else in the compute
+dtype: any compute dtype, level size and backbone (a bottleneck's 1x1
+convs stay in the compute dtype).  ``calibrate_q8`` records each
 conv's activation absmax once; without it every int8 conv quantises with
 the dynamic absmax of its input.
 
@@ -56,7 +59,6 @@ from ..geometry.transform import (base2cam_pose, rot6d_to_quat,
                                   transform_pose2pose)
 from ..interop import load_jax_variables, load_weights
 from ..models import PointNet2SSG, RobotNetEncode, RobotNetSegmentation
-from ..models.minkunet import variant
 from ..ops import points
 from ..ops.prng import uniform
 from ..solve import (default_template, disambiguate_flip, icp_refine,
@@ -158,28 +160,6 @@ class InferenceConfig:
         for impl in (self.conv_impl, self.rot_conv_impl):
             if impl is not None and impl not in CONV_IMPLS:
                 raise ValueError(f"conv impl {impl!r}: one of {CONV_IMPLS}")
-        stages = {"seg": (self.seg_voxel_capacity, self.seg_hierarchy_caps),
-                  "kp": (self.kp_voxel_capacity, self.kp_hierarchy_caps),
-                  "rot": (self.ee_voxel_capacity, self.ee_hierarchy_caps)}
-        backbones = {"seg": self.seg_backbone, "kp": self.kp_backbone,
-                     "rot": self.rot_backbone}
-        for stage in q8_stages(self):
-            if variant(backbones[stage])["block"] == "bottleneck":
-                raise NotImplementedError(
-                    f"int8 {stage} stage on the bottleneck backbone "
-                    f"{backbones[stage]!r}: not held against the JAX int8 "
-                    "engine yet (ROADMAP A7)")
-            if self.compute_dtype != "bfloat16":
-                raise NotImplementedError(
-                    "int8 convs with compute_dtype float32: the JAX engine "
-                    "runs them as f32 tables; not ported")
-            cap, override = stages[stage]
-            for n in (cap,) + _hierarchy_caps(cap, override):
-                if n % 128:
-                    raise NotImplementedError(
-                        f"int8 {stage} level of {n} rows: not a multiple of "
-                        "128, where the JAX engine runs some convs as bf16 "
-                        "XLA; not ported")
 
 
 def dense_kp(cfg: InferenceConfig) -> bool:

@@ -1,32 +1,39 @@
 """Trainer entry mains (port of ``mrcc_tpu/cli/train_mains.py``: the pose,
 segmentation, voting, keypoint (sparse and dense), keypoint-to-pose and
-feature-extractor mains, with ``cli/common.py::select_pose_model``).
+feature-extractor mains).
 
-Dataclass configs stand in for the YAML ``Config`` (``config/`` is not
-ported yet): ``PoseModelConfig`` carries the STRUCTURE keys the model
-choice reads.  The data are the port's labelled synthetic scenes (object
-clouds for the feature extractor) unless a dataset is passed.  The JAX
-mains' crash-retry wrapper is not carried over: a failure raises.
+Each main takes either the YAML ``Config`` as its first argument, as the
+JAX mains do (the bridges give its dataclasses, ``cli/common.
+make_datasets`` the train split, ``cfg.exp_path`` and the config's name
+the checkpoint names), or the dataclass configs (``TrainConfig``,
+``DataConfig``, ``PoseModelConfig``, ...); with dataclasses the data are
+the port's labelled synthetic scenes (object clouds for the feature
+extractor) unless a dataset is passed.  ``device``: the card unless
+``"cpu"``.  The JAX mains' crash-retry wrapper is not carried over: a
+failure raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+from ..config import Config
 from ..data.dataset import (AliveV2Dataset, DataConfig, PoseDataset,
                             SceneDataset)
 from ..data.dense import AliveV2DenseDataset
 from ..data.synthetic import generate_sample
 from ..data.ycb import YCBDataset
 from ..interop import load_weights
-from ..models import (FeatureNet, PointNet, PointNet2SSG, RobotNet,
-                      RobotNetEncode, RobotNetSegmentation, RobotNetVote)
+from ..models import (FeatureNet, PointNet, PointNet2SSG,
+                      RobotNetSegmentation, RobotNetVote)
 from ..sparse.nn import init_parameters
 from ..train import (LossConfig, Trainer, TrainConfig,
                      make_dense_key_point_train_step,
                      make_kp_to_pose_train_step,
                      make_metric_learning_train_step, make_pose_train_step,
                      make_segmentation_train_step)
+from .common import (PoseModelConfig, exp_name_of, make_datasets,
+                     select_pose_model)
 
 VOXEL_CAPACITY = 16384
 EE_VOXEL_CAPACITY = 4096
@@ -49,32 +56,16 @@ def ee_capacity(data_cfg: DataConfig) -> int:
     return min(EE_VOXEL_CAPACITY, _next_pow2(data_cfg.max_points))
 
 
-@dataclasses.dataclass
-class PoseModelConfig:
-    """STRUCTURE keys of the pose model (``config/default.yaml``)."""
-
-    backbone: str = "minkunet"
-    encode_only: bool = False
-    compute_confidence: bool = False
-    use_joint_angles: bool = False
+def _backbone(cfg: Config) -> str:
+    return cfg()["STRUCTURE"].get("backbone", "minkunet")
 
 
-def select_pose_model(model_cfg: PoseModelConfig, data_cfg: DataConfig):
-    """``cli/common.py::select_pose_model``: RobotNet, or RobotNetEncode
-    with ``encode_only`` (which takes ``voxelize_position``), over RGB
-    features; 10 outputs with ``compute_confidence``, else 7.  A
-    ``pointnet*`` backbone gives ``PointNet2SSG`` with that many classes,
-    as in JAX (no pose step can train it: ROADMAP C29)."""
-    out_channels = 10 if model_cfg.compute_confidence else 7
-    if model_cfg.backbone.startswith("pointnet"):
-        return PointNet2SSG(num_classes=out_channels)
-    kw = dict(backbone=model_cfg.backbone, out_channels=out_channels,
-              use_joint_angles=model_cfg.use_joint_angles)
-    if model_cfg.encode_only:
-        return RobotNetEncode(voxelize_position=data_cfg.voxelize_position,
-                              quantization_size=data_cfg.quantization_size,
-                              **kw)
-    return RobotNet(**kw)
+def _from_config(cfg: Config, data_cfg: DataConfig, dense=False):
+    """The train split of a ``Config``'s data and its experiment paths, as
+    keyword arguments of a dataclass-form main."""
+    return dict(dataset=make_datasets(cfg, data_cfg, dense=dense,
+                                      splits=("train",)),
+                exp_path=cfg.exp_path, exp_name=exp_name_of(cfg))
 
 
 def train_pose(train_cfg: TrainConfig = None, model_cfg: PoseModelConfig = None,
@@ -94,6 +85,12 @@ def train_pose(train_cfg: TrainConfig = None, model_cfg: PoseModelConfig = None,
     ``NotImplementedError``: the JAX pose step calls the model on voxels
     and levels, which ``PointNet2SSG`` cannot take (ROADMAP C29).
     """
+    if isinstance(train_cfg, Config):
+        cfg = train_cfg
+        data_cfg = cfg.data_config()
+        return train_pose(cfg.train_config(), PoseModelConfig.from_config(cfg),
+                          cfg.loss_config(), epochs=epochs, device=device,
+                          data_cfg=data_cfg, **_from_config(cfg, data_cfg))
     train_cfg = train_cfg or TrainConfig(batch_size=8)
     model_cfg = model_cfg or PoseModelConfig()
     if model_cfg.backbone.startswith("pointnet"):
@@ -130,6 +127,13 @@ def train_segmentation(train_cfg: TrainConfig = None, capacity=None,
     synthetic scenes).  Runs on the card unless ``device="cpu"``.  Returns
     the per-epoch history of :meth:`Trainer.fit`.
     """
+    if isinstance(train_cfg, Config):
+        cfg = train_cfg
+        data_cfg = dataclasses.replace(cfg.data_config(), data_type=None)
+        return train_segmentation(cfg.train_config(), epochs=epochs,
+                                  device=device, data_cfg=data_cfg,
+                                  backbone=_backbone(cfg),
+                                  **_from_config(cfg, data_cfg))
     train_cfg = train_cfg or TrainConfig(batch_size=8)
     data_cfg = data_cfg or DataConfig(data_type=None)
     capacity = capacity or scene_capacity(data_cfg)
@@ -181,6 +185,12 @@ def train_vote(train_cfg: TrainConfig = None, capacity=None, epochs=None,
     items of ``4 * batch_size`` synthetic scenes).  Runs on the card unless
     ``device="cpu"``.  Returns the per-epoch history of :meth:`Trainer.fit`.
     """
+    if isinstance(train_cfg, Config):
+        cfg = train_cfg
+        data_cfg = dataclasses.replace(cfg.data_config(), voting_enabled=True)
+        return train_vote(cfg.train_config(), epochs=epochs, device=device,
+                          data_cfg=data_cfg, backbone=_backbone(cfg),
+                          **_from_config(cfg, data_cfg))
     train_cfg = train_cfg or TrainConfig(batch_size=8)
     data_cfg = dataclasses.replace(data_cfg or DataConfig(),
                                    voting_enabled=True)
@@ -208,6 +218,20 @@ def train_key_points(train_cfg: TrainConfig = None, capacity=None,
     ``override_key_points.yaml``'s: batch 32 of 2048 FPS samples.
     ``capacity`` is the sparse branch's only.
     """
+    if isinstance(train_cfg, Config):
+        cfg = train_cfg
+        d = cfg()["DATA"]
+        data_cfg = dataclasses.replace(cfg.data_config(),
+                                       keypoints_enabled=True,
+                                       data_type="ee_seg")
+        backbone = _backbone(cfg)
+        return train_key_points(
+            cfg.train_config(), epochs=epochs, device=device,
+            data_cfg=data_cfg, backbone=backbone,
+            num_points=d.get("num_of_dense_input_points", 2048),
+            sampling=d.get("pointcloud_sampling_method", "uniform"),
+            **_from_config(cfg, data_cfg,
+                           dense=backbone.startswith("pointnet")))
     data_cfg = dataclasses.replace(data_cfg or DataConfig(),
                                    keypoints_enabled=True, data_type="ee_seg")
     if backbone.startswith("pointnet"):
@@ -260,6 +284,20 @@ def train_kp_to_pose(train_cfg: TrainConfig = None, epochs=None, device=None,
     synthetic scenes).  Runs on the card unless ``device="cpu"``.  Returns
     the per-epoch history of :meth:`Trainer.fit`.
     """
+    if isinstance(train_cfg, Config):
+        cfg = train_cfg
+        d, t = cfg()["DATA"], cfg()["TRAIN"]
+        data_cfg = dataclasses.replace(cfg.data_config(),
+                                       keypoints_enabled=True,
+                                       data_type="ee_seg")
+        return train_kp_to_pose(
+            cfg.train_config(), epochs=epochs, device=device,
+            data_cfg=data_cfg,
+            num_points=d.get("num_of_dense_input_points", 4096),
+            sampling=d.get("pointcloud_sampling_method", "uniform"),
+            kp_prediction_checkpoint=t.get("kp_prediction_checkpoint"),
+            kp_use_probabilities=t.get("kp_use_probabilities", True),
+            **_from_config(cfg, data_cfg, dense=True))
     train_cfg = train_cfg or TrainConfig(batch_size=32)
     data_cfg = dataclasses.replace(data_cfg or DataConfig(),
                                    keypoints_enabled=True, data_type="ee_seg")
@@ -299,6 +337,11 @@ def train_feature_extractor(train_cfg: TrainConfig = None, epochs=None,
     the batch.  Runs on the card unless ``device="cpu"``.  Returns the
     per-epoch history of :meth:`Trainer.fit`.
     """
+    if isinstance(train_cfg, Config):
+        cfg = train_cfg
+        return train_feature_extractor(
+            cfg.train_config(), epochs=epochs, device=device,
+            exp_path=cfg.exp_path, exp_name=exp_name_of(cfg))
     train_cfg = train_cfg or TrainConfig()
     dataset = dataset or YCBDataset(num_classes=8, samples_per_class=6,
                                     max_points=1024)

@@ -9,6 +9,10 @@ returned dict, as in the reference's sample pickles.
 
 from __future__ import annotations
 
+import json
+import pickle
+from pathlib import Path
+
 import numpy as np
 
 
@@ -215,3 +219,34 @@ def build_batch(batch, capacity, seed=0, with_labels=False):
     if with_labels:
         return pts, rgb, mask, labels
     return pts, rgb, mask
+
+
+def write_sample_set(out_dir, n=5, seed0=1, **kw):
+    """Write ``n`` sample pickles ``labeled/{i}.pickle`` (seeds ``seed0 +
+    i``, ``kw`` to :func:`generate_sample`) and ``sample_splits.json``:
+    every entry ``{filepath, position p{i % 3 + 1}, light, arm_point_count,
+    position_eligibility, orientation_eligibility}``; the last sample is the
+    test split, the one before it val, the rest train.  Byte for byte the
+    JAX package's files for the same arguments."""
+    out_dir = Path(out_dir)
+    (out_dir / "labeled").mkdir(parents=True, exist_ok=True)
+    entries = []
+    for i in range(n):
+        sample = generate_sample(seed=seed0 + i, **kw)
+        path = out_dir / "labeled" / f"{i + 1}.pickle"
+        with open(path, "wb") as f:
+            pickle.dump(sample, f)
+        entries.append({
+            "filepath": str(path),
+            "position": f"p{i % 3 + 1}",
+            "light": "bright",
+            "arm_point_count": int((sample["labels"] == 1).sum()),
+            "position_eligibility": True,
+            "orientation_eligibility": True,
+        })
+    splits = {"train": entries[:-2] or entries,
+              "val": entries[-2:-1] or entries,
+              "test": entries[-1:] or entries}
+    with open(out_dir / "sample_splits.json", "w") as f:
+        json.dump(splits, f, indent=2)
+    return splits

@@ -18,7 +18,11 @@ they call the forward wrappers directly.  The strided map conv of the
 sparse ResNets (:func:`conv_kernel_map`) is inference only.  ``q8=True``
 routes the convs to the int8 wrappers of ``ops/conv_q8.py`` (inference
 only), quantising with the calibrated ``act_absmax`` when one is given,
-else the dynamic absmax.
+else the dynamic absmax, on the convs where the JAX engine runs int8
+(``hierarchy.q8_route``: the k3 convs of self-keyed levels always, table
+levels, down and up convs where its tiled maps exist and
+``_pallas_route_tiled`` accepts the shapes); the others run in the
+features' dtype, as JAX's ``conv_kernel_map`` does.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from ..ops.conv import (DownConvFn, K3MapConvFn, SkConvFn, UpConvFn,
                         gather_gemm_sk, gather_gemm_up)
 from ..ops.conv_q8 import (gather_gemm_down_q8, gather_gemm_k3_map_q8,
                            gather_gemm_sk_q8, gather_gemm_up_q8)
+from .hierarchy import q8_route
 
 
 def _with_bias(out, bias, valid):
@@ -44,11 +49,13 @@ def _recorded(feats, weights):
 
 
 def conv_k3(feats, weights, level, bias=None, q8=False, act_absmax=None):
-    """k=3 s=1 submanifold conv on one level: the k3-table conv (K3, B7)
-    where the level carries tables, else the self-keyed one (K2; B6 with
+    """k=3 s=1 submanifold conv on one level: the k3-table conv (K3; B7
+    with ``q8`` where :func:`~.hierarchy.q8_route` accepts the level) where
+    the level carries tables, else the self-keyed one (K2; B6 with
     ``q8``)."""
     tables = level.nbr_idx is not None
-    if q8:
+    n = feats.shape[1]
+    if q8 and (not tables or q8_route("k3", n, n, feats.element_size())):
         out = (gather_gemm_k3_map_q8(feats, weights, level.nbr_idx,
                                      level.nbr_hit, act_absmax) if tables
                else gather_gemm_sk_q8(feats, weights, level.key, level.kbits,
@@ -70,9 +77,10 @@ def conv_k3(feats, weights, level, bias=None, q8=False, act_absmax=None):
 def conv_down(feats, weights, fine_level, coarse_level, bias=None,
               q8=False, act_absmax=None):
     """k=2 s=2 conv: fine level -> coarse level over the 8-child map (K3;
-    B7 with ``q8``)."""
+    B7 with ``q8`` where :func:`~.hierarchy.q8_route` accepts it)."""
     maps = (coarse_level.child_idx, coarse_level.child_hit)
-    if q8:
+    if q8 and q8_route("down", feats.shape[1], coarse_level.valid.shape[1],
+                       feats.element_size()):
         out = gather_gemm_down_q8(feats, weights, *maps, act_absmax)
         return _with_bias(out, bias, coarse_level.valid)
     w = weights.to(feats.dtype)
@@ -88,10 +96,12 @@ def conv_down(feats, weights, fine_level, coarse_level, bias=None,
 def conv_transpose_up(feats, weights, coarse_level, fine_level, bias=None,
                       q8=False, act_absmax=None):
     """k=2 s=2 transpose conv: coarse -> cached fine level (K3 up; B7 with
-    ``q8``): ``out[c] = feats[parent(c)] @ W[octant(c)]`` for valid children
+    ``q8`` where :func:`~.hierarchy.q8_route` accepts it):
+    ``out[c] = feats[parent(c)] @ W[octant(c)]`` for valid children
     whose parent made the coarse capacity."""
     maps = (fine_level.parent_idx, fine_level.row_ok, fine_level.octant)
-    if q8:
+    if q8 and q8_route("up", fine_level.valid.shape[1], feats.shape[1],
+                       feats.element_size()):
         out = gather_gemm_up_q8(feats, weights, *maps, act_absmax)
         return _with_bias(out, bias, fine_level.valid)
     w = weights.to(feats.dtype)

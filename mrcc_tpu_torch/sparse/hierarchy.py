@@ -149,6 +149,51 @@ def train_uses_k3_tables(n: int, k3_self_keyed: bool = True) -> bool:
                                      and n * 128 * 2 <= TABLE_BUDGET)
 
 
+def _pick_tile(n: int) -> int:
+    """The JAX conv's output row tile (``conv_pallas._pick_tile``)."""
+    return next((t for t in (256, 128, 64, 32, 16, 8)
+                 if n % t == 0 and n >= t), 0)
+
+
+def q8_supported(n_in: int, n_out: int, itemsize: int) -> bool:
+    """Whether the JAX int8 route accepts one conv on a map of ``n_out``
+    output rows over an ``n_in``-row input table whose features have
+    ``itemsize`` bytes (``sparse/conv.py::_pallas_route_tiled`` under
+    ``"pallas-int8"``): ``n_in`` a multiple of 32, then
+    ``conv_pallas.supported_dims(n_in, n_out, itemsize)``, whose
+    ``_table_fits`` accepts every 32-aligned table whatever ``itemsize``
+    (the HBM-streamed route is on), so only the output tile is left."""
+    del itemsize
+    return n_in % 32 == 0 and n_in > 0 and _pick_tile(n_out) >= 8
+
+
+def _ranked(*ns) -> bool:
+    # the JAX hierarchy builds tiled maps through the rank kernel only on
+    # 128-aligned levels (hierarchy._use_rank_kernel)
+    return all(n % 128 == 0 and n >= 128 for n in ns)
+
+
+def q8_route(kind: str, n_fine: int, n_coarse: int, itemsize: int) -> bool:
+    """Whether an int8 stage's ``kind`` conv (``"k3"`` on a table level
+    of ``n_fine`` rows, ``"down"`` from ``n_fine`` to ``n_coarse`` rows,
+    ``"up"`` from ``n_coarse`` to ``n_fine``) runs in int8 on the JAX
+    engine: the level carries the tiled map that ``build_hierarchy`` gives
+    it under ``"pallas-int8"`` (k3 and down: every level the map spans is
+    128-aligned; up: the fine level a multiple of 8) and
+    :func:`q8_supported` accepts the conv.  Elsewhere the JAX convs fall
+    through to ``conv_kernel_map`` in the features' dtype.  A self-keyed
+    int8 level needs no gate: it is built only where ``sk_pack(n, 1) == 1``
+    (:func:`uses_k3_tables`)."""
+    if kind == "k3":
+        return _ranked(n_fine) and q8_supported(n_fine, n_fine, itemsize)
+    if kind == "down":
+        return (_ranked(n_fine, n_coarse)
+                and q8_supported(n_fine, n_coarse, itemsize))
+    if kind == "up":
+        return n_fine % 8 == 0 and q8_supported(n_coarse, n_fine, itemsize)
+    raise ValueError(f"q8_route: kind {kind!r}")
+
+
 def neighbor_tables(level: Level):
     """The level's 27-offset neighbour tables ``(idx [27, B, N] int32,
     hit [27, B, N] bool)`` through the rank kernel (port of

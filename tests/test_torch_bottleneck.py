@@ -6,7 +6,7 @@ seed (random batch norm statistics and biases, so that eval mode reads
 them); the port loads them through ``interop.load_jax_variables``.
 Outputs agree to relative norm 1e-4; AliveUNet's padding rows are exactly
 0.  An engine on the bottleneck backbone runs ``predict_batch_arrays`` on
-the CPU; its int8 form raises (ROADMAP A7).
+the CPU; its int8 form is held in ``test_torch_q8_bottleneck.py``.
 """
 
 from functools import partial
@@ -194,7 +194,3 @@ def test_engine_on_the_bottleneck_backbone(dtype):
     assert torch.isfinite(out["ee_pose"]).all()
     assert torch.isfinite(out["kp_pose"]).all()
 
-
-def test_int8_engine_on_the_bottleneck_backbone_raises():
-    with pytest.raises(NotImplementedError, match="A7"):
-        _engine_cfg(conv_impl="pallas-int8")

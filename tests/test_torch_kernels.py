@@ -35,7 +35,10 @@ against the CPU at the train-step gates (loss 1e-5, gradients 1e-4, the
 update 1e-3, BN statistics 1e-5).  The strided map conv holds the conv
 tolerances (two launches bit-equal), the child tables equal the rank
 kernel's plain twin, and the reduced SparseResNet50 (f32 1e-4, bf16 2e-2)
-and AliveUNet (f32 1e-4) hold the card against the CPU.
+and AliveUNet (f32 1e-4) hold the card against the CPU.  B7's k3-table,
+down and up modes on f32 features (an int8 engine at f32 compute) equal
+their twins bit for bit; ``evaluate_segmentation`` at a reduced size
+holds the card against the CPU (metrics 1e-3).
 """
 
 import numpy as np
@@ -841,6 +844,60 @@ def test_conv_k3_map_q8(cuda, levels, cin, cout):
     _check_q8(conv_q8.gather_gemm_k3_map_q8,
               conv_q8.gather_gemm_k3_map_q8_plain, conv_q8.K3MAP_Q8,
               conv.gather_gemm_k3_map_plain, f, w, (idx, hit))
+
+
+@pytest.mark.parametrize("cin,cout", [(3, 32), (48, 64), (384, 40)])
+def test_conv_map_q8_f32_features(cuda, levels, cin, cout):
+    """An int8 engine at ``compute_dtype="float32"``: B7's k3-table, down
+    and up modes on f32 features (the f32 instantiations of the
+    quantisation, the tile, the list GEMM, the child sum and the zero
+    pass) equal their twins bit for bit."""
+    lv = levels[0]
+    idx, hit = neighbor_tables(lv)
+    _check_q8(conv_q8.gather_gemm_k3_map_q8,
+              conv_q8.gather_gemm_k3_map_q8_plain, conv_q8.K3MAP_Q8,
+              conv.gather_gemm_k3_map_plain, _feats(lv, cin, torch.float32),
+              torch.randn((27, cin, cout), device=cuda) / 9, (idx, hit))
+    fine, coarse = levels[1], levels[2]
+    w = torch.randn((8, cin, cout), device=cuda) / 3
+    _check_q8(conv_q8.gather_gemm_down_q8, conv_q8.gather_gemm_down_q8_plain,
+              conv_q8.DOWN_Q8, conv.gather_gemm_down_plain,
+              _feats(fine, cin, torch.float32), w,
+              (coarse.child_idx, coarse.child_hit))
+    _check_q8(conv_q8.gather_gemm_up_q8, conv_q8.gather_gemm_up_q8_plain,
+              conv_q8.UP_Q8, conv.gather_gemm_up_plain,
+              _feats(coarse, cin, torch.float32), w,
+              (fine.parent_idx, fine.row_ok, fine.octant))
+
+
+def test_segmentation_evaluator_card_vs_cpu(cuda, tmp_path):
+    """``evaluate_segmentation`` at a reduced size (minkunet14A, capacity
+    1024, three samples, f32 on tables) on the card against the CPU, same
+    weights: K1, the rank kernel, the k3-table conv and K3 down / up
+    launched; per-instance metrics within 1e-3."""
+    from mrcc_tpu_torch.data.dataset import AliveV2Dataset, DataConfig
+    from mrcc_tpu_torch.data.synthetic import write_sample_set
+    from mrcc_tpu_torch.eval import evaluate_segmentation
+    from mrcc_tpu_torch.models import RobotNetSegmentation
+    from mrcc_tpu_torch.sparse.nn import init_parameters
+
+    splits = write_sample_set(tmp_path, n=3, n_ee=400, n_arm=500, n_bg=700)
+    ds = AliveV2Dataset(files=splits["train"] + splits["val"]
+                        + splits["test"], cfg=DataConfig(
+                            data_type=None, max_points=2048, scale=200.0))
+    model = init_parameters(RobotNetSegmentation(
+        backbone="minkunet14A", in_channels=3, num_classes=3), 0)
+    counters = (sort.SORT, rank.RANK, conv.K3MAP, conv.DOWN, conv.UP)
+    before = [c.launches for c in counters]
+    got = evaluate_segmentation(model, ds, voxel_capacity=1024,
+                                device="cuda")
+    assert all(c.launches > b for c, b in zip(counters, before))
+    want = evaluate_segmentation(model, ds, voxel_capacity=1024,
+                                 device="cpu")
+    assert len(got["instances"]) == len(want["instances"]) == 3
+    for g, w in zip(got["instances"], want["instances"]):
+        for k in ("accuracy", "precision", "recall"):
+            assert abs(g[k] - w[k]) <= 1e-3, (k, g[k], w[k])
 
 
 @pytest.mark.parametrize("b,m,n", [(2, 256, 512), (3, 100, 1500),

@@ -81,7 +81,11 @@ def test_no_jax_in_the_port_process():
                  "data.ycb", "models.featurenet", "solve.vote",
                  "train.metric_learning", "models.resnet_sparse",
                  "models.aliveunet", "ops.points", "ops.prng",
-                 "models.pointnet2", "data.dense"):
+                 "models.pointnet2", "data.dense", "config.config",
+                 "config.default", "cli.common", "cli.test_mains",
+                 "eval.harness", "eval.benchmark", "eval.report",
+                 "app.main", "app.calibrate_pcd", "data.alivev1",
+                 "data.rgbd", "utils.logger"):
         assert f"mrcc_tpu_torch.{name}" in info["modules"], name
     assert "ee_pose" in info["keys"]
     leaked = [m for m in info["loaded"] if _forbidden(m)]
@@ -151,10 +155,7 @@ def test_engine_defaults_to_the_card():
 
 
 def test_later_slices_raise():
-    # int8 with f32 compute still raises (ROADMAP A7); the dense keypoint
-    # backend configures since the PointNet2 slice
-    with pytest.raises(NotImplementedError):
-        InferenceConfig(conv_impl="pallas-int8", compute_dtype="float32")
+    # the dense keypoint backend configures since the PointNet2 slice
     cfg = InferenceConfig(kp_backbone="pointnet2")
     assert cfg.num_of_dense_input_points == 2048
     assert cfg.kp_sampling_method == "uniform"
