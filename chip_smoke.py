@@ -236,7 +236,31 @@ last line):
     reported), each timed over 5 batches; B7's k3-table, down and up modes
     on f32 features at the f32 engine's seg levels as kernel records of
     path ``q8r``.  Launches of paths ``ev`` (a), ``app`` (c) and ``q8r``
-    (e).
+    (e).  Its CPU references of (a)-(c) are computed by a child process
+    of this script (``--eval-references``), started right after the
+    build on the last three cores (this process keeps the others) and
+    read when phase 16 begins;
+17. data parallelism and the host modules (``parallel``): (a) phase 6's
+    engine on a 1-rank NCCL mesh (``parallel.make_mesh``): the plain
+    batch and ``fleet.globalize`` of it give outputs bit-equal to the
+    engine without a mesh, every kernel of its path launched; (b) two
+    ranks on the one card (two processes of this script, ``--dp-rank``,
+    over gloo: NCCL refuses two ranks on one device), spawned after the
+    build: each rank's engine rows (4 + 4 of phase 6's batch) bit-equal to
+    this process's engine on that shard; 3 data-parallel phase-7 steps
+    (``Trainer(mesh=...).step``: global batch norms, loss counts and
+    summed gradients) with losses within 1e-4 of the single-process step,
+    both ranks' parameters and BN statistics bit-equal; steps/s printed
+    (two ranks share one card: no measure of data-parallel speed); (c) the
+    host runtime (``native``, built with the host compiler) on a 640 x 480
+    frame against the card voxelizer, ``farthest_point_sample`` and
+    ``query_ball_point``; (d) the ArUco baseline without cv2: the tag pose
+    from synthetic corners card vs CPU, ICP of the template from ~5 mm,
+    the app's cropped ICP and ``calibrate`` card vs CPU within twice the
+    CPU's own spread over ULP moves of the points, which an ICP cut to 7
+    of its 15 iterations must exceed; (e)
+    ``write_html_viewer`` of the engine's output.  Launches of path ``dp``
+    (the mesh call and both ranks' engine calls and steps).
 
 ``python3 chip_smoke.py --calibrate`` builds the kernels and runs only
 phase 11, ``--train-more`` only phase 12.  ``--pose-k2`` builds them and runs only that
@@ -246,7 +270,8 @@ kernel and shape (CUDA events), ``--inference`` runs only phase 6 and
 ``--q8`` only phase 3's int8 cases and phase 8, ``--int8`` only phases 6
 and 8, to compare two versions of the kernels in one call (copy this file
 into a checkout of the other version).  ``--resnet`` builds the kernels and runs only phases 13 and 14,
-``--dense`` only phase 15, ``--eval`` only phase 16.
+``--dense`` only phase 15, ``--eval`` only phase 16 (its CPU references
+then run first), ``--parallel`` only phase 17.
 ``--rank-nn`` times the rank and
 NN kernels at phase 3's shapes under several values of their wrappers'
 constants (rank: query rows a block and shared-window keys; NN: blocks in
@@ -3852,8 +3877,9 @@ APP_SEG_ACC = 0.01      # (c): bf16 seg accuracy card vs CPU
 Q8R_LOGITS = 0.1
 
 
-def _eval_config(root, split):
-    """The defaults with the sample set, the experiment directory and the
+def _eval_config(root, split, exp="exp"):
+    """The defaults with the sample set, the experiment directory
+    (``{root}/{exp}``: the CPU references write into their own) and the
     test split overridden (and the padding cut to the 24096-point
     samples' 32768: the collated rows are the same)."""
     from mrcc_tpu_torch.config import Config
@@ -3861,7 +3887,7 @@ def _eval_config(root, split):
     return Config(overrides={
         "DATA": {"file_names": f"{root}/sample_splits.json",
                  "max_npoint": 32768},
-        "TEST": {"split": split}}, exp_path=f"{root}/exp")
+        "TEST": {"split": split}}, exp_path=f"{root}/{exp}")
 
 
 def _zero(counters):
@@ -3925,17 +3951,18 @@ def _point_logits_of(out):
         harness._point_logits = saved
 
 
-def _seg_eval(root, counters):
+def _seg_eval(root, counters, refs):
     """(a) ``test_segmentation`` on the card (the default STRUCTURE
     backbone, 18D, 3 classes, capacity 8192, batch 4, f32 on tables) over
-    the 8 train samples, then again on the CPU with the same weights:
-    every instance's accuracy / precision / recall within SEG_EVAL_METRIC,
-    the point labels of every batch equal on SEG_EVAL_AGREE."""
+    the 8 train samples, against the CPU's run with the same weights
+    (``refs``): every instance's accuracy / precision / recall within
+    SEG_EVAL_METRIC, the point labels of every batch equal on
+    SEG_EVAL_AGREE."""
     from mrcc_tpu_torch.cli import test_mains
 
     cfg = _eval_config(root, "train")
     test_mains.test_segmentation(cfg)          # warm-up (allocator)
-    card_logits, cpu_logits = [], []
+    card_logits = []
     _zero(counters)
     with _point_logits_of(card_logits):
         t = time.perf_counter()
@@ -3946,10 +3973,8 @@ def _seg_eval(root, counters):
         raise AssertionError(f"seg eval: a kernel never ran: {launches}")
     busy = sum(profile_device_ms(
         lambda: test_mains.test_segmentation(cfg)).values())
-    t = time.perf_counter()
-    with _point_logits_of(cpu_logits):
-        want = test_mains.test_segmentation(cfg, device="cpu")
-    cpu_s = time.perf_counter() - t
+    want, cpu_logits, cpu_s = (refs["seg"][k]
+                               for k in ("want", "logits", "cpu_s"))
     got = res["instances"]
     same_items = ([g["file"] for g in got]
                   == [w["file"] for w in want["instances"]])
@@ -3977,13 +4002,15 @@ def _close_dist(a, b):
     return a == b or abs(a - b) <= EVAL_DIST * max(1.0, abs(a), abs(b))
 
 
-def _vote_near_tie(cfg, top_k=8):
+def _vote_near_tie(cfg, missed, top_k=8):
     """Why two voted centres differ: the vote logits card vs CPU (relative
     norm within VOTE_LOGITS) and, per item, the gap between the k-th and
     the (k+1)-th class-1 score against the largest score difference
-    between the devices.  A gap under that difference lets the devices
-    average different points (the centre is the mean of the top k), which
-    explains the miss; anything else does not."""
+    between the devices.  A near tie (a gap above 0 and under that
+    difference) lets the devices rank different points k-th (the centre
+    is the mean of the top k), which explains the miss of an item in
+    ``missed``; an exact tie does not (both devices take the lower index
+    first, as ``lax.top_k``), nor anything else."""
     from mrcc_tpu_torch.cli import test_mains
     from mrcc_tpu_torch.cli.common import make_datasets
     from mrcc_tpu_torch.eval.harness import Forward, _point_logits
@@ -4005,53 +4032,72 @@ def _vote_near_tie(cfg, top_k=8):
         top = torch.sort(w[m], descending=True).values
         items.append(dict(gap=float(top[top_k - 1] - top[top_k]),
                           max_diff=float((g[m] - w[m]).abs().max())))
-    return dict(logits_rel_err=rel, items=items,
+    return dict(logits_rel_err=rel, items=items, missed=missed,
                 explained=rel <= VOTE_LOGITS and all(
-                    i["gap"] <= i["max_diff"] for i in items))
+                    0 < items[i]["gap"] <= items[i]["max_diff"]
+                    for i in missed))
 
 
-def _other_evals(root):
+OTHER_EVALS = (("test_pose", ("dist", "dist_position", "dist_orientation",
+                               "angle_diff")),
+               ("test_key_points", ("kp_error",)),
+               ("test_vote", ("center_dist",)))
+
+
+def _other_evals(root, refs):
     """(b) ``test_pose``, ``test_key_points`` and ``test_vote`` on the
-    test split (one batch), card vs CPU: distances within EVAL_DIST (m,
-    relative above 1 m: a random RobotNet's eval-mode positions reach
-    1e8), the same keypoints found; a voted centre off by more only where
-    ``_vote_near_tie`` explains it."""
+    test split (one batch), card vs the CPU's runs (``refs``): distances
+    within EVAL_DIST (m, relative above 1 m: a random RobotNet's
+    eval-mode positions reach 1e8), the same keypoints found; a voted
+    centre off by more only where ``_vote_near_tie`` finds a near tie."""
     from mrcc_tpu_torch.cli import test_mains
 
     cfg = _eval_config(root, "test")
     report = {}
-    for name, keys in (("test_pose", ("dist", "dist_position",
-                                      "dist_orientation", "angle_diff")),
-                       ("test_key_points", ("kp_error",)),
-                       ("test_vote", ("center_dist",))):
+    for name, keys in OTHER_EVALS:
         fn = getattr(test_mains, name)
         t = time.perf_counter()
         got = fn(cfg)
         card_s = time.perf_counter() - t
-        want = fn(cfg, device="cpu")
+        want = refs["others"][name]
         ok = len(got["instances"]) == len(want["instances"]) > 0
-        for g, w in zip(got["instances"], want["instances"]):
-            ok &= all(_close_dist(g[k], w[k]) for k in keys)
-            ok &= g.get("found") == w.get("found")
+        missed = []
+        for i, (g, w) in enumerate(zip(got["instances"],
+                                       want["instances"])):
+            if not (all(_close_dist(g[k], w[k]) for k in keys)
+                    and g.get("found") == w.get("found")):
+                missed.append(i)
+        ok &= not missed
         report[name] = dict(card_s=card_s, ok=ok, card=got["instances"],
                             cpu=want["instances"])
-        if not ok and name == "test_vote":
-            report[name]["near_tie"] = _vote_near_tie(cfg)
+        if missed and name == "test_vote":
+            report[name]["near_tie"] = _vote_near_tie(cfg, missed)
             ok = report[name]["near_tie"]["explained"]
         if not ok:
             raise AssertionError(f"{name} card vs CPU: {report[name]}")
     return report
 
 
-def _bench_app(root, counters):
+def _first_frames(source):
+    """The first of the APP_FRAMES frames of each position, as the card's
+    cyclic engine meets them."""
+    from mrcc_tpu_torch.app import PickleDataEngine
+
+    first = {}
+    for e in PickleDataEngine(source, split="train").entries[:APP_FRAMES]:
+        first.setdefault(e["position"], e)
+    return first
+
+
+def _bench_app(root, counters, refs):
     """(c) ``test_app`` on the card over ``PickleDataEngine`` (APP_FRAMES
-    frames of the train split), every stage timed; then the first frame
-    of each position through a CPU engine of the same seeded weights:
-    bf16 seg accuracy within APP_SEG_ACC of the card's on that frame."""
-    from mrcc_tpu_torch.app import InferenceEngine, PickleDataEngine
+    frames of the train split), every stage timed; against the first
+    frame of each position through a CPU engine of the same seeded
+    weights (``refs``): bf16 seg accuracy within APP_SEG_ACC of the
+    card's on that frame."""
+    from mrcc_tpu_torch.app import InferenceEngine
     from mrcc_tpu_torch.cli import test_mains
     from mrcc_tpu_torch.data.synthetic import gt_base2cam_pose
-    from mrcc_tpu_torch.eval import BenchmarkApp
 
     cfg = _eval_config(root, "train")
     source = f"{root}/sample_splits.json"
@@ -4077,18 +4123,8 @@ def _bench_app(root, counters):
             cpu.models()[stage].state_dict().values()))
         if not same:
             raise AssertionError(f"test_app: {stage} weights differ")
-    # the first frame of each position, as the card's cyclic engine met it
-    first = {}
-    for e in PickleDataEngine(source, split="train").entries[:APP_FRAMES]:
-        first.setdefault(e["position"], e)
-    with open(f"{root}/first_frames.json", "w") as f:
-        json.dump({"train": list(first.values())}, f)
-    t = time.perf_counter()
-    want = BenchmarkApp(cpu, PickleDataEngine(
-        f"{root}/first_frames.json", split="train", cyclic=False),
-        gt_base2cam_pose(), n_samples=len(first),
-        ignore_unconfident=True).run()
-    cpu_s = time.perf_counter() - t
+    first = _first_frames(source)
+    want, cpu_s = refs["app"]["want"], refs["app"]["cpu_s"]
     acc = {p: [res["positions"][p]["seg_accuracy"][0],
                want["positions"][p]["seg_accuracy"][0]] for p in first}
     acc_err = max(abs(a - b) for a, b in acc.values())
@@ -4465,13 +4501,115 @@ def _q8_routes(counters, records, iters=5):
     return report, total
 
 
-def phase_eval():
-    """Phase 16: config, evaluation and the app's entry points on the card
-    (a-e above); returns the launches of paths ``ev``, ``app``, ``q8r``
-    and the ``q8_case`` records of (e)."""
-    import tempfile
+# phase 16's CPU references run in a child process on the last
+# EVAL_CPU_CORES cores while the card phases run on the others
+EVAL_CPU_CORES = 3
 
-    from mrcc_tpu_torch.data.synthetic import write_sample_set
+
+def eval_references(root):
+    """Phase 16's CPU references, in a process without the card: (a)
+    ``test_segmentation`` on the train split with each batch's point
+    logits, (b) the three other test mains on the test split, (c) the
+    first frame of each position through ``BenchmarkApp`` on a CPU engine
+    of the default YAML (same seeded weights as the card's).  Written to
+    ``{root}/cpu_refs.pt``."""
+    from mrcc_tpu_torch.app import InferenceEngine, PickleDataEngine
+    from mrcc_tpu_torch.cli import test_mains
+    from mrcc_tpu_torch.data.synthetic import gt_base2cam_pose
+    from mrcc_tpu_torch.eval import BenchmarkApp
+
+    torch.set_num_threads(len(os.sched_getaffinity(0)))
+    refs = {"threads": torch.get_num_threads()}
+    cfg = _eval_config(root, "train", exp="exp_cpu")
+    logits = []
+    t = time.perf_counter()
+    with _point_logits_of(logits):
+        want = test_mains.test_segmentation(cfg, device="cpu")
+    refs["seg"] = dict(want=want, logits=logits,
+                       cpu_s=time.perf_counter() - t)
+    cfg = _eval_config(root, "test", exp="exp_cpu")
+    refs["others"] = {name: getattr(test_mains, name)(cfg, device="cpu")
+                      for name, _ in OTHER_EVALS}
+    cfg = _eval_config(root, "train", exp="exp_cpu")
+    source = f"{root}/sample_splits.json"
+    cfg()["INFERENCE"]["data_source"] = source
+    first = _first_frames(source)
+    with open(f"{root}/first_frames.json", "w") as f:
+        json.dump({"train": list(first.values())}, f)
+    t = time.perf_counter()
+    want = BenchmarkApp(
+        InferenceEngine(cfg.inference_config(), device="cpu"),
+        PickleDataEngine(f"{root}/first_frames.json", split="train",
+                         cyclic=False),
+        gt_base2cam_pose(), n_samples=len(first),
+        ignore_unconfident=True).run()
+    refs["app"] = dict(want=want, cpu_s=time.perf_counter() - t)
+    torch.save(refs, f"{root}/cpu_refs.pt")
+
+
+class EvalReferences:
+    """Phase 16's sample set in a temporary directory and its CPU
+    references (``eval_references``) computed by a child process of this
+    script, started at once: on the last EVAL_CPU_CORES cores where the
+    machine has twice as many (this process then keeps the others, with
+    as many torch threads)."""
+
+    def __init__(self):
+        import tempfile
+
+        from mrcc_tpu_torch.data.synthetic import write_sample_set
+
+        self._dir = tempfile.TemporaryDirectory()
+        self.root = self._dir.name
+        t = time.perf_counter()
+        write_sample_set(self.root, n=EVAL_SAMPLES)
+        log("eval_data", samples=EVAL_SAMPLES,
+            seconds=time.perf_counter() - t)
+        cores = sorted(os.sched_getaffinity(0))
+        child_cores = None
+        if len(cores) >= 2 * EVAL_CPU_CORES:
+            child_cores, keep = cores[-EVAL_CPU_CORES:], cores[:-EVAL_CPU_CORES]
+            os.sched_setaffinity(0, keep)
+            torch.set_num_threads(len(keep))
+        self.cores = child_cores or cores
+        self.t0 = time.perf_counter()
+        self.child = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__),
+             "--eval-references", self.root],
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            preexec_fn=(None if child_cores is None else
+                        lambda: os.sched_setaffinity(0, child_cores)))
+
+    def running(self) -> bool:
+        return self.child.poll() is None
+
+    def wait(self):
+        """The references (waiting for the child if it is still busy)."""
+        t = time.perf_counter()
+        out, _ = self.child.communicate(timeout=900)
+        if self.child.returncode != 0:
+            raise AssertionError(f"phase 16 CPU references failed:\n"
+                                 f"{out[-4000:]}")
+        refs = torch.load(f"{self.root}/cpu_refs.pt", weights_only=False)
+        log("eval_references", cores=self.cores, threads=refs["threads"],
+            child_s=time.perf_counter() - self.t0,
+            waited_s=time.perf_counter() - t,
+            cpu_s={"seg": refs["seg"]["cpu_s"], "app": refs["app"]["cpu_s"]})
+        return refs
+
+    def close(self):
+        if self.child.poll() is None:
+            self.child.kill()
+            self.child.communicate()
+        self._dir.cleanup()
+
+
+def phase_eval(references):
+    """Phase 16: config, evaluation and the app's entry points on the card
+    (a-e above) on the sample set of ``references`` (an
+    ``EvalReferences``); returns the launches of paths ``ev``, ``app``,
+    ``q8r`` and the ``q8_case`` records of (e)."""
     from mrcc_tpu_torch.ops import conv, conv_q8, rank, sort
 
     k3 = [sort.SORT, rank.RANK, conv.K3MAP, conv.DOWN, conv.UP,
@@ -4481,24 +4619,22 @@ def phase_eval():
     q8 = k3 + [conv.SK, conv_q8.SK_Q8, conv_q8.K3MAP_Q8, conv_q8.DOWN_Q8,
                conv_q8.UP_Q8, conv_q8.Q8_QUANT, conv_q8.Q8_LISTS,
                conv_q8.Q8_SUM]
-    with tempfile.TemporaryDirectory() as root:
-        t = time.perf_counter()
-        write_sample_set(root, n=EVAL_SAMPLES)
-        log("eval_data", samples=EVAL_SAMPLES, seconds=time.perf_counter() - t)
-        t = time.perf_counter()
-        seg = _seg_eval(root, k3)
-        log("eval_segmentation", card=smi_line(),
-            seconds=time.perf_counter() - t, **seg)
-        t = time.perf_counter()
-        log("eval_others", **_other_evals(root),
-            seconds=time.perf_counter() - t)
-        t = time.perf_counter()
-        bench, engine = _bench_app(root, app)
-        log("eval_app", card=smi_line(), seconds=time.perf_counter() - t,
-            **bench)
-        t = time.perf_counter()
-        log("eval_sessions", **_sessions(root, engine),
-            seconds=time.perf_counter() - t)
+    root = references.root
+    refs = references.wait()
+    t = time.perf_counter()
+    seg = _seg_eval(root, k3, refs)
+    log("eval_segmentation", card=smi_line(),
+        seconds=time.perf_counter() - t, **seg)
+    t = time.perf_counter()
+    log("eval_others", **_other_evals(root, refs),
+        seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    bench, engine = _bench_app(root, app, refs)
+    log("eval_app", card=smi_line(), seconds=time.perf_counter() - t,
+        **bench)
+    t = time.perf_counter()
+    log("eval_sessions", **_sessions(root, engine),
+        seconds=time.perf_counter() - t)
     records = []
     t = time.perf_counter()
     routes, q8_launches = _q8_routes(q8, records)
@@ -4510,7 +4646,596 @@ def phase_eval():
             "q8r": q8_launches}, records
 
 
+# ------------------------------------------------------ phase 17: parallel
+
+DP_RANKS = 2     # (b): ranks sharing the one card over gloo
+DP_STEPS = 3     # (b): data-parallel segmentation steps
+DP_LOSS = 1e-4   # (b): their losses against the single-process step's, rel.
+DP_LR = 1e-4     # phase 7's learning rate
+NATIVE_FPS = (16384, 1024)  # (c): FPS / ball query points and picks
+NATIVE_BALL = (0.05, 32)    # (c): ball radius (m) and group size
+ICP_POSE = 1e-4  # (d): ICP of the whole template from ~5 mm to its pose
+# (d): the app's cropped ICP and its calibration, card vs CPU, are held to
+# ICP_MARGIN x the CPU's own spread over ICP_DRAWS copies of each frame
+# (points and seed) moved rigidly by up to ICP_SHIFT m on each axis: exact
+# ICP moves with them, but every distance is rounded anew, as the card
+# rounds them otherwise (ICP's distances are |s|^2 + |t|^2 - 2 s.t, so
+# rounding at ~1 m moves them by ~1e-7 m^2 against neighbours ~1e-5 m^2
+# apart); the same ICP cut to ICP_CONTROL_ITERS iterations must fall
+# outside that limit on every frame
+ICP_DRAWS = 32
+ICP_SHIFT = 0.01
+ICP_MARGIN = 2.0
+ICP_CONTROL_ITERS = 7
+
+
+def _equal_outputs(got, want):
+    """The keys of two engine output dicts whose tensors differ."""
+    return [k for k in want if not torch.equal(got[k].cpu(), want[k].cpu())]
+
+
+def _dp_mesh(engine, p, c, m, counters):
+    """(a) ``engine`` on a 1-rank NCCL mesh against itself without one:
+    the plain batch and ``fleet.globalize`` of it give outputs bit-equal
+    to the engine's own, every kernel of its path launched (counts of
+    the mesh call returned); the batch timed with and without the mesh
+    in turns; the process group is torn down after."""
+    import torch.distributed as dist
+
+    from mrcc_tpu_torch.parallel import fleet, make_mesh
+
+    want = engine.predict_batch_arrays(p, c, m)
+    mesh = make_mesh(1, "cuda")
+    backend = dist.get_backend()
+    try:
+        engine.mesh = mesh
+        _zero(counters)
+        with plain_calls() as plain:
+            got = engine.predict_batch_arrays(p, c, m)
+        launches = _read(counters)
+        glob = engine.predict_batch_arrays(*fleet.globalize(mesh, p, c, m))
+        local = {k: v.to_local() for k, v in glob.items()}
+        # the batch with and without the mesh, in turns
+        times = {True: [], False: []}
+        for on in (False, True, True, False, False, True):
+            engine.mesh = mesh if on else None
+            t = time.perf_counter()
+            engine.predict_batch_arrays(p, c, m)
+            torch.cuda.synchronize()
+            times[on].append(time.perf_counter() - t)
+    finally:
+        engine.mesh = None
+        dist.destroy_process_group()
+    differ = _equal_outputs(got, want) + _equal_outputs(local, want)
+    report = dict(backend=backend, mesh_size=mesh.size(), launches=launches,
+                  outputs_equal=not differ, batch_ms_median=1e3 * float(
+                      np.median(times[True])),
+                  no_mesh_batch_ms_median=1e3 * float(
+                      np.median(times[False])))
+    if differ or plain or min(launches.values()) <= 0:
+        raise AssertionError(f"1-rank mesh: outputs {differ} differ, "
+                             f"plain twins {plain}: {report}")
+    return report, launches
+
+
+def _dp_train_model():
+    from mrcc_tpu_torch.models import RobotNetSegmentation
+    from mrcc_tpu_torch.sparse.nn import init_parameters
+
+    return init_parameters(RobotNetSegmentation(backbone="minkunet"), 1)
+
+
+def dp_rank(rank, world, port, out_dir):
+    """One rank of (b), in its own process on the card: gloo, ``world``
+    ranks, the bench engine on this rank's rows of phase 6's batch
+    (``fleet.globalize``), then DP_STEPS phase-7 segmentation steps
+    through ``Trainer(mesh=...).step`` on the full batch; writes its rows,
+    losses, step times, launch counts and a hash of its parameters to
+    ``{out_dir}/rank{rank}.pt``."""
+    import hashlib
+    import tempfile
+
+    import torch.distributed as dist
+
+    from mrcc_tpu_torch.app import InferenceEngine
+    from mrcc_tpu_torch.data.synthetic import build_batch
+    from mrcc_tpu_torch.parallel import fleet
+    from mrcc_tpu_torch.train import Trainer
+
+    t0 = time.perf_counter()
+    spec = torch.load(f"{out_dir}/spec.pt", weights_only=False)
+    counters = _dp_counters()
+    assert fleet.init_distributed(f"127.0.0.1:{port}", world, rank,
+                                  device="cuda", timeout_s=300) is True
+    # more ranks than cards on the host: gloo, each on card 0
+    assert dist.get_backend() == "gloo"
+    mesh = fleet.make_global_mesh("cuda")
+    warm = torch.ones(1, device="cuda")
+    dist.all_reduce(warm)       # the group's first collective, at once
+    assert float(warm) == world
+    out = {"rank": rank, "startup_s": time.perf_counter() - t0}
+
+    pts, rgb, mask = build_batch(8, 16384, seed=0)
+    rows = slice(rank * 8 // world, (rank + 1) * 8 // world)
+    engine = InferenceEngine(bench_config(pts, spec["caps"]), seed=0,
+                             mesh=mesh)
+    local = fleet.globalize(mesh, pts[rows], rgb[rows], mask[rows])
+    engine.predict_batch_arrays(*local)  # warm-up
+    _zero(counters)
+    res = engine.predict_batch_arrays(*local)
+    out["engine_launches"] = _read(counters)
+    out["rows"] = {k: v.to_local().cpu() for k, v in res.items()}
+    del engine, res
+    torch.cuda.empty_cache()
+
+    model = _dp_train_model()
+    step = _seg_step(model)
+    with tempfile.TemporaryDirectory() as exp:
+        trainer = Trainer(model, None, step, step.optimizer, spec["tc"],
+                          exp_path=exp, mesh=mesh)
+        batch = train_batch()
+        losses, step_s = [], []
+        _zero(counters)
+        for _ in range(DP_STEPS):
+            t = time.perf_counter()
+            losses.append(float(trainer.step(batch, DP_LR)["loss"]))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+    out["train_launches"] = _read(counters)
+    flat = torch.cat([q.detach().reshape(-1) for q in model.parameters()])
+    bufs = torch.cat([b.reshape(-1) for b in model.buffers()])
+    out.update(losses=losses, step_s=step_s,
+               param_sha=hashlib.sha256(flat.cpu().numpy().tobytes())
+               .hexdigest(),
+               buffer_sha=hashlib.sha256(bufs.cpu().numpy().tobytes())
+               .hexdigest(),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    torch.save(out, f"{out_dir}/rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def _dp_counters():
+    from mrcc_tpu_torch.ops import conv, sort
+
+    return [sort.SORT, conv.SK, conv.DOWN, conv.UP, conv.K3_LISTS,
+            conv.K3_SUM, conv.DW_SK, conv.DW_DOWN, conv.DW_UP, conv.DW_LISTS]
+
+
+def _dp_ranks(engine, p, c, m, caps):
+    """(b) DP_RANKS processes on the one card (gloo: NCCL refuses two
+    ranks on one device; gloo's collectives take card tensors), spawned
+    after the kernels were built: each rank's engine rows bit-equal to
+    this process's engine on that shard; DP_STEPS data-parallel phase-7
+    steps whose losses are within DP_LOSS of the single-process step's
+    on the same batch, both ranks' parameters and BN statistics
+    bit-equal.  Steps/s of two ranks sharing one card measure no
+    data-parallel speed."""
+    import tempfile
+
+    from mrcc_tpu_torch.parallel.mesh import free_port
+    from mrcc_tpu_torch.train import TrainConfig
+
+    tc = TrainConfig(batch_size=8)
+    shards = []
+    for r in range(DP_RANKS):
+        rows = slice(r * 8 // DP_RANKS, (r + 1) * 8 // DP_RANKS)
+        shards.append({k: v.cpu() for k, v in engine.predict_batch_arrays(
+            p[rows], c[rows], m[rows]).items()})
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out_dir:
+        torch.save({"caps": caps, "tc": tc}, f"{out_dir}/spec.pt")
+        port = free_port()
+        t = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+             str(DP_RANKS), str(port), out_dir],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(DP_RANKS)]
+        # the single-process reference steps while the ranks start
+        model = _dp_train_model()
+        step = _seg_step(model)
+        batch = train_batch()
+        want = [float(step(batch, DP_LR)["loss"]) for _ in range(DP_STEPS)]
+        torch.cuda.synchronize()
+        del model, step
+        torch.cuda.empty_cache()
+        logs = []
+        try:
+            for q in procs:
+                logs.append(q.communicate(timeout=600)[0])
+        finally:
+            for q in procs:
+                if q.poll() is None:
+                    q.kill()
+                    q.communicate()
+        wall = time.perf_counter() - t
+        for r, (q, text) in enumerate(zip(procs, logs)):
+            if q.returncode != 0:
+                raise AssertionError(f"rank {r} failed:\n{text[-4000:]}")
+        ranks = [torch.load(f"{out_dir}/rank{r}.pt", weights_only=False)
+                 for r in range(DP_RANKS)]
+    differ = {r["rank"]: _equal_outputs(r["rows"], shards[r["rank"]])
+              for r in ranks}
+    loss_err = max(abs(a - b) / abs(b) for r in ranks
+                   for a, b in zip(r["losses"], want))
+    same = all(ranks[0][k] == r[k] for r in ranks
+               for k in ("losses", "param_sha", "buffer_sha"))
+    launches = {}
+    for r in ranks:
+        for part in ("engine_launches", "train_launches"):
+            for k, v in r[part].items():
+                launches[k] = launches.get(k, 0) + v
+    step_s = [float(np.median(r["step_s"])) for r in ranks]
+    report = dict(
+        ranks=DP_RANKS, backend="gloo", wall_s=wall,
+        startup_s=[r["startup_s"] for r in ranks],
+        rows_equal={k: not v for k, v in differ.items()},
+        losses=[r["losses"] for r in ranks], single_process_losses=want,
+        loss_max_rel_err=loss_err, ranks_bit_equal=same,
+        engine_launches=[r["engine_launches"] for r in ranks],
+        train_launches=[r["train_launches"] for r in ranks],
+        steps_per_s_median=[1 / x for x in step_s],
+        steps_per_s_note="two ranks share one card: no measure of "
+                         "data-parallel speed",
+        peak_mem_gb=[r["peak_mem_gb"] for r in ranks],
+        tolerance={"loss_rel": DP_LOSS, "rows": "bits",
+                   "ranks": "bits"}, card=smi_line())
+    if (any(differ.values()) or loss_err > DP_LOSS or not same
+            or min(launches.values()) <= 0):
+        raise AssertionError(f"2 ranks on one card: {report}")
+    return report, launches
+
+
+def _dp_native(seed=60):
+    """(c) the host runtime (``native``, built here with the host
+    compiler) on one 640 x 480 frame against the card: its voxels against
+    the card voxelizer's (every point in the same voxel but for points
+    within 1e-4 of a voxel border, where ``x * (1 / q)`` and ``x / q``
+    may round apart; feature means 1e-5 and labels equal in the voxels
+    they do not touch), FPS against ``ops.points.farthest_point_sample``
+    and the ball query against ``query_ball_point`` on the card, on
+    NATIVE_FPS points of the frame centred (indices equal but past a near
+    tie; ball rows equal but for a member within BALL_EDGE of the
+    radius)."""
+    from mrcc_tpu_torch import native
+    from mrcc_tpu_torch.data.synthetic import build_batch
+    from mrcc_tpu_torch.ops import points
+    from mrcc_tpu_torch.sparse import voxelize
+
+    t = time.perf_counter()
+    lib = native.build()
+    build_s = time.perf_counter() - t
+    pts, rgb, mask, labels = build_batch(1, FRAME_POINTS, seed=seed,
+                                         with_labels=True)
+    q = 1 / 200.0
+    hp, hc, hl = pts[0][mask[0]], rgb[0][mask[0]], labels[0][mask[0]]
+    t = time.perf_counter()
+    coords, feats, vlab, pv, nv = native.voxelize_host(hp, hc, q, len(hp),
+                                                       labels=hl)
+    host_ms = {"voxelize": 1e3 * (time.perf_counter() - t)}
+    dev = torch.device("cuda")
+    p, c, l = (torch.as_tensor(x, device=dev) for x in (hp, hc, hl))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    vox, cpv, clab = voxelize(p[None], c[None], torch.ones_like(l[None],
+                                                                dtype=bool),
+                              q, len(hp), labels=l[None])
+    torch.cuda.synchronize()
+    card_ms = {"voxelize": 1e3 * (time.perf_counter() - t)}
+    ccoords = vox.coords()[0].cpu().numpy()
+    cfeats, clab = vox.feats[0].cpu().numpy(), clab[0].cpu().numpy()
+    cpv = cpv[0].cpu().numpy()
+    moved = np.flatnonzero((coords[pv] != ccoords[cpv]).any(-1))
+    scaled = hp[moved].astype(np.float64) / q
+    if (np.abs(scaled - np.round(scaled)) > 1e-4).all(-1).any():
+        raise AssertionError("native voxelize: a point off a voxel border "
+                             "lands in another voxel than the card's")
+    touched = {tuple(x) for x in coords[pv[moved]]} | {
+        tuple(x) for x in ccoords[cpv[moved]]}
+    card = {tuple(k): i for i, k in enumerate(ccoords[:int(vox.count[0])])}
+    compared, feat_err = 0, 0.0
+    for i in range(nv):
+        k = tuple(coords[i])
+        if k in touched:
+            continue
+        j = card[k]
+        feat_err = max(feat_err, float(np.abs(feats[i] - cfeats[j]).max()))
+        if vlab[i] != clab[j]:
+            raise AssertionError(f"native voxelize: label of voxel {k}")
+        compared += 1
+    if feat_err > 1e-5 or nv != int(vox.count[0]) and not len(moved):
+        raise AssertionError(f"native voxelize: feats {feat_err}, voxels "
+                             f"{nv} against {int(vox.count[0])}")
+
+    n, k = NATIVE_FPS
+    sub = (hp[:n] - hp[:n].mean(0)).astype(np.float32)
+    t = time.perf_counter()
+    hfps = native.fps_host(sub, k)
+    host_ms["fps"] = 1e3 * (time.perf_counter() - t)
+    xyz = torch.as_tensor(sub, device=dev)[None]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cfps = points.farthest_point_sample(xyz, k)[0].cpu()
+    card_ms["fps"] = 1e3 * (time.perf_counter() - t)
+    fps_report = {"picks": k, "equal": bool(np.array_equal(hfps, cfps))}
+    if not fps_report["equal"]:
+        div = _fps_divergence(torch.as_tensor(sub)[None], cfps[None],
+                              torch.as_tensor(hfps)[None])
+        fps_report["divergence"] = div
+        if abs(div["card_d2_f64"] - div["cpu_d2_f64"]) > 1e-6 * max(
+                div["card_d2_f64"], 1e-12):
+            raise AssertionError(f"native FPS: not a near tie: {div}")
+    radius, ns = NATIVE_BALL
+    queries = sub[hfps]
+    t = time.perf_counter()
+    hball = native.ball_query_host(sub, queries, radius, ns)
+    host_ms["ball_query"] = 1e3 * (time.perf_counter() - t)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cball = points.query_ball_point(radius, ns, xyz, torch.as_tensor(
+        queries, device=dev)[None])[0].cpu().numpy()
+    card_ms["ball_query"] = 1e3 * (time.perf_counter() - t)
+    rows = np.flatnonzero((hball != cball).any(-1))
+    x64 = sub.astype(np.float64)
+    for r in rows:
+        d2 = ((x64 - x64[hfps[r]]) ** 2).sum(-1)
+        if not (np.abs(d2 - radius ** 2) < BALL_EDGE).any():
+            raise AssertionError(f"native ball query: row {r} differs with "
+                                 "no member at the edge")
+    return dict(library=lib.name, build_s=build_s, frame_points=len(hp),
+                voxels=nv, points_moved_at_border=len(moved),
+                voxels_compared=compared, feats_max_abs_err=feat_err,
+                fps=fps_report, ball_rows=len(hball),
+                ball_rows_at_edge=len(rows), host_ms=host_ms,
+                card_ms=card_ms)
+
+
+def _pose_diff(a, b):
+    """Largest coordinate difference of two 7-vector poses, the
+    quaternions compared up to sign."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(max(np.abs(a[:3] - b[:3]).max(),
+                     min(np.abs(a[3:] - b[3:]).max(),
+                         np.abs(a[3:] + b[3:]).max())))
+
+
+def _tag_frame(tilt, depth):
+    """A synthetic tag (``utils.aruco``'s canonical corners) facing the
+    camera, turned by ``tilt`` about the camera's y axis, ``depth`` m
+    away: its pixel corners (the pinhole projection of its 3D corners)
+    and a depth image of its plane (a 20 cm square of points), with its
+    rotation and centre."""
+    from mrcc_tpu_torch.utils import aruco
+
+    k = aruco.CAMERA_MATRIX_DEFAULT
+    ct, st = np.cos(tilt), np.sin(tilt)
+    turn = np.array([[ct, 0, st], [0, 1, 0], [-st, 0, ct]])
+    # tag x (its normal) towards the camera, y along the image's x
+    rot = turn @ np.array([[0.0, 1, 0], [0, 0, -1], [-1, 0, 0]])
+    t = np.array([0.05, -0.03, depth])
+    half = 0.075 / 2
+    ref = np.array([[0, half, -half], [0, -half, -half], [0, -half, half],
+                    [0, half, half]])
+    corners = ref @ rot.T + t
+    px = np.stack([k[0, 0] * corners[:, 0] / corners[:, 2] + k[0, 2],
+                   k[1, 1] * corners[:, 1] / corners[:, 2] + k[1, 2]], 1)
+    g = np.linspace(-0.1, 0.1, 400)
+    yy, zz = np.meshgrid(g, g)
+    plane = np.stack([np.zeros(yy.size), yy.ravel(), zz.ravel()],
+                     1) @ rot.T + t
+    _, depth_img = aruco.project_to_rgbd(plane.astype(np.float32),
+                                         np.ones_like(plane), k)
+    return px.astype(np.float32), depth_img, rot, t
+
+
+def _dp_aruco():
+    """(d) the ArUco baseline without cv2, on four frames of two
+    positions: the tag pose from synthetic corners
+    (``tag_pose_from_corners``) on the card against the CPU (1e-5) and the
+    tag's true pose (1 cm: corners are truncated to pixels); ICP
+    (``icp_refine``, the plain nearest neighbour as the app runs it) of
+    the engine's EE template placed at the tag pose, from a seed ~5 mm
+    off, on the card and the CPU: both within ICP_POSE of the tag pose.
+    Then the app's own ``refine`` (the points cropped to the EE box of the
+    seed, which cuts ~20 % of the template: ICP slides ~5e-4 an iteration
+    towards an optimum ~1 cm off, and the nearest neighbours at the cut
+    flip when the distances round otherwise, ROADMAP C5) and
+    ``calibrate`` of its results, card vs CPU, each within ICP_MARGIN x
+    the CPU's own spread over ICP_DRAWS rigid moves of the frame (see
+    ICP_DRAWS); the
+    same with ICP_CONTROL_ITERS iterations on the CPU, the control, must
+    exceed both limits, on every frame for ``refine``."""
+    from mrcc_tpu_torch.app import (ArucoCalibrationApp, InferenceConfig,
+                                    InferenceEngine, ResultDTO)
+    from mrcc_tpu_torch.data.synthetic import quat_to_matrix_np
+    from mrcc_tpu_torch.geometry.transform import base2cam_pose
+    from mrcc_tpu_torch.solve import icp_refine
+    from mrcc_tpu_torch.utils import aruco
+
+    cfg = InferenceConfig(icp_iterations=15, icp_template_points=1024)
+    apps = {d: ArucoCalibrationApp(None, engine=InferenceEngine(
+        cfg, device=d, calibration_only=True)) for d in ("cuda", "cpu")}
+    control = ArucoCalibrationApp(None, engine=InferenceEngine(
+        InferenceConfig(icp_iterations=ICP_CONTROL_ITERS,
+                        icp_template_points=1024), device="cpu",
+        calibration_only=True))
+    tmpl = apps["cpu"].engine.template.numpy().astype(np.float64)
+    worst = dict(tag_card_cpu=0.0, tag_vs_truth_m=0.0, icp_to_tag=0.0,
+                 icp_card_cpu=0.0, app_card_cpu=0.0, app_cpu_spread=0.0,
+                 app_to_tag_m=0.0, app_control_min=np.inf)
+    # the card, the CPU, the CPU's moved copies and the control
+    runs = ("cuda", "cpu", *range(ICP_DRAWS), "control")
+    results = {r: {} for r in runs}
+    rng = np.random.default_rng(17)
+    for f, (tilt, depth, pos) in enumerate(((0.1, 0.9, "p1"),
+                                            (0.15, 0.95, "p1"),
+                                            (-0.1, 1.1, "p2"),
+                                            (-0.05, 1.0, "p2"))):
+        px, depth_img, rot, tt = _tag_frame(tilt, depth)
+        tag = {d: aruco.tag_pose_from_corners(px, depth_img, device=d)
+               for d in apps}
+        worst["tag_card_cpu"] = max(worst["tag_card_cpu"],
+                                    _pose_diff(tag["cuda"], tag["cpu"]))
+        truth = tt + rot @ np.array([-0.012, 0.0, -0.05])
+        worst["tag_vs_truth_m"] = max(worst["tag_vs_truth_m"], float(
+            np.abs(tag["cpu"][:3] - truth).max()))
+        ee = (tmpl @ quat_to_matrix_np(tag["cpu"][3:]).T
+              + tag["cpu"][:3]).astype(np.float32)
+        seed = (tag["cpu"] + np.array([0.004, -0.003, 0.002, 0, 0, 0, 0])
+                ).astype(np.float32)
+        icp = {}
+        for d, app in apps.items():
+            e = app.engine
+            icp[d] = icp_refine(
+                e.template, torch.as_tensor(ee, device=d)[None],
+                torch.ones((1, len(ee)), dtype=torch.bool, device=d),
+                torch.as_tensor(seed, device=d)[None],
+                iterations=cfg.icp_iterations)[0].cpu().numpy()
+            worst["icp_to_tag"] = max(worst["icp_to_tag"],
+                                      _pose_diff(icp[d], tag["cpu"]))
+        worst["icp_card_cpu"] = max(worst["icp_card_cpu"],
+                                    _pose_diff(icp["cuda"], icp["cpu"]))
+        ee2base = np.array([0.4, 0.1 * f, 0.5, 0.96, 0.0, 0.28, 0.0])
+        refined = {d: app.refine(ee, seed) for d, app in apps.items()}
+        shifts = rng.uniform(-ICP_SHIFT, ICP_SHIFT, (ICP_DRAWS, 3))
+        refined.update(enumerate(_icp_moved(apps["cpu"], ee, seed,
+                                            shifts.astype(np.float32))))
+        refined["control"] = control.refine(ee, seed)
+        for r in runs:
+            results[r].setdefault(pos, []).append(ResultDTO(
+                segmentation=None, ee_pose=refined[r], is_confident=True,
+                base_pose=apps["cpu"].engine._pose_np(
+                    base2cam_pose, refined[r], ee2base)))
+        worst["app_cpu_spread"] = max(worst["app_cpu_spread"], *(
+            _pose_diff(refined[k], refined["cpu"])
+            for k in range(ICP_DRAWS)))
+        worst["app_control_min"] = min(worst["app_control_min"], _pose_diff(
+            refined["control"], refined["cpu"]))
+        worst["app_card_cpu"] = max(worst["app_card_cpu"], _pose_diff(
+            refined["cuda"], refined["cpu"]))
+        worst["app_to_tag_m"] = max(worst["app_to_tag_m"], float(
+            np.abs(refined["cuda"][:3] - tag["cpu"][:3]).max()))
+    calib = {r: apps["cuda" if r == "cuda" else "cpu"].engine.calibrate(
+        results[r]).pose_camera_link for r in runs}
+    calib_err = _pose_diff(calib["cuda"], calib["cpu"])
+    calib_spread = max(_pose_diff(calib[k], calib["cpu"])
+                       for k in range(ICP_DRAWS))
+    calib_control = _pose_diff(calib["control"], calib["cpu"])
+    app_limit = ICP_MARGIN * worst["app_cpu_spread"]
+    calib_limit = ICP_MARGIN * calib_spread
+    report = dict(frames=4, draws=ICP_DRAWS,
+                  calibration=np.asarray(calib["cuda"]).tolist(),
+                  calibration_card_cpu=calib_err,
+                  calibration_cpu_spread=calib_spread,
+                  calibration_control=calib_control, **worst,
+                  app_card_cpu_over_spread=_ratio(
+                      worst["app_card_cpu"], worst["app_cpu_spread"]),
+                  calibration_card_cpu_over_spread=_ratio(
+                      calib_err, calib_spread),
+                  control_iterations=ICP_CONTROL_ITERS,
+                  tolerance={"tag_card_cpu": 1e-5, "tag_vs_truth_m": 0.01,
+                             "icp_to_tag": ICP_POSE,
+                             "app_card_cpu": app_limit,
+                             "calibration_card_cpu": calib_limit,
+                             "app_control_min": f"> {app_limit}",
+                             "calibration_control": f"> {calib_limit}"})
+    if (worst["tag_card_cpu"] > 1e-5 or worst["tag_vs_truth_m"] > 0.01
+            or worst["icp_to_tag"] > ICP_POSE
+            or worst["app_card_cpu"] > app_limit or calib_err > calib_limit
+            or worst["app_control_min"] <= app_limit
+            or calib_control <= calib_limit
+            or not np.isfinite(calib["cuda"]).all()):
+        raise AssertionError(f"aruco: {report}")
+    return report
+
+
+def _icp_moved(app, ee, seed, shifts):
+    """The app's ICP (``refine``: the crop to the seed's EE box, then
+    ``icp_refine``) of ``ee`` from ``seed`` on the CPU, on a copy of the
+    frame moved by each of ``shifts`` [K, 3] (one batched call), moved
+    back: [K, 7]."""
+    from mrcc_tpu_torch.data.labels import get_ee_idx
+    from mrcc_tpu_torch.solve import icp_refine
+
+    crops, seeds = [], []
+    for d in shifts:
+        pts, s = (ee + d).astype(np.float32), seed.copy()
+        s[:3] += d
+        crops.append(pts[get_ee_idx(pts, s)])
+        seeds.append(s)
+    n = max(len(c) for c in crops)
+    assert min(len(c) for c in crops) > 64, "refine would skip ICP"
+    pts = np.zeros((len(crops), n, 3), np.float32)
+    mask = np.zeros((len(crops), n), bool)
+    for i, c in enumerate(crops):
+        pts[i, :len(c)], mask[i, :len(c)] = c, True
+    out = icp_refine(app.engine.template, torch.from_numpy(pts),
+                     torch.from_numpy(mask), torch.from_numpy(np.stack(seeds)),
+                     iterations=app.engine.cfg.icp_iterations)
+    out = out.numpy().astype(np.float64)
+    out[:, :3] -= shifts
+    return out
+
+
+def _ratio(err, spread):
+    """``err`` over ``spread`` (inf where the spread is 0)."""
+    return err / spread if spread > 0 else float("inf")
+
+
+def _dp_viewer(pts, out, root):
+    """(e) ``write_html_viewer`` of item 0 of the engine's output: the
+    embedded buffer decodes back to its points."""
+    import base64
+
+    from mrcc_tpu_torch.viz import write_html_viewer
+
+    path = write_html_viewer(f"{root}/viewer.html", pts[0], None,
+                             out["segmentation"][0], use_seg=True)
+    with open(path) as f:
+        html = f.read()
+    back = np.frombuffer(base64.b64decode(html.split('atob("')[1].split(
+        '")')[0]), np.float32).reshape(-1, 3)
+    if not np.array_equal(back, np.asarray(pts[0], np.float32)):
+        raise AssertionError("html viewer: the embedded points differ")
+    return dict(bytes=len(html), points=len(back))
+
+
+def phase_parallel(inputs, caps, counters):
+    """Phase 17 (a-e above); returns the launches of path ``dp`` (the
+    1-rank mesh engine call and both ranks' engine calls and steps)."""
+    import importlib.util
+    import tempfile
+
+    from mrcc_tpu_torch.app import InferenceEngine
+
+    log("optional_modules", **{m: importlib.util.find_spec(m) is not None
+                               for m in ("matplotlib", "cv2", "yaml")})
+    pts, rgb, mask = inputs
+    engine = InferenceEngine(bench_config(pts, caps), seed=0)
+    p, c, m = (torch.as_tensor(x, device="cuda") for x in inputs)
+    engine.predict_batch_arrays(p, c, m)  # warm-up
+    t = time.perf_counter()
+    mesh, launches = _dp_mesh(engine, p, c, m, counters)
+    log("dp_mesh", card=smi_line(), seconds=time.perf_counter() - t, **mesh)
+    t = time.perf_counter()
+    ranks, rank_launches = _dp_ranks(engine, p, c, m, caps)
+    log("dp_ranks", seconds=time.perf_counter() - t, **ranks)
+    for k, v in rank_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    for name, fn in (("dp_native", _dp_native), ("dp_aruco", _dp_aruco)):
+        t = time.perf_counter()
+        report = fn()
+        log(name, card=smi_line(), seconds=time.perf_counter() - t, **report)
+    out = engine.predict_batch_arrays(p, c, m)
+    with tempfile.TemporaryDirectory() as root:
+        log("dp_viewer", **_dp_viewer(pts, out, root))
+    return {"dp": launches}
+
+
 def main():
+    if len(sys.argv) == 3 and sys.argv[1] == "--eval-references":
+        eval_references(sys.argv[2])   # the CPU process of phase 16
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -4523,6 +5248,9 @@ def main():
 
     from mrcc_tpu_torch.ops import conv, conv_q8, nn, rank, sort
 
+    if len(sys.argv) == 6 and sys.argv[1] == "--dp-rank":
+        dp_rank(*(int(a) for a in sys.argv[2:5]), sys.argv[5])  # phase 17 b
+        return 0
     modes = {"--pose-k2": phase_pose_k2,
              "--rank-nn": phase_rank_nn,
              "--icp": phase_icp,
@@ -4542,7 +5270,11 @@ def main():
              "--calibrate": lambda: phase_calibrate(
                  bench_levels(torch.device("cuda"))[0],
                  [sort.SORT, conv.SK, conv.DOWN, conv.UP]),
-             "--eval": phase_eval,
+             "--eval": lambda: _with_references(phase_eval),
+             "--parallel": lambda: phase_parallel(
+                 *bench_levels(torch.device("cuda"))[:2],
+                 [sort.SORT, conv.SK, conv.DOWN, conv.UP, conv.K3_LISTS,
+                  conv.K3_SUM]),
              "--dense": lambda: phase_dense_only(
                  [sort.SORT, conv.SK, conv.DOWN, conv.UP, conv.K3_LISTS,
                   conv.K3_SUM],
@@ -4553,13 +5285,38 @@ def main():
         modes[sys.argv[1]]()
         return 0
 
+    references = None
+
     def phase(name, fn, *args):
+        # whether phase 16's CPU child ran at the phase's start and end:
+        # host-bound times beside it do not compare with times without
+        child = [references is not None and references.running()]
         t0 = time.perf_counter()
         out = fn(*args)
-        log("wall", of=name, seconds=time.perf_counter() - t0)
+        child.append(references is not None and references.running())
+        log("wall", of=name, seconds=time.perf_counter() - t0,
+            beside_child=child)
         return out
 
     phase("build", phase_build)
+    references = EvalReferences()   # phase 16's CPU side, from now on
+    try:
+        return _main_phases(phase, card, references)
+    finally:
+        references.close()
+
+
+def _with_references(fn):
+    references = EvalReferences()
+    try:
+        return fn(references)
+    finally:
+        references.close()
+
+
+def _main_phases(phase, card, references):
+    from mrcc_tpu_torch.ops import conv, conv_q8, nn, rank, sort
+
     dev = torch.device("cuda")
     inputs, caps, levels = bench_levels(dev)
     pinputs, pcaps, plevels = bench_levels(dev, batch=2, points=PROD_POINTS,
@@ -4624,9 +5381,12 @@ def main():
     launches.update(phase("dense", phase_dense, counters, q8_counters))
     launches.update(phase("dense_train", phase_dense_train))
     torch.cuda.empty_cache()
-    eval_launches, eval_records = phase("eval", phase_eval)
+    eval_launches, eval_records = phase("eval", phase_eval, references)
     launches.update(eval_launches)
     records += eval_records
+    torch.cuda.empty_cache()
+    launches.update(phase("parallel", phase_parallel, inputs, caps,
+                          counters))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_by_path")

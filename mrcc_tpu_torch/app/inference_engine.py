@@ -23,6 +23,12 @@ The engine runs on the card: ``device=None`` means ``"cuda"`` and raises
 when no card is present.  Pass ``device="cpu"`` explicitly for the plain
 twins.
 
+With a ``mesh`` (``parallel.make_mesh`` / ``fleet.make_global_mesh``) each
+rank runs every stage on its own rows of the batch, with no collective, as
+the JAX engine's ``shard_map`` does: per-batch decisions such as
+``normalize_colors``' 0-255 test see the rank's rows only.  Every rank
+builds the same seeded weights.
+
 int8 inference (``conv_impl="pallas-int8"``): the segmentation and
 keypoint nets run their k3, down and transpose convs through the int8
 kernels (``ops/conv_q8.py``), the rotation net stays on the bf16 kernels
@@ -213,12 +219,14 @@ class InferenceEngine:
     ``predict_batch_arrays``."""
 
     def __init__(self, config: InferenceConfig = None, device=None, seed=0,
-                 calibration_only: bool = False):
+                 calibration_only: bool = False, mesh=None):
         """``calibration_only``: no networks; ``predict`` returns empty
-        results and ``calibrate`` averages given ones."""
+        results and ``calibrate`` averages given ones.  ``mesh``: a 1-D
+        ``data`` mesh that shards ``predict_batch_arrays`` over its ranks."""
         self.cfg = config or InferenceConfig()
         cfg = self.cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.dtype = getattr(torch, cfg.compute_dtype)
         self.template = torch.as_tensor(
             default_template(cfg.icp_template_points), device=self.device)
@@ -466,7 +474,30 @@ class InferenceEngine:
     def predict_batch_arrays(self, points, rgb, mask):
         """Batched prediction on padded arrays ``[B, P, 3]``, ``[B, P, 3]``,
         ``[B, P]`` (numpy or tensors); returns a dict of tensors on the
-        engine's device."""
+        engine's device.
+
+        Under a mesh each rank runs its own rows.  Global arrays (from
+        ``fleet.globalize``) give global arrays whose local rows are this
+        rank's results (``fleet.local_slice``); a plain global batch (``B``
+        a multiple of the mesh size) gives the whole batch's results,
+        gathered from every rank."""
+        if self.mesh is None:
+            return self._predict_rows(points, rgb, mask)
+        from torch.distributed.tensor import DTensor, Shard
+
+        from ..parallel import mesh as mesh_lib
+
+        if isinstance(points, DTensor):
+            out = self._predict_rows(points.to_local(), rgb.to_local(),
+                                     mask.to_local())
+            return {k: DTensor.from_local(v, self.mesh, [Shard(0)],
+                                          run_check=False)
+                    for k, v in out.items()}
+        rows = mesh_lib.shard_batch((points, rgb, mask), self.mesh)
+        return {k: mesh_lib.gather_rows(v, self.mesh)
+                for k, v in self._predict_rows(*rows).items()}
+
+    def _predict_rows(self, points, rgb, mask):
         points = self._tensor(points, torch.float32)
         rgb = self._tensor(rgb, torch.float32)
         mask = self._tensor(mask, torch.bool)

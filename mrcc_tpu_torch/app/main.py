@@ -6,9 +6,10 @@ robot position, and a calibration once ``min_num_of_positions`` positions
 are in (``INFERENCE.CALIBRATION``: 10 frames, 5 positions).
 
 The engine runs on the card unless it is given one built with
-``device="cpu"``.  ``snapshot_dir`` (a matplotlib picture a frame) needs
-``utils/visualization.py``, which is not ported yet: it raises
-``NotImplementedError`` (ROADMAP A8)."""
+``device="cpu"``.  With ``snapshot_dir`` every frame of the update loop
+is also drawn to ``{snapshot_dir}/frame_{id}.png`` (segmentation colours,
+the pose's axes, the keypoints; ``utils/visualization.py``, which needs
+matplotlib)."""
 
 from __future__ import annotations
 
@@ -28,16 +29,13 @@ class MainApp:
                  device=None):
         """``engine``: default ``InferenceEngine(InferenceConfig(),
         device=device)``."""
-        if snapshot_dir:
-            raise NotImplementedError(
-                "snapshot_dir needs utils/visualization.py "
-                "(save_scene_snapshot), not ported yet (ROADMAP A8)")
         self.data_source = data_source
         self.engine = engine or InferenceEngine(InferenceConfig(),
                                                 device=device)
         self.num_of_frames = num_of_frames
         self.min_num_of_positions = min_num_of_positions
         self.frame_period_s = frame_period_s
+        self.snapshot_dir = snapshot_dir
         self.collected: typing.Dict[str, list] = collections.defaultdict(list)
         self.log = get_logger()
 
@@ -54,6 +52,11 @@ class MainApp:
             f"frame id={data.id} ee_pts="
             f"{int((result.segmentation == 2).sum())} "
             f"confident={result.is_confident} ({dt:.2f}s)")
+        if self.snapshot_dir:
+            from ..utils.visualization import save_scene_snapshot
+
+            save_scene_snapshot(data, result,
+                                f"{self.snapshot_dir}/frame_{data.id}.png")
         if self.frame_period_s and dt < self.frame_period_s:
             time.sleep(self.frame_period_s - dt)
         return result

@@ -30,6 +30,7 @@ from torch import nn
 from ..ops.points import (farthest_point_sample, index_points,
                           query_ball_point, sample_and_group,
                           sample_and_group_all, three_nn_interpolate)
+from ..parallel.mesh import global_mean
 from ..sparse.nn import SparseBatchNorm, SparseDropout
 
 
@@ -40,7 +41,8 @@ class PointBatchNorm(SparseBatchNorm):
     the running statistics decay by 0.99 towards the mean and that
     *biased* variance; in eval mode the running statistics normalise.
     (``SparseBatchNorm`` keeps torch's momentum 0.1 and unbiased running
-    variance; this norm takes only its tensors and their reset.)"""
+    variance; this norm takes only its tensors and their reset.)  In a
+    data-parallel step both means run over every rank's rows."""
 
     decay = 0.99
 
@@ -48,8 +50,9 @@ class PointBatchNorm(SparseBatchNorm):
         bn = self.bn
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            mean = x.mean(axes)
-            var = torch.clamp_min((x * x).mean(axes) - mean * mean, 0.0)
+            mean = global_mean(x, axes)
+            var = torch.clamp_min(global_mean(x * x, axes) - mean * mean,
+                                  0.0)
             with torch.no_grad():
                 bn.running_mean.copy_(self.decay * bn.running_mean
                                       + (1 - self.decay) * mean)

@@ -3,10 +3,10 @@ reference's ``utils/output.py:45 get_pred_center``): the mean of the
 coordinates of the ``top_k`` highest class-1 vote logits, plus a
 ``[-ee_r, 0, 0]`` offset turned by the orientation where one is given.
 
-``torch.topk`` and ``jax.lax.top_k`` may order equal scores differently;
-only a tie at the k-th score changes which points are averaged, so the
-result equals the JAX function's wherever the k-th and (k+1)-th valid
-scores differ.
+The ``top_k`` points are chosen as ``jax.lax.top_k`` chooses them: by
+score, the lower index first among equal scores (a stable descending
+sort), so a tie at the k-th score averages the same points as the JAX
+function.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ def pred_center(logits, coords, mask, ee_r=0.03, q=None, top_k=8):
     validity ``[P]``; ``q``: an optional WXYZ orientation ``[4]``."""
     score = torch.where(mask, logits[:, 1],
                         logits.new_tensor(float("-inf")))
-    sel = torch.topk(score, top_k).indices
+    sel = torch.sort(score, descending=True, stable=True).indices[:top_k]
     center = coords[sel].mean(dim=0)
     if q is not None:
         offset = coords.new_tensor([-ee_r, 0.0, 0.0])

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import global_count, global_rows, global_sum
 from . import conv as C
 
 
@@ -167,7 +168,8 @@ class SparseBatchNorm(nn.Module):
     train mode the batch mean and biased variance normalise, and the running
     statistics move by momentum 0.1 towards the mean and the *unbiased*
     variance ``var * n / max(n - 1, 1)`` (torch BN semantics); in eval mode
-    the running statistics normalise."""
+    the running statistics normalise.  In a data-parallel step the counts
+    and both passes' sums run over every rank's rows (``parallel.mesh``)."""
 
     momentum = 0.1
 
@@ -188,9 +190,9 @@ class SparseBatchNorm(nn.Module):
         f32 = feats.float()
         if self.training:
             v = valid[..., None].float()
-            n = torch.clamp_min(v.sum(), 1.0)
-            mean = (f32 * v).sum(dim=(0, 1)) / n
-            var = (((f32 - mean) ** 2) * v).sum(dim=(0, 1)) / n
+            n = torch.clamp_min(global_count(v.sum()), 1.0)
+            mean = global_sum((f32 * v).sum(dim=(0, 1))) / n
+            var = global_sum((((f32 - mean) ** 2) * v).sum(dim=(0, 1))) / n
             with torch.no_grad():
                 m = self.momentum
                 unbiased = var * n / torch.clamp_min(n - 1.0, 1.0)
@@ -241,7 +243,9 @@ class SparseDropout(nn.Module):
     identity in eval mode; in train mode each element is kept with
     probability ``1 - rate`` and scaled by ``1 / (1 - rate)``.  The mask
     comes from an explicit ``torch.Generator`` on the features' device,
-    seeded with ``seed`` at its first use there."""
+    seeded with ``seed`` at its first use there.  In a data-parallel step
+    the mask is drawn over the global batch and each rank keeps its rows,
+    so the ranks drop what one process would."""
 
     def __init__(self, rate: float = 0.5, seed: int = 0):
         super().__init__()
@@ -259,8 +263,9 @@ class SparseDropout(nn.Module):
             gen = self._generator = torch.Generator(
                 device=feats.device).manual_seed(self.seed)
         keep_prob = 1.0 - self.rate
-        keep = torch.rand(feats.shape, generator=gen,
-                          device=feats.device) < keep_prob
+        shape, rows = global_rows(feats.shape)
+        keep = torch.rand(shape, generator=gen,
+                          device=feats.device)[rows] < keep_prob
         return torch.where(keep, feats / keep_prob, 0.0)
 
 

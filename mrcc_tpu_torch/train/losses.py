@@ -12,6 +12,11 @@ differs, the port writes the JAX form out: ``_cossim`` clamps each norm
 at 1e-6 (not ``F.cosine_similarity``), ``_bce`` clips the probability at
 1e-7 and uses ``log1p`` (not ``F.binary_cross_entropy``, which clamps the
 log at -100), and the Euler wrap is ``torch.remainder`` (not ``fmod``).
+
+Every mean over the batch goes through ``parallel.mesh``'s ``mean_share``
+/ ``global_count``: in a data-parallel step a criterion returns this
+rank's share of the global batch's loss (local sum / global count), and
+outside one the plain mean.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch
 from ..geometry.metrics import compute_pose_dist
 from ..geometry.quaternion import qeuler, qmul, qnormalize
 from ..geometry.transform import quat_to_matrix, rot6d_to_quat
+from ..parallel.mesh import global_count, mean_share
 
 
 class LossType(str, enum.Enum):
@@ -64,7 +70,7 @@ class LossConfig:
 
 
 def _reduce(x, reduction):
-    return x.sum() if reduction == "sum" else x.mean()
+    return x.sum() if reduction == "sum" else mean_share(x)
 
 
 def _mse(a, b, reduction):
@@ -87,7 +93,7 @@ def _bce(pred, target, mask, reduction):
     p = torch.clamp(pred, eps, 1 - eps)
     ll = -(target * torch.log(p) + (1 - target) * torch.log1p(-p))
     m = mask.to(ll.dtype)
-    denom = torch.clamp_min(m.sum(), 1.0)
+    denom = torch.clamp_min(global_count(m.sum()), 1.0)
     return ll @ m / denom if reduction == "mean" else (ll * m).sum()
 
 
@@ -222,7 +228,9 @@ def smoothl1_loss(y, y_pred, cfg: LossConfig, **_):
 
 def _items(per_item, reduction, batch):
     total = per_item.sum()
-    return total / batch if reduction == "mean" else total
+    if reduction != "mean":
+        return total
+    return total / global_count(batch, total.device)
 
 
 def _rotated(y, y_pred, coords):
@@ -293,7 +301,7 @@ def segmentation_loss(logits, labels, valid, ignore_label=-100):
     ll = -torch.log_softmax(logits.float(), dim=-1).gather(
         -1, safe[..., None])[..., 0]
     m = keep.float()
-    return (ll * m).sum() / torch.clamp_min(m.sum(), 1.0)
+    return (ll * m).sum() / torch.clamp_min(global_count(m.sum()), 1.0)
 
 
 _REGISTRY = {

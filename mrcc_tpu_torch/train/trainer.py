@@ -30,6 +30,14 @@ where there is none.
 The dense steps draw a fresh dropout mask each step from the models' seeded
 generators; the JAX dense steps pass ``PRNGKey(0)`` every step, so they
 drop the same units each time (ROADMAP C28).
+
+``Trainer(mesh=...)`` trains data-parallel over the mesh's ranks with the
+JAX step's global semantics (``parallel.mesh``): each batch is padded to a
+multiple of the mesh size (``pad_batch_to``), each rank steps on its rows,
+the batch norms and the criteria reduce over every rank's rows, and the
+gradients are summed over the ranks before the optimizer step.  The
+metric-learning step mines triplets across the batch and raises
+``NotImplementedError`` under a mesh.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ import torch
 from ..device import resolve_device
 from ..geometry.metrics import compute_pose_dist
 from ..geometry.transform import rot6d_to_quat
+from ..parallel import mesh as mesh_lib
 from ..solve.keypoints import key_point_predictions
 from ..sparse import (build_hierarchy, hierarchy_caps, train_uses_k3_tables,
                       voxelize)
@@ -134,8 +143,12 @@ class _OptimizerStep:
                 for k in keys}
 
     def backward(self, loss):
+        """Gradients of ``loss``; in a data-parallel step of the shares'
+        sum over the ranks."""
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        mesh_lib.sync_gradients([p for g in self.optimizer.param_groups
+                                 for p in g["params"]])
 
     def update(self, lr):
         for group in self.optimizer.param_groups:
@@ -208,8 +221,9 @@ class SegmentationTrainStep(_TrainStep):
         with torch.no_grad():
             keep = vox.valid & (vlabels != self.ignore_label)
             right = keep & (logits.argmax(dim=-1) == vlabels)
-            acc = right.sum() / torch.clamp_min(keep.sum(), 1)
-        return {"loss": loss.detach(), "accuracy": acc.float()}
+            acc = (mesh_lib.global_count(right.sum())
+                   / torch.clamp_min(mesh_lib.global_count(keep.sum()), 1))
+        return {"loss": mesh_lib.reported(loss), "accuracy": acc.float()}
 
 
 def make_segmentation_train_step(model, data_cfg, train_cfg: TrainConfig,
@@ -273,10 +287,11 @@ class PoseTrainStep(_TrainStep):
             out7 = (torch.cat([out[:, :3], rot6d_to_quat(out[:, 3:9])], -1)
                     if self.rot6d else out[:, :7])
             dist, dist_pos, dist_ori, angle = compute_pose_dist(pose, out7)
-        return {"loss": loss.detach(), "dist": dist.mean(),
-                "dist_position": dist_pos.mean(),
-                "dist_orientation": dist_ori.mean(),
-                "angle_diff": angle.mean()}
+        share = mesh_lib.mean_share
+        return {"loss": mesh_lib.reported(loss),
+                **{k: mesh_lib.reported(share(v)) for k, v in (
+                    ("dist", dist), ("dist_position", dist_pos),
+                    ("dist_orientation", dist_ori), ("angle_diff", angle))}}
 
 
 def make_pose_train_step(model, data_cfg, loss_cfg: LossConfig,
@@ -329,11 +344,15 @@ class MetricLearningTrainStep(_TrainStep):
 
     def __call__(self, batch, lr):
         """Run every stage; returns ``{"loss"}`` as a device scalar."""
+        if mesh_lib.active_mesh() is not None:
+            raise NotImplementedError(
+                "metric learning under a mesh: the triplet miner pairs items "
+                "across the whole batch (ROADMAP C35)")
         vox, levels, labels = self.prepare(batch)
         _, loss = self.forward(vox, levels, labels)
         self.backward(loss)
         self.update(lr)
-        return {"loss": loss.detach()}
+        return {"loss": mesh_lib.reported(loss)}
 
 
 def make_metric_learning_train_step(model, data_cfg, train_cfg: TrainConfig,
@@ -380,7 +399,7 @@ class DenseKeyPointTrainStep(_OptimizerStep):
         _, loss = self.forward(*self.prepare(batch))
         self.backward(loss)
         self.update(lr)
-        return {"loss": loss.detach()}
+        return {"loss": mesh_lib.reported(loss)}
 
 
 def make_dense_key_point_train_step(model, train_cfg: TrainConfig,
@@ -439,7 +458,7 @@ class KpToPoseTrainStep(_OptimizerStep):
         _, loss = self.forward(*self.prepare(batch))
         self.backward(loss)
         self.update(lr)
-        return {"loss": loss.detach()}
+        return {"loss": mesh_lib.reported(loss)}
 
 
 def make_kp_to_pose_train_step(model, kp_model, train_cfg: TrainConfig,
@@ -462,11 +481,17 @@ class Trainer:
     """Epoch loop (``train.py:236-374`` skeleton): step-decayed lr, metrics
     summed on the device and read once per epoch, checkpoints at save_freq
     multiples, powers of two and the last epoch, resume from the latest
-    checkpoint."""
+    checkpoint.
+
+    ``mesh``: train data-parallel over its ranks (every rank runs the same
+    loop over the same batches; see the module docstring).  The model's
+    parameters and buffers, the epoch and the optimizer's state start
+    from the first rank's; only that rank writes metrics and
+    checkpoints."""
 
     def __init__(self, model, dataset, step_fn, optimizer,
                  train_cfg: TrainConfig, exp_path="exp/default",
-                 exp_name="default"):
+                 exp_name="default", mesh=None):
         self.model = model
         self.dataset = dataset
         self.step_fn = step_fn
@@ -474,9 +499,35 @@ class Trainer:
         self.cfg = train_cfg
         self.exp_path = exp_path
         self.exp_name = exp_name
+        self.mesh = mesh
+        self.lead = mesh is None or mesh.get_local_rank() == 0
         self.writer = MetricsWriter(exp_path)
         self.epoch = ckpt.checkpoint_restore(model, optimizer, exp_path,
                                              exp_name)
+        if mesh is not None:
+            # every rank resumes from the first rank's checkpoint: its
+            # weights, epoch and optimizer state (ranks may hold other
+            # checkpoints, or none)
+            mesh_lib.replicate(model, mesh)
+            self.epoch, opt_state = mesh_lib.broadcast_object(
+                (self.epoch, None if optimizer is None
+                 else optimizer.state_dict()), mesh)
+            if optimizer is not None:
+                optimizer.load_state_dict(opt_state)
+
+    def step(self, batch, lr):
+        """One step on a global batch.  Under a mesh it is padded to a
+        multiple of the mesh size by repeating item 0 and this rank's rows
+        go through the step's data-parallel form; the metrics are the
+        global batch's."""
+        if self.mesh is None:
+            return self.step_fn(batch, lr)
+        batch = {k: v for k, v in batch.items() if k != "others"}
+        total = mesh_lib.padded_size(len(batch["points"]), self.mesh)
+        rows = mesh_lib.shard_batch(mesh_lib.pad_batch_to(batch, total),
+                                    self.mesh)
+        with mesh_lib.data_parallel(self.mesh):
+            return self.step_fn(rows, lr)
 
     def train_epoch(self, epoch):
         iter_time = AverageMeter()
@@ -488,15 +539,16 @@ class Trainer:
         for batch in self.dataset.batches(self.cfg.batch_size, shuffle=True,
                                           seed=self.cfg.seed + epoch):
             data_time.update(time.time() - end)
-            metrics = self.step_fn(batch, lr)
+            metrics = self.step(batch, lr)
             sums = {k: v + sums[k] for k, v in metrics.items()} if sums \
                 else dict(metrics)
             iter_time.update(time.time() - end)
             end = time.time()
             n_batches += 1
         epoch_metrics = {k: float(v) / n_batches for k, v in sums.items()}
-        for k, v in epoch_metrics.items():
-            self.writer.add_scalar(f"{k}_train", v, epoch)
+        if self.lead:
+            for k, v in epoch_metrics.items():
+                self.writer.add_scalar(f"{k}_train", v, epoch)
         return {**epoch_metrics, "iter_time": iter_time.avg,
                 "data_time": data_time.avg, "lr": lr, "batches": n_batches}
 
@@ -508,8 +560,9 @@ class Trainer:
             self.epoch = epoch
             # the reference saves at save_freq multiples / powers of two;
             # the last epoch is saved too, so a restore resumes exactly
-            if save and (ckpt.is_multiple(epoch, self.cfg.save_freq)
-                         or ckpt.is_power2(epoch) or epoch == epochs):
+            if save and self.lead and (
+                    ckpt.is_multiple(epoch, self.cfg.save_freq)
+                    or ckpt.is_power2(epoch) or epoch == epochs):
                 ckpt.checkpoint_save(self.model, self.optimizer,
                                      self.exp_path, self.exp_name, epoch,
                                      save_freq=self.cfg.save_freq)

@@ -151,7 +151,7 @@ def engine():
     return InferenceEngine(InferenceConfig(**ENGINE), device="cpu")
 
 
-def test_main_app_session(engine):
+def test_main_app_session(engine, tmp_path):
     source = SyntheticDataEngine(n_positions=3, frames_per_position=2,
                                  seed=70, **SAMPLE_KW)
     app = MainApp(source, engine=engine, num_of_frames=2,
@@ -181,8 +181,10 @@ def test_main_app_session(engine):
     result = app.step()
     assert result.segmentation.shape == (len(generate_sample(
         seed=76, **SAMPLE_KW)["points"]),)
-    with pytest.raises(NotImplementedError, match="A8"):
-        MainApp(source, engine=engine, snapshot_dir="x")
+    # snapshot_dir: the update loop draws each frame
+    snaps = MainApp(source, engine=engine, snapshot_dir=str(tmp_path / "s"))
+    assert snaps.step() is not None
+    assert len(list((tmp_path / "s").glob("frame_*.png"))) == 1
 
 
 def test_calibrate_directory(engine, tmp_path, dataset_dir):

@@ -38,7 +38,9 @@ kernel's plain twin, and the reduced SparseResNet50 (f32 1e-4, bf16 2e-2)
 and AliveUNet (f32 1e-4) hold the card against the CPU.  B7's k3-table,
 down and up modes on f32 features (an int8 engine at f32 compute) equal
 their twins bit for bit; ``evaluate_segmentation`` at a reduced size
-holds the card against the CPU (metrics 1e-3).
+holds the card against the CPU (metrics 1e-3).  The engine on a 1-rank
+NCCL mesh gives the engine's own bits; the host runtime's voxels
+(``native``) equal the card voxelizer's (feature means 1e-5).
 """
 
 import numpy as np
@@ -1441,3 +1443,72 @@ def test_dense_steps_card_vs_cpu(cuda, head):
     assert (ud / un) ** 0.5 <= 1e-3
     for n in bc:
         assert _rel(bg[n], bc[n]) <= 1e-5, n
+
+
+def test_mesh_engine_equals_engine(cuda):
+    """A 1-rank NCCL mesh: ``predict_batch_arrays`` on the plain batch and
+    on ``fleet.globalize`` of it gives the engine's own bits (bf16, every
+    kernel of its path launched)."""
+    import torch.distributed as dist
+
+    from mrcc_tpu_torch.app import InferenceConfig, InferenceEngine
+    from mrcc_tpu_torch.parallel import fleet, make_mesh
+
+    cfg = InferenceConfig(
+        point_capacity=4096, seg_voxel_capacity=3072,
+        seg_hierarchy_caps=(2048, 1024, 512, 256), ee_point_capacity=1024,
+        ee_voxel_capacity=1024, ee_hierarchy_caps=(512, 256, 128, 128),
+        kp_voxel_capacity=1024, kp_hierarchy_caps=(768, 640, 384, 128),
+        seg_backbone="minkunet14A", rot_backbone="minkunet14A",
+        kp_backbone="minkunet14A", icp_iterations=5, icp_template_points=256)
+    pts, rgb, mask = (torch.as_tensor(x, device=cuda)
+                      for x in build_batch(2, 4096, seed=3))
+    engine = InferenceEngine(cfg, device=cuda)
+    want = engine.predict_batch_arrays(pts, rgb, mask)
+    engine.mesh = make_mesh(1, "cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        for ctr in (sort.SORT, conv.SK, conv.DOWN, conv.UP):
+            ctr.launches = 0
+        got = engine.predict_batch_arrays(pts, rgb, mask)
+        assert min(c.launches for c in (sort.SORT, conv.SK, conv.DOWN,
+                                        conv.UP)) > 0
+        glob = engine.predict_batch_arrays(*fleet.globalize(
+            engine.mesh, pts, rgb, mask))
+    finally:
+        dist.destroy_process_group()
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+        assert torch.equal(glob[k].to_local(), v), k
+
+
+def test_native_matches_card_voxelizer(cuda):
+    """The host runtime's voxels (``native.voxelize_host``, built with the
+    host compiler) against the card voxelizer's on one cloud: the same
+    voxel set, feature means 1e-5, labels equal."""
+    from mrcc_tpu_torch import native
+
+    rng = np.random.default_rng(5)
+    # inside voxels, away from their borders (where x * (1 / q) and x / q
+    # may round to different sides)
+    cells = np.floor(rng.normal(size=(20000, 3)) * 15)
+    pts = ((cells + rng.uniform(0.1, 0.9, (20000, 3))) * 0.02).astype(
+        np.float32)
+    feats = rng.random((20000, 3)).astype(np.float32)
+    labels = rng.integers(0, 3, 20000).astype(np.int32)
+    labels[:10000] = 1
+    coords, hf, hl, _, nv = native.voxelize_host(pts, feats, 0.02, 20000,
+                                                 labels=labels)
+    vox, _, vl = voxelize(*(torch.as_tensor(x, device=cuda)[None]
+                            for x in (pts, feats)),
+                          torch.ones((1, 20000), dtype=torch.bool,
+                                     device=cuda), 0.02, 20000,
+                          labels=torch.as_tensor(labels, device=cuda)[None])
+    n = int(vox.count[0])
+    card = {tuple(k): i for i, k in
+            enumerate(vox.coords()[0, :n].cpu().numpy())}
+    cf, cl = vox.feats[0].cpu().numpy(), vl[0].cpu().numpy()
+    assert nv == n and set(card) == {tuple(k) for k in coords}
+    for i, k in enumerate(map(tuple, coords)):
+        np.testing.assert_allclose(hf[i], cf[card[k]], atol=1e-5)
+        assert hl[i] == cl[card[k]]

@@ -6,7 +6,8 @@ plain twins).
   against the JAX module's from the same variables through
   ``load_jax_variables`` (the ``seg`` scope): 1e-5;
 - ``pred_center`` against JAX's, with and without an orientation, on
-  scores with no tie at the k-th place: 1e-6;
+  scores with no tie at the k-th place (1e-6) and on an exact tie there
+  (1e-7: the same points, lower index first);
 - one vote step (``RobotNetVote``, 2 classes, cross-section labels of EE
   crops) and one keypoint step (``RobotNetSegmentation``, 6 classes, most
   rows ``ignore_label``) against JAX ``make_segmentation_train_step`` (the
@@ -224,6 +225,32 @@ def test_pred_center_matches_jax(seed, with_q):
                       torch.from_numpy(mask),
                       q=None if q is None else torch.from_numpy(q)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("with_q", [False, True])
+def test_pred_center_tie_at_kth_matches_jax(with_q):
+    """The 8th to 10th valid scores are exactly equal: both packages
+    average the lower-index tied point (``lax.top_k``'s order)."""
+    rng = np.random.default_rng(7)
+    p = 400
+    logits = rng.normal(size=(p, 2)).astype(np.float32)
+    coords = rng.normal(size=(p, 3)).astype(np.float32)
+    mask = np.ones(p, bool)
+    mask[::5] = False
+    valid = np.flatnonzero(mask)
+    order = valid[np.argsort(-logits[valid, 1], kind="stable")]
+    tied = np.sort(rng.choice(order[7:], 3, replace=False))[::-1]
+    logits[tied, 1] = logits[order[7], 1]  # higher indices first in memory
+    score = np.sort(logits[mask, 1])[::-1]
+    assert score[7] == score[8] == score[9]
+    q = rng.normal(size=4).astype(np.float32) if with_q else None
+    want = np.asarray(jax_pred_center(
+        jnp.asarray(logits), jnp.asarray(coords), jnp.asarray(mask),
+        q=None if q is None else jnp.asarray(q)))
+    got = pred_center(torch.from_numpy(logits), torch.from_numpy(coords),
+                      torch.from_numpy(mask),
+                      q=None if q is None else torch.from_numpy(q)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-7)
 
 
 MAINS = [(train_vote, dict(voting_enabled=True)),
