@@ -19,7 +19,9 @@ the extrinsic (an engine from checkpoint paths, ``predict`` frame by frame,
 steps, the sparse ResNet50 classifier on its strided pyramid, the
 engine on the minkunet50 (bottleneck) backbone, and the dense PointNet2
 path (the engine's ``kp_backbone="pointnet2"`` stage, dense keypoint and
-keypoint-to-pose training).  Phases, each
+keypoint-to-pose training), data parallelism, and the trained demo
+pipeline (three nets trained by the kernels, then ``BenchmarkApp``).
+Phases, each
 printing one line and its wall time (any failure exits non-zero before the
 last line):
 
@@ -260,7 +262,26 @@ last line):
     CPU's own spread over ULP moves of the points, which an ICP cut to 7
     of its 15 iterations must exceed; (e)
     ``write_html_viewer`` of the engine's output.  Launches of path ``dp``
-    (the mesh call and both ranks' engine calls and steps).
+    (the mesh call and both ranks' engine calls and steps); (b) also runs
+    3 data-parallel steps of phase 12 c's feature extractor, whose triplet
+    miner sees both ranks' embeddings (ROADMAP C35), at lr 1e-5 (at 1e-4
+    nothing is mined after the first step), against one process on the
+    same 8 clouds: losses within 1e-5 (absolute), the first step's
+    gradient norm and the parameters within 1e-4 (relative), both ranks
+    bit-equal;
+18. the trained pipeline (``demo``): ``python -m mrcc_tpu_torch.cli.
+    demo_checkpoints`` (``main``) on the card at a short recipe: the r2
+    recipe's 32 scenes for 6 epochs (24 segmentation steps at batch 8),
+    256 EE crops for 2 epochs of the rotation and keypoint nets
+    (minkunet14A, the JAX script's capacities), then ``BenchmarkApp`` on
+    the trained engine over 5 held-out frames (its table on one line).
+    Gates: epoch-6 segmentation loss <= 0.2 and accuracy >= 0.95; finite
+    pose losses, the keypoint loss falls; the checkpoints written, and
+    ``--bench-only`` restoring an engine whose outputs on 2 frames are
+    bit-equal to the trained one's and whose table is the same; every one
+    of K1, K2, K3 down / up and the three dW kernels launched, no plain
+    twin called; the trained seg labels of 2 frames card vs CPU equal on
+    >= 99 % of points.  Launches of path ``dm``.
 
 ``python3 chip_smoke.py --calibrate`` builds the kernels and runs only
 phase 11, ``--train-more`` only phase 12.  ``--pose-k2`` builds them and runs only that
@@ -271,7 +292,15 @@ kernel and shape (CUDA events), ``--inference`` runs only phase 6 and
 and 8, to compare two versions of the kernels in one call (copy this file
 into a checkout of the other version).  ``--resnet`` builds the kernels and runs only phases 13 and 14,
 ``--dense`` only phase 15, ``--eval`` only phase 16 (its CPU references
-then run first), ``--parallel`` only phase 17.
+then run first), ``--parallel`` only phase 17, ``--demo-short`` only phase
+18.  ``--demo`` runs the demo at the r2 recipe of ``RESULTS.md`` (32
+scenes x 40 epochs, 2048 crops x 24 epochs, 20 held-out frames): the bf16
+table, the int8 engine on the same checkpoints (its table, its seg labels
+against bf16 on the 20 frames, the share of each int8 conv's inputs that
+its calibrated scale clips: ROADMAP C32, C33) and, in a child process on
+the CPU (three cores), the trained engine's seg labels on 4 frames and its
+own table over the 20; ``--demo RECORD.json`` also writes the whole record
+(the tables, the per-conv clipping) to that file.
 ``--rank-nn`` times the rank and
 NN kernels at phase 3's shapes under several values of their wrappers'
 constants (rank: query rows a block and shared-window keys; NN: blocks in
@@ -4652,6 +4681,15 @@ DP_RANKS = 2     # (b): ranks sharing the one card over gloo
 DP_STEPS = 3     # (b): data-parallel segmentation steps
 DP_LOSS = 1e-4   # (b): their losses against the single-process step's, rel.
 DP_LR = 1e-4     # phase 7's learning rate
+DP_METRIC_LR = 1e-5      # (b), C35: at phase 7's 1e-4 no triplet of its
+                         # 8 clouds is mined after the first step (loss 0)
+# (b), C35: the metric-learning losses, absolute: the loss (~0.04) is a
+# mean of hinges d_ap - d_an + margin over distances ~100x larger, so its
+# relative error is the distances' rounding times ~100
+DP_METRIC_LOSS = 1e-5
+DP_METRIC_GRAD = 1e-4    # (b), C35: the first step's summed gradient norm,
+                         # relative (later steps carry Adam's noise, C21)
+DP_METRIC_PARAMS = 1e-4  # (b), C35: its parameters, relative norm
 NATIVE_FPS = (16384, 1024)  # (c): FPS / ball query points and picks
 NATIVE_BALL = (0.05, 32)    # (c): ball radius (m) and group size
 ICP_POSE = 1e-4  # (d): ICP of the whole template from ~5 mm to its pose
@@ -4728,9 +4766,11 @@ def _dp_train_model():
 def dp_rank(rank, world, port, out_dir):
     """One rank of (b), in its own process on the card: gloo, ``world``
     ranks, the bench engine on this rank's rows of phase 6's batch
-    (``fleet.globalize``), then DP_STEPS phase-7 segmentation steps
-    through ``Trainer(mesh=...).step`` on the full batch; writes its rows,
-    losses, step times, launch counts and a hash of its parameters to
+    (``fleet.globalize``), then DP_STEPS phase-7 segmentation steps and
+    DP_STEPS phase-12 c feature-extractor steps (C35) through
+    ``Trainer(mesh=...).step`` on the full batch; writes its rows, losses,
+    step times, launch counts and hashes of its parameters (the first
+    rank also the feature extractor's parameters) to
     ``{out_dir}/rank{rank}.pt``."""
     import hashlib
     import tempfile
@@ -4788,17 +4828,71 @@ def dp_rank(rank, world, port, out_dir):
                param_sha=hashlib.sha256(flat.cpu().numpy().tobytes())
                .hexdigest(),
                buffer_sha=hashlib.sha256(bufs.cpu().numpy().tobytes())
-               .hexdigest(),
+               .hexdigest())
+    del model, step, trainer
+    torch.cuda.empty_cache()
+
+    # C35: the feature extractor's mined triplet loss over the global batch
+    model, step = _dp_metric_step()
+    with tempfile.TemporaryDirectory() as exp:
+        trainer = Trainer(model, None, step, step.optimizer, spec["tc"],
+                          exp_path=exp, mesh=mesh)
+        _zero(counters)
+        out["metric_losses"], out["metric_grad_norms"] = [], []
+        for _ in range(DP_STEPS):
+            out["metric_losses"].append(float(trainer.step(
+                _dp_metric_batch(), DP_METRIC_LR)["loss"]))
+            out["metric_grad_norms"].append(_grad_norm(model))
+    out["metric_launches"] = _read(counters)
+    flat = torch.cat([q.detach().reshape(-1) for q in model.parameters()])
+    bufs = torch.cat([b.reshape(-1) for b in model.buffers()])
+    out.update(metric_param_sha=hashlib.sha256(
+                   flat.cpu().numpy().tobytes()).hexdigest(),
+               metric_buffer_sha=hashlib.sha256(
+                   bufs.cpu().numpy().tobytes()).hexdigest(),
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if rank == 0:
+        out["metric_params"] = flat.cpu()
     torch.save(out, f"{out_dir}/rank{rank}.pt")
     dist.destroy_process_group()
 
 
 def _dp_counters():
-    from mrcc_tpu_torch.ops import conv, sort
+    from mrcc_tpu_torch.ops import conv, rank, sort
 
     return [sort.SORT, conv.SK, conv.DOWN, conv.UP, conv.K3_LISTS,
-            conv.K3_SUM, conv.DW_SK, conv.DW_DOWN, conv.DW_UP, conv.DW_LISTS]
+            conv.K3_SUM, conv.DW_SK, conv.DW_DOWN, conv.DW_UP, conv.DW_LISTS,
+            rank.RANK, conv.K3MAP, conv.DW_K3MAP]
+
+
+def _dp_metric_step():
+    """(b)'s feature-extractor step: phase 12 c's FeatureNet (minkunet34A
+    -> 16, seeded) and its metric-learning step on the card."""
+    from mrcc_tpu_torch.cli.train_mains import FEATURE_CAPACITY
+    from mrcc_tpu_torch.data.ycb import YCBDataset
+    from mrcc_tpu_torch.models import FeatureNet
+    from mrcc_tpu_torch.sparse.nn import init_parameters
+    from mrcc_tpu_torch.train import (TrainConfig,
+                                      make_metric_learning_train_step)
+
+    model = init_parameters(FeatureNet(backbone="minkunet34A"), 4)
+    cfg = YCBDataset(num_classes=1, samples_per_class=1,
+                     max_points=1024).cfg
+    return model, make_metric_learning_train_step(
+        model, cfg, TrainConfig(batch_size=8), FEATURE_CAPACITY)[0]
+
+
+def _grad_norm(model):
+    """The norm of the parameters' ``.grad`` (in float64)."""
+    return float(torch.cat([p.grad.reshape(-1) for p in model.parameters()
+                            if p.grad is not None]).double().norm())
+
+
+def _dp_metric_batch():
+    """Phase 12 c's 8 clouds, two of each of 4 classes in class order: each
+    rank's 4 hold two classes the other's lack, so the global miner pairs
+    other triplets than a miner per rank."""
+    return _object_batch(8, 6, range(4))
 
 
 def _dp_ranks(engine, p, c, m, caps):
@@ -4808,8 +4902,14 @@ def _dp_ranks(engine, p, c, m, caps):
     this process's engine on that shard; DP_STEPS data-parallel phase-7
     steps whose losses are within DP_LOSS of the single-process step's
     on the same batch, both ranks' parameters and BN statistics
-    bit-equal.  Steps/s of two ranks sharing one card measure no
-    data-parallel speed."""
+    bit-equal; then (ROADMAP C35) DP_STEPS data-parallel steps of phase 12
+    c's feature extractor at DP_METRIC_LR, whose triplets are mined over
+    both ranks' embeddings: losses within DP_METRIC_LOSS (absolute), the
+    first step's summed gradient norm within DP_METRIC_GRAD (Adam's update
+    does not see a gradient's scale) and parameters within
+    DP_METRIC_PARAMS (relative norm) of the single-process steps on the
+    same 8 clouds, both ranks bit-equal.  Steps/s of two ranks sharing one
+    card measure no data-parallel speed."""
     import tempfile
 
     from mrcc_tpu_torch.parallel.mesh import free_port
@@ -4839,6 +4939,16 @@ def _dp_ranks(engine, p, c, m, caps):
         torch.cuda.synchronize()
         del model, step
         torch.cuda.empty_cache()
+        model, step = _dp_metric_step()
+        metric_want, metric_grads = [], []
+        for _ in range(DP_STEPS):
+            metric_want.append(float(step(_dp_metric_batch(),
+                                          DP_METRIC_LR)["loss"]))
+            metric_grads.append(_grad_norm(model))
+        metric_params = torch.cat([q.detach().reshape(-1)
+                                   for q in model.parameters()])
+        del model, step
+        torch.cuda.empty_cache()
         logs = []
         try:
             for q in procs:
@@ -4860,9 +4970,24 @@ def _dp_ranks(engine, p, c, m, caps):
                    for a, b in zip(r["losses"], want))
     same = all(ranks[0][k] == r[k] for r in ranks
                for k in ("losses", "param_sha", "buffer_sha"))
+    if min(metric_want) <= 0:
+        raise AssertionError(f"C35: no triplet mined in a single-process "
+                             f"step, nothing to compare: {metric_want}")
+    metric_loss_err = max(abs(a - b) for r in ranks
+                          for a, b in zip(r["metric_losses"], metric_want))
+    metric_loss_rel = max(abs(a - b) / b for r in ranks
+                          for a, b in zip(r["metric_losses"], metric_want))
+    metric_grad_errs = [abs(a - b) / b for a, b in zip(
+        ranks[0]["metric_grad_norms"], metric_grads)]
+    metric_grad_err = metric_grad_errs[0]
+    metric_param_err = rel_err(ranks[0]["metric_params"].cuda(),
+                               metric_params)
+    metric_same = all(ranks[0][k] == r[k] for r in ranks
+                      for k in ("metric_losses", "metric_grad_norms",
+                                "metric_param_sha", "metric_buffer_sha"))
     launches = {}
     for r in ranks:
-        for part in ("engine_launches", "train_launches"):
+        for part in ("engine_launches", "train_launches", "metric_launches"):
             for k, v in r[part].items():
                 launches[k] = launches.get(k, 0) + v
     step_s = [float(np.median(r["step_s"])) for r in ranks]
@@ -4874,13 +4999,29 @@ def _dp_ranks(engine, p, c, m, caps):
         loss_max_rel_err=loss_err, ranks_bit_equal=same,
         engine_launches=[r["engine_launches"] for r in ranks],
         train_launches=[r["train_launches"] for r in ranks],
+        metric_losses=[r["metric_losses"] for r in ranks],
+        metric_single_process_losses=metric_want,
+        metric_loss_max_abs_err=metric_loss_err,
+        metric_loss_max_rel_err=metric_loss_rel,
+        metric_grad_norms=[r["metric_grad_norms"] for r in ranks],
+        metric_single_process_grad_norms=metric_grads,
+        metric_grad_norm_rel_errs=metric_grad_errs,
+        metric_param_rel_err=metric_param_err,
+        metric_ranks_bit_equal=metric_same,
+        metric_launches=[r["metric_launches"] for r in ranks],
         steps_per_s_median=[1 / x for x in step_s],
         steps_per_s_note="two ranks share one card: no measure of "
                          "data-parallel speed",
         peak_mem_gb=[r["peak_mem_gb"] for r in ranks],
-        tolerance={"loss_rel": DP_LOSS, "rows": "bits",
-                   "ranks": "bits"}, card=smi_line())
+        tolerance={"loss_rel": DP_LOSS, "rows": "bits", "ranks": "bits",
+                   "metric_loss_abs": DP_METRIC_LOSS,
+                   "metric_first_grad_norm_rel": DP_METRIC_GRAD,
+                   "metric_params_rel": DP_METRIC_PARAMS},
+        card=smi_line())
     if (any(differ.values()) or loss_err > DP_LOSS or not same
+            or metric_loss_err > DP_METRIC_LOSS or not metric_same
+            or metric_grad_err > DP_METRIC_GRAD
+            or metric_param_err > DP_METRIC_PARAMS
             or min(launches.values()) <= 0):
         raise AssertionError(f"2 ranks on one card: {report}")
     return report, launches
@@ -5232,9 +5373,350 @@ def phase_parallel(inputs, caps, counters):
     return {"dp": launches}
 
 
+# ------------------------------------------------------ phase 18: demo
+
+# (short, the default run) the r2 recipe's 32 scenes for 6 epochs (24
+# steps at batch 8), 256 EE crops for 2 epochs, 5 held-out frames
+DEMO_SHORT = ["--samples", "32", "--epochs", "6", "--ee-mult", "8",
+              "--pose-epochs", "2", "--bench-samples", "5"]
+# (--demo) the r2 recipe of RESULTS.md, as the JAX r2 table has it
+DEMO_FULL = ["--samples", "32", "--epochs", "40", "--ee-mult", "64",
+             "--pose-epochs", "24", "--bench-samples", "20"]
+DEMO_SEG_LOSS = 0.2    # epoch-6 train loss at most (JAX 14A: 0.041)
+DEMO_SEG_ACC = 0.95    # epoch-6 train accuracy at least (JAX 14A: 0.988)
+DEMO_CPU_AGREE = 0.99  # trained seg labels card vs CPU, share of points
+DEMO_CPU_FRAMES = 2    # frames of that check (4 in --demo)
+
+
+def demo_counters():
+    from mrcc_tpu_torch.ops import conv, rank, sort
+
+    return [sort.SORT, conv.SK, conv.DOWN, conv.UP, conv.K3_LISTS,
+            conv.K3_SUM, conv.DW_SK, conv.DW_DOWN, conv.DW_UP, conv.DW_LISTS,
+            rank.RANK, conv.K3MAP, conv.DW_K3MAP]
+
+
+def _demo_main(flags, root, counters=None):
+    """``demo_checkpoints.main`` on the card with ``flags`` into ``root``:
+    ``(result, launches, plain twin calls, seconds)``."""
+    from mrcc_tpu_torch.cli import demo_checkpoints as demo
+
+    if counters:
+        _zero(counters)
+    t = time.perf_counter()
+    with plain_calls() as plain:
+        res = demo.main(flags + ["--out", root])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    return res, (_read(counters) if counters else {}), dict(plain), seconds
+
+
+def _demo_frames(n):
+    """The first ``n`` held-out frames of the demo's bench source, each
+    padded as ``predict`` pads it: ``[n, P, 3]`` points and colours and
+    the ``[n, P]`` mask (numpy)."""
+    from mrcc_tpu_torch.cli.demo_checkpoints import Recipe, bench_source
+
+    recipe, source = Recipe(), bench_source(Recipe())
+    pts = np.zeros((n, recipe.point_capacity, 3), np.float32)
+    rgb = np.zeros_like(pts)
+    mask = np.zeros((n, recipe.point_capacity), bool)
+    for i in range(n):
+        f = source.get()
+        k = min(len(f.points), recipe.point_capacity)
+        pts[i, :k], rgb[i, :k], mask[i, :k] = f.points[:k], f.rgb[:k], True
+    return pts, rgb, mask
+
+
+def _seg_labels(engine, pts, rgb, mask):
+    """The engine's point labels of a batch (its segmentation stage)."""
+    out = engine.seg_stage(*(torch.as_tensor(x, device=engine.device)
+                             for x in (pts, rgb, mask)))
+    return out[0].cpu()
+
+
+def _label_agreement(a, b, mask):
+    m = torch.as_tensor(mask)
+    return float((a[m] == b[m]).float().mean())
+
+
+def _history_report(res):
+    """Per net: epochs, steps, training seconds, first and last epoch's
+    metrics and the share of ``data_time`` in ``iter_time`` (the host's
+    item pipeline: items are built in epoch 1 and cached)."""
+    out = {}
+    for stage, hist in res["history"].items():
+        if not hist:
+            out[stage] = None
+            continue
+        steps = sum(h["batches"] for h in hist)
+        data = sum(h["data_time"] * h["batches"] for h in hist)
+        it = sum(h["iter_time"] * h["batches"] for h in hist)
+        out[stage] = dict(
+            epochs=len(hist), steps=steps, train_s=res["train_s"][stage],
+            steps_per_s=steps / res["train_s"][stage],
+            data_share=data / it, data_share_epoch1=(
+                hist[0]["data_time"] / hist[0]["iter_time"]),
+            first={k: v for k, v in hist[0].items()
+                   if k not in ("iter_time", "data_time")},
+            last={k: v for k, v in hist[-1].items()
+                  if k not in ("iter_time", "data_time")})
+    return out
+
+
+def _cpu_engine(engine):
+    """An engine of the same configuration and weights on the CPU."""
+    from mrcc_tpu_torch.app import InferenceEngine
+
+    return InferenceEngine(
+        copy.deepcopy(engine.cfg), device="cpu",
+        params={stage: {k: v.cpu() for k, v in m.state_dict().items()}
+                for stage, m in engine.models().items()})
+
+
+def phase_demo(counters):
+    """Phase 18: ``demo_checkpoints.main`` at DEMO_SHORT on the card, the
+    gates of the module docstring; returns the launches of path ``dm``."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:
+        res, launches, plain, seconds = _demo_main(DEMO_SHORT, root,
+                                                   counters)
+        hist = _history_report(res)
+        seg = res["history"]["segmentation"][-1]
+        pose_losses = [h["loss"] for st in ("rotation", "key_points")
+                       for h in res["history"][st]]
+        kp = res["history"]["key_points"]
+        log("demo_train", card=smi_line(), seconds=seconds, nets=hist,
+            k3_tables=res["k3_tables"], launches=launches, plain=plain)
+        log("demo_bench", card=smi_line(),
+            frames=res["table"]["seg_accuracy"]["N"],
+            table={k: v["Avg"] for k, v in res["table"].items()},
+            calibration=res["calibration"])
+        ckpts = {st: sorted(f for f in os.listdir(os.path.join(root, st))
+                            if f.endswith(".ckpt"))
+                 for st in res["history"]}
+        # the checkpoints alone give the same engine
+        t = time.perf_counter()
+        again, _, again_plain, _ = _demo_main(DEMO_SHORT + ["--bench-only"],
+                                              root)
+        restore_s = time.perf_counter() - t
+    pts, rgb, mask = _demo_frames(DEMO_CPU_FRAMES)
+    p, c, m = (torch.as_tensor(x, device="cuda") for x in (pts, rgb, mask))
+    differ = _equal_outputs(again["engine"].predict_batch_arrays(p, c, m),
+                            res["engine"].predict_batch_arrays(p, c, m))
+    t = time.perf_counter()
+    card = _seg_labels(res["engine"], pts, rgb, mask)
+    cpu = _seg_labels(_cpu_engine(res["engine"]), pts, rgb, mask)
+    agree = _label_agreement(card, cpu, mask)
+    report = dict(
+        seg_epoch6={"loss": seg["loss"], "accuracy": seg["accuracy"]},
+        pose_losses_finite=bool(np.isfinite(pose_losses).all()),
+        kp_loss_first_last=(kp[0]["loss"], kp[-1]["loss"]),
+        checkpoints=ckpts, restored_outputs_equal=not differ,
+        restored_table_equal=again["table"] == res["table"],
+        restore_s=restore_s, seg_labels_card_vs_cpu=agree,
+        cpu_check_s=time.perf_counter() - t, frames=DEMO_CPU_FRAMES,
+        tolerance={"seg_loss": DEMO_SEG_LOSS, "seg_accuracy": DEMO_SEG_ACC,
+                   "card_vs_cpu": DEMO_CPU_AGREE}, card=smi_line())
+    log("demo", **report)
+    rows = ("argsort", "conv_sk", "conv_down", "conv_up", "dw_sk", "dw_down",
+            "dw_up")
+    if (seg["loss"] > DEMO_SEG_LOSS or seg["accuracy"] < DEMO_SEG_ACC
+            or not report["pose_losses_finite"]
+            or kp[-1]["loss"] >= kp[0]["loss"]
+            or not all(ckpts.values()) or differ
+            or not report["restored_table_equal"] or agree < DEMO_CPU_AGREE
+            or plain or again_plain
+            or min(launches.get(r, 0) for r in rows) <= 0):
+        raise AssertionError(f"phase 18 demo: {report}, launches "
+                             f"{launches}, plain twins {plain} / "
+                             f"{again_plain}")
+    return {"dm": launches}
+
+
+DEMO_FULL_CPU_FRAMES = 4  # (--demo) card-vs-CPU seg labels
+DEMO_Q8_CHUNK = 4         # (--demo) frames a batch of the int8 label check
+
+
+@contextlib.contextmanager
+def _q8_clipping(engine):
+    """Per int8 conv of the engine (``"{stage}.{conv}"``): the input
+    elements seen and those past the calibrated per-channel absmax, which
+    the quantisation clips (ROADMAP C33)."""
+    from mrcc_tpu_torch.sparse.nn import q8_convs
+
+    stats, hooks = {}, []
+    for stage, model in engine.models().items():
+        for name, conv in q8_convs(model):
+            if not conv.q8 or conv.act_absmax is None:
+                continue
+
+            def count(mod, args, _key=f"{stage}.{name}"):
+                x = args[0].float()
+                s = stats.setdefault(_key, [0, 0])
+                s[0] += int((x != 0).sum())
+                s[1] += int((x.abs() > mod.act_absmax).sum())
+
+            hooks.append(conv.register_forward_pre_hook(count))
+    try:
+        yield stats
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def demo_cpu_reference(root):
+    """(--demo) the CPU side, in a child process: the trained engine of
+    ``{root}/cpu_in.pt`` on the CPU, its seg labels on the saved frames and
+    ``BenchmarkApp``'s table over the same held-out frames as the card's."""
+    from mrcc_tpu_torch.app import InferenceEngine
+    from mrcc_tpu_torch.cli.demo_checkpoints import bench_source, stats_table
+    from mrcc_tpu_torch.data.synthetic import gt_base2cam_pose
+    from mrcc_tpu_torch.eval.benchmark import BenchmarkApp
+
+    torch.set_num_threads(len(os.sched_getaffinity(0)))
+    spec = torch.load(f"{root}/cpu_in.pt", weights_only=False)
+    engine = InferenceEngine(spec["cfg"], device="cpu",
+                             params=spec["params"])
+    t = time.perf_counter()
+    labels = _seg_labels(engine, *spec["frames"])
+    labels_s = time.perf_counter() - t
+    t = time.perf_counter()
+    res = BenchmarkApp(engine, bench_source(spec["recipe"]),
+                       gt_base2cam_pose(),
+                       n_samples=spec["bench_samples"],
+                       ignore_unconfident=False).run()
+    torch.save({"labels": labels, "labels_s": labels_s,
+                "table": stats_table(res["metrics"]),
+                "calibration": res["calibration"],
+                "bench_s": time.perf_counter() - t,
+                "threads": torch.get_num_threads()}, f"{root}/cpu_out.pt")
+
+
+def _demo_cpu_child(root, engine, frames, bench_samples):
+    """Start :func:`demo_cpu_reference` on the last EVAL_CPU_CORES cores
+    (this process keeps the others) with the engine's configuration,
+    weights and ``frames``."""
+    from mrcc_tpu_torch.cli.demo_checkpoints import Recipe
+
+    torch.save({"cfg": engine.cfg, "frames": frames, "recipe": Recipe(),
+                "bench_samples": bench_samples,
+                "params": {st: {k: v.cpu() for k, v in m.state_dict().items()}
+                           for st, m in engine.models().items()}},
+               f"{root}/cpu_in.pt")
+    cores = sorted(os.sched_getaffinity(0))
+    child = None
+    if len(cores) >= 2 * EVAL_CPU_CORES:
+        child, keep = cores[-EVAL_CPU_CORES:], cores[:-EVAL_CPU_CORES]
+        os.sched_setaffinity(0, keep)
+        torch.set_num_threads(len(keep))
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--demo-cpu", root],
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        preexec_fn=(None if child is None else
+                    lambda: os.sched_setaffinity(0, child)))
+
+
+def phase_demo_full(record=None):
+    """``--demo [RECORD]``: the r2 recipe (DEMO_FULL) on the card, then the int8
+    engine on the same checkpoints (``--bench-only --conv-impl
+    pallas-int8``: ROADMAP C32 on trained nets, with C33's clipping), the
+    seg labels int8 against bf16 on the 20 held-out frames, and the
+    trained engine card against CPU (a child process: seg labels on
+    DEMO_FULL_CPU_FRAMES frames, the CPU's own table over the 20); the
+    whole record is written to the JSON file ``record`` where given."""
+    import tempfile
+
+    from mrcc_tpu_torch.ops import conv_q8
+
+    counters = demo_counters()
+    q8_counters = counters + [conv_q8.SK_Q8, conv_q8.DOWN_Q8, conv_q8.UP_Q8,
+                              conv_q8.Q8_QUANT, conv_q8.Q8_LISTS,
+                              conv_q8.Q8_SUM]
+    report = {"card": smi_line(), "flags": DEMO_FULL}
+    with tempfile.TemporaryDirectory() as root:
+        res, launches, plain, seconds = _demo_main(DEMO_FULL, root,
+                                                   counters)
+        report.update(seconds=seconds, nets=_history_report(res),
+                      k3_tables=res["k3_tables"], launches=launches,
+                      plain=plain, bf16_table=res["table"],
+                      bf16_calibration=res["calibration"])
+        log("demo_full_train", card=smi_line(), seconds=seconds,
+            nets=report["nets"], launches=launches, plain=plain)
+        log("demo_full_bf16", card=smi_line(),
+            table={k: v["Avg"] for k, v in res["table"].items()},
+            calibration=res["calibration"])
+        small = _demo_frames(DEMO_FULL_CPU_FRAMES)
+        child = _demo_cpu_child(root, res["engine"], small, 20)
+        try:
+            q8, q8_launches, q8_plain, q8_s = _demo_main(
+                DEMO_FULL + ["--bench-only", "--conv-impl", "pallas-int8"],
+                root, q8_counters)
+            report.update(int8_table=q8["table"],
+                          int8_calibration=q8["calibration"],
+                          int8_launches=q8_launches, int8_plain=q8_plain,
+                          int8_bench_s=q8_s)
+            log("demo_full_int8", card=smi_line(),
+                table={k: v["Avg"] for k, v in q8["table"].items()},
+                calibration=q8["calibration"])
+            pts, rgb, mask = _demo_frames(20)
+            agree = []
+            with _q8_clipping(q8["engine"]) as clip:
+                for s in range(0, 20, DEMO_Q8_CHUNK):
+                    rows = slice(s, s + DEMO_Q8_CHUNK)
+                    agree.append(_label_agreement(
+                        _seg_labels(q8["engine"], pts[rows], rgb[rows],
+                                    mask[rows]),
+                        _seg_labels(res["engine"], pts[rows], rgb[rows],
+                                    mask[rows]), mask[rows]))
+            shares = {k: over / max(seen, 1) for k, (seen, over)
+                      in clip.items()}
+            report.update(
+                int8_vs_bf16_seg_labels=float(np.mean(agree)),
+                int8_vs_bf16_seg_labels_min=min(agree),
+                c33_clipped_share_max=max(shares.values()),
+                c33_convs_clipping=sum(v > 0 for v in shares.values()),
+                c33_convs=len(shares),
+                c33_clipped_share_by_conv=shares)
+            card = _seg_labels(res["engine"], *small)
+            out, _ = child.communicate(timeout=1800)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.communicate()
+        if child.returncode != 0:
+            raise AssertionError(f"--demo CPU reference failed:\n"
+                                 f"{out[-4000:]}")
+        cpu = torch.load(f"{root}/cpu_out.pt", weights_only=False)
+    report.update(
+        seg_labels_card_vs_cpu=_label_agreement(card, cpu["labels"],
+                                                small[2]),
+        cpu_table=cpu["table"], cpu_calibration=cpu["calibration"],
+        cpu_bench_s=cpu["bench_s"], cpu_threads=cpu["threads"])
+    log("demo_full", **{
+        k: v for k, v in report.items()
+        if not k.endswith("_table") and k not in (
+            "nets", "c33_clipped_share_by_conv")},
+        cpu_table={k: v["Avg"] for k, v in cpu["table"].items()})
+    if record:
+        os.makedirs(os.path.dirname(record) or ".", exist_ok=True)
+        with open(record, "w") as f:
+            json.dump(report, f, indent=1, default=str)
+    seg = res["history"]["segmentation"][-1]
+    if (plain or q8_plain or not np.isfinite(seg["loss"])
+            or report["seg_labels_card_vs_cpu"] < DEMO_CPU_AGREE):
+        raise AssertionError(f"--demo: {report}")
+    return report
+
+
 def main():
     if len(sys.argv) == 3 and sys.argv[1] == "--eval-references":
         eval_references(sys.argv[2])   # the CPU process of phase 16
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--demo-cpu":
+        demo_cpu_reference(sys.argv[2])  # the CPU process of --demo
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5275,6 +5757,7 @@ def main():
                  *bench_levels(torch.device("cuda"))[:2],
                  [sort.SORT, conv.SK, conv.DOWN, conv.UP, conv.K3_LISTS,
                   conv.K3_SUM]),
+             "--demo-short": lambda: phase_demo(demo_counters()),
              "--dense": lambda: phase_dense_only(
                  [sort.SORT, conv.SK, conv.DOWN, conv.UP, conv.K3_LISTS,
                   conv.K3_SUM],
@@ -5283,6 +5766,10 @@ def main():
     if len(sys.argv) == 2 and sys.argv[1] in modes:
         phase_build()
         modes[sys.argv[1]]()
+        return 0
+    if len(sys.argv) in (2, 3) and sys.argv[1] == "--demo":
+        phase_build()
+        phase_demo_full(sys.argv[2] if len(sys.argv) == 3 else None)
         return 0
 
     references = None
@@ -5387,6 +5874,8 @@ def _main_phases(phase, card, references):
     torch.cuda.empty_cache()
     launches.update(phase("parallel", phase_parallel, inputs, caps,
                           counters))
+    torch.cuda.empty_cache()
+    launches.update(phase("demo", phase_demo, demo_counters()))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_by_path")

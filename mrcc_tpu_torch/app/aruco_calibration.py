@@ -24,8 +24,8 @@ class ArucoCalibrationApp:
     def __init__(self, data_source, engine: InferenceEngine = None,
                  icp_enabled: bool = True, camera_matrix=None, device=None):
         """``engine``: default a ``calibration_only`` engine (no networks)
-        on ``device`` (the card unless told otherwise); ICP runs on the
-        engine's device."""
+        on ``device`` (the card unless told otherwise); the tag pose and
+        ICP run on the engine's device."""
         self.engine = engine or InferenceEngine(
             InferenceConfig(), device=device, calibration_only=True)
         self.data_source = data_source
@@ -56,7 +56,7 @@ class ArucoCalibrationApp:
         if self.camera_matrix is not None:
             kw["camera_matrix"] = self.camera_matrix
         pose = compute_ee_pose(np.asarray(data.points), np.asarray(data.rgb),
-                               **kw)
+                               device=self.engine.device, **kw)
         result = ResultDTO(segmentation=None)
         if pose is None:
             return result

@@ -219,10 +219,14 @@ class InferenceEngine:
     ``predict_batch_arrays``."""
 
     def __init__(self, config: InferenceConfig = None, device=None, seed=0,
-                 calibration_only: bool = False, mesh=None):
+                 calibration_only: bool = False, mesh=None, params=None):
         """``calibration_only``: no networks; ``predict`` returns empty
         results and ``calibrate`` averages given ones.  ``mesh``: a 1-D
-        ``data`` mesh that shards ``predict_batch_arrays`` over its ranks."""
+        ``data`` mesh that shards ``predict_batch_arrays`` over its ranks.
+        ``params``: trained weights as ``{"segmentation", "rotation",
+        "key_points"}`` state dicts (the trainers' models'), loaded
+        strictly over the seeded init and the checkpoints, as the JAX
+        engine's ``params=``."""
         self.cfg = config or InferenceConfig()
         cfg = self.cfg
         self.device = resolve_device(device)
@@ -255,6 +259,8 @@ class InferenceEngine:
                                 cfg.kp_checkpoint)):
             if path:
                 load_weights(model, path)
+        for stage, state in (params or {}).items():
+            self.models()[stage].load_state_dict(state, strict=True)
         for model in self.models().values():
             model.to(self.device).eval()
         on = q8_stages(cfg)

@@ -1,6 +1,7 @@
 """Point-cloud preprocessing (port of ``mrcc_tpu/geometry/preprocess.py``):
-masked bbox centering, the reference's colour normalisation and the unit
-sphere scaling of the dense keypoint path's coordinate features."""
+masked bbox centering and minimum shift, the reference's colour
+normalisation and the unit sphere scaling of the dense keypoint path's
+coordinate features."""
 
 from __future__ import annotations
 
@@ -27,6 +28,18 @@ def center_at_origin(points, mask=None):
         mn = torch.where(m, points, _full(points, big)).amin(dim=-2)
     offset = (mx + mn) / 2
     return points - offset[..., None, :], offset
+
+
+def base_at_origin(points, mask=None):
+    """Shift so the per-axis minimum over the rows of ``mask`` sits at the
+    origin (``preprocess.py:14``); returns ``(points - offset, offset)``."""
+    if mask is None:
+        mn = points.amin(dim=-2)
+    else:
+        big = torch.finfo(points.dtype).max
+        mn = torch.where(mask[..., None], points,
+                         _full(points, big)).amin(dim=-2)
+    return points - mn[..., None, :], mn
 
 
 def normalize_colors(rgb, mask=None):

@@ -151,3 +151,24 @@ def make_minkunet(name: str, in_channels: int, out_channels: int,
     """Factory for named variants (see :func:`variant`)."""
     return MinkUNetBase(in_channels, out_channels, encoder_only=encoder_only,
                         **variant(name))
+
+
+# the JAX package's named constructors (``mrcc_tpu/models/minkunet.py``)
+def MinkUNet18D(in_channels, out_channels):
+    return make_minkunet("minkunet18D", in_channels, out_channels)
+
+
+def MinkUNet14A(in_channels, out_channels):
+    return make_minkunet("minkunet14A", in_channels, out_channels)
+
+
+def MinkUNet34C(in_channels, out_channels):
+    return make_minkunet("minkunet34C", in_channels, out_channels)
+
+
+def MinkUNet34A(in_channels, out_channels):
+    return make_minkunet("minkunet34A", in_channels, out_channels)
+
+
+def MinkUNet101(in_channels, out_channels):
+    return make_minkunet("minkunet101", in_channels, out_channels)

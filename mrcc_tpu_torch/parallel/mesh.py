@@ -21,7 +21,11 @@ the identity and the single-process code path is unchanged):
   as one flat buffer in parameter order, so every rank steps to the same
   bits;
 - :func:`global_rows` — the rows of a global draw this rank owns (dropout
-  masks equal to the single-process step's).
+  masks equal to the single-process step's);
+- :func:`global_batch` — every rank's rows of a tensor, differentiable: a
+  criterion that pairs items across the batch (the metric-learning miner)
+  runs on the global batch, every rank computing the whole loss and
+  backpropagating it into its own rows only.
 """
 
 from __future__ import annotations
@@ -221,6 +225,35 @@ def global_sum(x):
     if _ACTIVE is None:
         return x
     return _AllReduceSum.apply(x, _group(_ACTIVE))
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every rank's rows in rank order (equal row counts); the gradient is
+    this rank's rows of the cotangent.  Every rank computes the same loss
+    of the gathered rows and backpropagates it whole, so each rank's
+    gradient is the loss's through its own rows, and their sum over the
+    ranks (:func:`sync_gradients`) is the loss's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+        ctx.rows = slice(r * x.shape[0], (r + 1) * x.shape[0])
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim=0)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad[ctx.rows], None
+
+
+def global_batch(x):
+    """Every rank's rows of ``x`` concatenated in rank order,
+    differentiable (:class:`_GatherRows`); ``x`` itself outside a
+    data-parallel step."""
+    if _ACTIVE is None:
+        return x
+    return _GatherRows.apply(x, _group(_ACTIVE))
 
 
 def global_count(n, device=None):

@@ -86,3 +86,11 @@ def icp_refine(template, ee_points, ee_mask, init_pose, iterations=30,
     mat[:, :3, 3] = t
     has_points = ee_mask.sum(dim=-1) > 3
     return torch.where(has_points[:, None], matrix_to_pose(mat), init_pose)
+
+
+def icp_refine_batch(template, ee_points, ee_mask, init_poses, iterations=30,
+                     threshold=0.1):
+    """The JAX package's batched entry point (a ``vmap`` of its one-cloud
+    ``icp_refine``): :func:`icp_refine` here takes the batch already."""
+    return icp_refine(template, ee_points, ee_mask, init_poses,
+                      iterations=iterations, threshold=threshold)

@@ -36,8 +36,9 @@ JAX step's global semantics (``parallel.mesh``): each batch is padded to a
 multiple of the mesh size (``pad_batch_to``), each rank steps on its rows,
 the batch norms and the criteria reduce over every rank's rows, and the
 gradients are summed over the ranks before the optimizer step.  The
-metric-learning step mines triplets across the batch and raises
-``NotImplementedError`` under a mesh.
+metric-learning step gathers every rank's embeddings and labels
+(``mesh.global_batch``) and mines its triplets over the global batch, as
+the JAX step jitted over a sharded batch does.
 """
 
 from __future__ import annotations
@@ -318,7 +319,11 @@ class MetricLearningTrainStep(_TrainStep):
     ``batch`` holds ``points``, ``feats``, ``mask`` and the clouds' class
     ``labels [B]``.  As in the JAX step, the level capacities halve from
     ``voxel_capacity`` with no floor, and the hierarchy is built with
-    ``k3_self_keyed`` off, so every level takes the k3-table route."""
+    ``k3_self_keyed`` off, so every level takes the k3-table route.
+
+    In a data-parallel step the criterion runs on every rank's embeddings
+    and labels (``mesh.global_batch``): each rank computes the global loss
+    and backpropagates it into its own rows."""
 
     def __init__(self, model, optimizer, criterion, data_cfg,
                  voxel_capacity: int, device: torch.device):
@@ -337,22 +342,20 @@ class MetricLearningTrainStep(_TrainStep):
         return vox, levels, t["labels"]
 
     def forward(self, vox, levels, labels):
-        """-> (embeddings, loss)."""
+        """-> (this rank's embeddings, the global batch's loss)."""
         self.model.train()
         emb = self.model(vox.feats, levels)
-        return emb, self.criterion(emb, labels)
+        return emb, self.criterion(mesh_lib.global_batch(emb),
+                                   mesh_lib.global_batch(labels))
 
     def __call__(self, batch, lr):
-        """Run every stage; returns ``{"loss"}`` as a device scalar."""
-        if mesh_lib.active_mesh() is not None:
-            raise NotImplementedError(
-                "metric learning under a mesh: the triplet miner pairs items "
-                "across the whole batch (ROADMAP C35)")
+        """Run every stage; returns ``{"loss"}`` (the global batch's, the
+        same on every rank) as a device scalar."""
         vox, levels, labels = self.prepare(batch)
         _, loss = self.forward(vox, levels, labels)
         self.backward(loss)
         self.update(lr)
-        return {"loss": mesh_lib.reported(loss)}
+        return {"loss": loss.detach()}
 
 
 def make_metric_learning_train_step(model, data_cfg, train_cfg: TrainConfig,

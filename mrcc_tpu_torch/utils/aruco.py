@@ -8,7 +8,8 @@ depth image, Kabsch the canonical tag corners onto them and offset by
 ``cv2`` is needed only to detect the tag, and is imported inside
 :func:`compute_ee_pose` (which returns None without it).  The geometry
 after detection is :func:`tag_pose_from_corners`, which takes the four
-pixel corners and runs without ``cv2``.
+pixel corners and runs without ``cv2``.  Its Kabsch solve runs on the
+card unless the caller asks for another device.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..geometry.kabsch import kabsch
 from ..geometry.transform import matrix_to_quat
 
@@ -52,14 +54,16 @@ def project_to_rgbd(points, rgb, camera_matrix, width=640, height=480,
 def tag_pose_from_corners(corners_px, depth_img,
                           camera_matrix=CAMERA_MATRIX_DEFAULT,
                           aruco_tag_size=0.075,
-                          t_tag2ee=(-0.012, -0.0, -0.05), device="cpu"):
+                          t_tag2ee=(-0.012, -0.0, -0.05), device=None):
     """EE pose ``[x, y, z, qw, qx, qy, qz]`` from a detected tag's four
     pixel corners ``[4, 2]`` (cv2's order) and the depth image: each
     corner (truncated to an integer pixel) lifted to camera coordinates
     through its depth, the canonical corners (the tag in the y-z plane,
     ``aruco_tag_size`` wide) Kabsch-aligned onto them, then offset by
     ``t_tag2ee`` in the tag frame; None where a corner has no depth.  The
-    Kabsch solve runs on ``device``."""
+    Kabsch solve runs on ``device`` (the card unless told otherwise;
+    raises where there is none)."""
+    device = resolve_device(device)
     fx, fy = camera_matrix[0, 0], camera_matrix[1, 1]
     cx, cy = camera_matrix[0, 2], camera_matrix[1, 2]
     corners_3d = []
@@ -81,10 +85,12 @@ def tag_pose_from_corners(corners_px, depth_img,
 
 def compute_ee_pose(points, rgb, camera_matrix=CAMERA_MATRIX_DEFAULT,
                     image_width=640, image_height=480,
-                    aruco_tag_size=0.075, t_tag2ee=(-0.012, -0.0, -0.05)):
+                    aruco_tag_size=0.075, t_tag2ee=(-0.012, -0.0, -0.05),
+                    device=None):
     """Detect the tag (``DICT_6X6_1000``) and return the EE pose
     ``[x, y, z, qw, qx, qy, qz]``, or None without ``cv2``, without exactly
-    one tag, or where a corner has no depth."""
+    one tag, or where a corner has no depth.  The pose is solved on
+    ``device`` (:func:`tag_pose_from_corners`)."""
     try:
         import cv2
     except ImportError:
@@ -112,4 +118,4 @@ def compute_ee_pose(points, rgb, camera_matrix=CAMERA_MATRIX_DEFAULT,
     if corners is None or len(corners) != 1:
         return None
     return tag_pose_from_corners(corners[0][0], depth_img, camera_matrix,
-                                 aruco_tag_size, t_tag2ee)
+                                 aruco_tag_size, t_tag2ee, device=device)

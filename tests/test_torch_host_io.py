@@ -208,7 +208,7 @@ def _quat_close(a, b, atol):
 
 def test_compute_ee_pose_matches_jax():
     pts, rgb = _tag_cloud()
-    got = aruco.compute_ee_pose(pts, rgb)
+    got = aruco.compute_ee_pose(pts, rgb, device="cpu")
     want = jax_aruco.compute_ee_pose(pts, rgb)
     assert got is not None and want is not None
     np.testing.assert_allclose(got[:3], want[:3], atol=1e-5)
@@ -221,13 +221,13 @@ def test_compute_ee_pose_matches_jax():
         cv2.aruco.DetectorParameters())
     corners, _, _ = det.detectMarkers(cv2.cvtColor(
         (rgb_img * 255).astype(np.uint8), cv2.COLOR_RGB2GRAY))
-    split = aruco.tag_pose_from_corners(corners[0][0], depth)
+    split = aruco.tag_pose_from_corners(corners[0][0], depth, device="cpu")
     np.testing.assert_array_equal(split, got)
     # a corner without depth: no pose
-    assert aruco.tag_pose_from_corners(corners[0][0],
-                                       np.zeros_like(depth)) is None
+    assert aruco.tag_pose_from_corners(corners[0][0], np.zeros_like(depth),
+                                       device="cpu") is None
     # without a tag: no pose
-    assert aruco.compute_ee_pose(pts, np.ones_like(rgb)) is None
+    assert aruco.compute_ee_pose(pts, np.ones_like(rgb), device="cpu") is None
 
 
 class _Frames:
@@ -272,7 +272,7 @@ def test_aruco_calibration_app_matches_jax(icp):
                                    atol=tol)
     if icp:  # ICP moved the tag pose
         tag = aruco.compute_ee_pose(_Frames().frames[0].points,
-                                    _Frames().frames[0].rgb)
+                                    _Frames().frames[0].rgb, device="cpu")
         assert np.abs(app.predict(_Frames().frames[0]).ee_pose
                       - tag).max() > 1e-4
     got, want = app.run(), japp.run()

@@ -193,7 +193,66 @@ def _resume(trainer_on, spec, rank):
             "buffer_sha": _sha(trainer.model.buffers())}
 
 
-MODES = {"roundtrip": _roundtrip, "engine": _engine, "train": _train}
+def _metric(mesh, spec):
+    """``spec["steps"]`` feature-extractor steps (``FeatureNet``
+    minkunet14A, the mined triplet loss over the global batch) through
+    ``Trainer(mesh=...).step`` on each of ``spec["batches"]``, every case
+    from ``spec["state"]``; the losses, the norm of each step's summed
+    gradient, the end parameters."""
+    import torch
+
+    from mrcc_tpu_torch.data.ycb import YCBDataset
+    from mrcc_tpu_torch.models import FeatureNet
+    from mrcc_tpu_torch.train import (Trainer, TrainConfig,
+                                      make_metric_learning_train_step)
+
+    rank = mesh.get_local_rank()
+    data_cfg = YCBDataset(num_classes=1, samples_per_class=1,
+                          max_points=spec["max_points"]).cfg
+    res = {"rank": rank, "cases": []}
+    for i, batch in enumerate(spec["batches"]):
+        model = FeatureNet(backbone="minkunet14A")
+        model.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in spec["state"].items()})
+        tc = TrainConfig(lr=spec["lr"], batch_size=len(batch["points"]))
+        step, opt = make_metric_learning_train_step(
+            model, data_cfg, tc, spec["capacity"], device="cpu")
+        trainer = Trainer(model, None, step, opt, tc, mesh=mesh,
+                          exp_path=os.path.join(spec["exp"], f"{i}_{rank}"))
+        losses, grad_norms = [], []
+        for _ in range(spec["steps"]):
+            losses.append(float(trainer.step(batch, spec["lr"])["loss"]))
+            grads = torch.cat([p.grad.reshape(-1)
+                               for p in model.parameters()])
+            grad_norms.append(float(torch.sqrt((grads.double() ** 2).sum())))
+        flat = torch.cat([p.detach().reshape(-1)
+                          for p in model.parameters()])
+        res["cases"].append({
+            "losses": losses, "grad_norms": grad_norms,
+            "param_norm": float(torch.sqrt((flat.double() ** 2).sum())),
+            "param_sha": _sha(model.parameters()),
+            "buffer_sha": _sha(model.buffers())})
+    return res
+
+
+def _demo(mesh, spec):
+    """``demo_checkpoints.main`` with ``--mesh`` over the ranks (each rank
+    joins the group here, so the main's ``init_distributed`` finds it
+    up), at ``spec["recipe"]``'s sizes: its epoch losses, and whether it
+    benchmarked."""
+    from mrcc_tpu_torch.cli.demo_checkpoints import Recipe, main
+
+    out = main(spec["flags"] + ["--mesh", str(mesh.size()),
+                                "--out", os.path.join(spec["exp"], "mesh")],
+               device="cpu", recipe=Recipe(**spec["recipe"]))
+    return {"rank": mesh.get_local_rank(),
+            "losses": {k: [h["loss"] for h in v]
+                       for k, v in out["history"].items()},
+            "table": out.get("table")}
+
+
+MODES = {"roundtrip": _roundtrip, "engine": _engine, "train": _train,
+         "metric": _metric, "demo": _demo}
 
 
 def main():
