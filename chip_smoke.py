@@ -19,8 +19,9 @@ the extrinsic (an engine from checkpoint paths, ``predict`` frame by frame,
 steps, the sparse ResNet50 classifier on its strided pyramid, the
 engine on the minkunet50 (bottleneck) backbone, and the dense PointNet2
 path (the engine's ``kp_backbone="pointnet2"`` stage, dense keypoint and
-keypoint-to-pose training), data parallelism, and the trained demo
-pipeline (three nets trained by the kernels, then ``BenchmarkApp``).
+keypoint-to-pose training), data parallelism, the trained demo
+pipeline (three nets trained by the kernels, then ``BenchmarkApp``) and
+the user tools (data preparation and the playground).
 Phases, each
 printing one line and its wall time (any failure exits non-zero before the
 last line):
@@ -281,7 +282,27 @@ last line):
     bit-equal to the trained one's and whose table is the same; every one
     of K1, K2, K3 down / up and the three dW kernels launched, no plain
     twin called; the trained seg labels of 2 frames card vs CPU equal on
-    >= 99 % of points.  Launches of path ``dm``.
+    >= 99 % of points.  Launches of path ``dm``;
+19. the user tools (``tools``, ``mrcc_tpu_torch.tools``): (a) the
+    data-preparation tools 1-8 (``alivev2_splitter``,
+    ``consolidate_ee_poses``, ``change_base_pickle``, ``instance_finder``,
+    ``eemask_extractor``, ``pickle_picker --auto``, ``data_stats``,
+    ``viz_pickle``) on a recorded set written by the port's
+    ``write_sample_set`` (7 full-size scenes in two position folders),
+    each output checked against the scenes (split entries and arm
+    counts, the consolidated poses bit-equal, the re-based poses within
+    1e-5 of a float64 composition, the instance folder, the EE masks
+    equal to ``get_ee_idx`` and holding >= 75 % of the EE points, the
+    eligibility per arm count, the printed statistics, the picture's
+    arrays; no PNG where matplotlib is absent); (b) ``play_icp``,
+    ``play_ee_icp`` and ``play_keypoints`` on the card: ICP rows that
+    start near the optimum within the tool's printed thresholds, EE ICP
+    from <= 20 degrees back within 10 degrees and 1 cm, the keypoints
+    equal to a CPU run's and the Kabsch pose within 1e-4 of it; (c)
+    ``play_segmentation`` at the engine's default full width: K1, K2 and
+    K3 down / up launched, no plain twin called, labels card vs CPU (the
+    same tool, the same seeded weights) on >= 98.5 % of the points.
+    Launches of path ``tl``; the phase prints its wall time.
 
 ``python3 chip_smoke.py --calibrate`` builds the kernels and runs only
 phase 11, ``--train-more`` only phase 12.  ``--pose-k2`` builds them and runs only that
@@ -293,7 +314,7 @@ and 8, to compare two versions of the kernels in one call (copy this file
 into a checkout of the other version).  ``--resnet`` builds the kernels and runs only phases 13 and 14,
 ``--dense`` only phase 15, ``--eval`` only phase 16 (its CPU references
 then run first), ``--parallel`` only phase 17, ``--demo-short`` only phase
-18.  ``--demo`` runs the demo at the r2 recipe of ``RESULTS.md`` (32
+18, ``--tools`` only phase 19.  ``--demo`` runs the demo at the r2 recipe of ``RESULTS.md`` (32
 scenes x 40 epochs, 2048 crops x 24 epochs, 20 held-out frames): the bf16
 table, the int8 engine on the same checkpoints (its table, its seg labels
 against bf16 on the 20 frames, the share of each int8 conv's inputs that
@@ -5711,6 +5732,275 @@ def phase_demo_full(record=None):
     return report
 
 
+# ---------------------------------------------------------- phase 19: tools
+
+# the recorded set: folder, samples, first seed, arm points a scene
+TOOL_SETS = (("p1_bright", 4, 1, 6000), ("p2_dark", 3, 11, 5000))
+TOOL_AUTO_ARM = 5500   # pickle_picker --auto: eligible iff arm points >= it
+TOOL_BASE_POSE = [0.1, -0.2, 0.3, 0.1, 0.2, -0.3, 0.9]  # change_base (XYZW)
+TOOL_EE_RECALL = 0.75  # EE-labelled points inside the extracted EE mask
+TOOL_KP_POSE = 1e-4    # play_keypoints' Kabsch pose, card vs CPU
+TOOL_EE_ICP = (20, 10.0, 0.01)  # play_ee_icp: starts within 20 degrees end
+                                # within 10 degrees and 1 cm
+
+
+def tools_counters():
+    from mrcc_tpu_torch.ops import conv, nn, rank, sort
+
+    return [sort.SORT, conv.SK, conv.DOWN, conv.UP, conv.K3_LISTS,
+            conv.K3_SUM, rank.RANK, conv.K3MAP, nn.NN]
+
+
+def _tool_record(root):
+    """The recorded set of the data tools: ``TOOL_SETS`` folders of
+    ``write_sample_set`` scenes (full size), each scene's pickle given a
+    ``robot2ee_pose`` (XYZW, its ``ee2base_pose``); returns the samples
+    by path."""
+    import pickle
+
+    from mrcc_tpu_torch.data.synthetic import write_sample_set
+
+    samples = {}
+    for folder, n, seed, n_arm in TOOL_SETS:
+        part = write_sample_set(os.path.join(root, folder), n=n, seed0=seed,
+                                n_arm=n_arm)
+        for e in part["train"] + part["val"] + part["test"]:
+            with open(e["filepath"], "rb") as f:
+                s = pickle.load(f)
+            p = np.asarray(s["ee2base_pose"], np.float32)
+            s["robot2ee_pose"] = np.concatenate([p[:3], p[4:7], p[3:4]])
+            with open(e["filepath"], "wb") as f:
+                pickle.dump(s, f)
+            samples[e["filepath"]] = s
+    return samples
+
+
+def _pose_mat(pose_xyzw):
+    from mrcc_tpu_torch.data.synthetic import quat_to_matrix_np
+
+    p = np.asarray(pose_xyzw, np.float64)
+    m = np.eye(4)
+    m[:3, :3] = quat_to_matrix_np(np.concatenate([p[6:7], p[3:6]]))
+    m[:3, 3] = p[:3]
+    return m
+
+
+def _data_tools(root):
+    """Tools 1-8 (``alivev2_splitter`` ... ``viz_pickle``) on a recorded set
+    in ``root``; each one's output checked for shape and consistency
+    against the samples.  Returns a report."""
+    import importlib.util
+    import pickle
+
+    from mrcc_tpu_torch.data.labels import get_ee_idx
+    from mrcc_tpu_torch.tools import (alivev2_splitter, change_base_pickle,
+                                      consolidate_ee_poses, data_stats,
+                                      eemask_extractor, instance_finder,
+                                      pickle_picker, viz_pickle)
+
+    t0 = time.perf_counter()
+    samples = _tool_record(root)
+    p1 = os.path.join(root, "p1_bright")
+    rep, bad = {"record_s": time.perf_counter() - t0}, []
+
+    def arm(path):
+        return int((samples[path]["labels"] == 1).sum())
+
+    splits = alivev2_splitter.main(["--infolder", root, "--out",
+                                    os.path.join(root, "splits.json")])
+    entries = [e for v in splits.values() for e in v]
+    rep["splitter"] = {k: len(v) for k, v in splits.items()}
+    if (sorted(e["filepath"] for e in entries) != sorted(samples)
+            or any(e["arm_point_count"] != arm(e["filepath"])
+                   or e["position"] + "_" + e["light"]
+                   != e["filepath"].split("/")[-3] for e in entries)):
+        bad.append("alivev2_splitter")
+
+    poses = consolidate_ee_poses.main(["--infolder", p1, "--out",
+                                       os.path.join(root, "poses.pkl")])
+    mine = sorted(p for p in samples if p.startswith(p1))
+    rep["consolidated"] = len(poses)
+    if len(poses) != 4 or any(not np.array_equal(a, samples[p]["pose"])
+                              for a, p in zip(poses, mine)):
+        bad.append("consolidate_ee_poses")
+
+    written = change_base_pickle.main(
+        [os.path.join(p1, "labeled"), "--base-pose",
+         *map(str, TOOL_BASE_POSE)])
+    worst = 0.0
+    for path in written:
+        with open(path, "rb") as f:
+            got = pickle.load(f)["robot2ee_pose"]
+        want = (_pose_mat(samples[path]["robot2ee_pose"])
+                @ _pose_mat(TOOL_BASE_POSE))
+        worst = max(worst, float(np.abs(_pose_mat(got) - want).max()))
+    rep["change_base"] = {"rewritten": len(written), "max_err": worst}
+    if len(written) != 4 or worst > 1e-5:
+        bad.append("change_base_pickle")
+
+    copied = instance_finder.main(["--infolder", os.path.join(p1, "labeled"),
+                                   "--outfolder",
+                                   os.path.join(root, "fold")])
+    rep["instances"] = sorted({i for i, _ in copied})
+    if (len(copied) != 4 or sorted(os.listdir(os.path.join(
+            root, "fold", "p1"))) != sorted(os.path.basename(p)
+                                             for p in mine)):
+        bad.append("instance_finder")
+
+    masks = eemask_extractor.main(["--splits", os.path.join(p1,
+                                                            "sample_splits.json")])
+    recall = []
+    for path in masks:
+        with open(path, "rb") as f:
+            idx = pickle.load(f)
+        s = samples[path.replace("_eemask.pickle", ".pickle")]
+        p = np.asarray(s["pose"], np.float64)
+        ok = np.array_equal(idx, get_ee_idx(
+            np.asarray(s["points"]), np.concatenate([p[:3], p[6:7],
+                                                     p[3:6]])))
+        recall.append(float(np.isin(np.where(s["labels"] == 2)[0],
+                                    idx).mean()) if ok else 0.0)
+    rep["ee_mask_recall"] = recall
+    if len(masks) != 4 or min(recall) < TOOL_EE_RECALL:
+        bad.append("eemask_extractor")
+
+    labelled = pickle_picker.main(["--splits", os.path.join(
+        root, "splits.json"), "--auto", str(TOOL_AUTO_ARM), "--every", "1"])
+    marks = [(e["position_eligibility"], arm(e["filepath"]))
+             for v in labelled.values() for e in v]
+    rep["picker_eligible"] = sum(m for m, _ in marks)
+    if (len(marks) != len(samples)
+            or any(m != (a >= TOOL_AUTO_ARM) for m, a in marks)
+            or len({m for m, _ in marks}) != 2):
+        bad.append("pickle_picker")
+
+    lines = data_stats.main([os.path.join(root, "splits.json")])
+    rep["data_stats"] = lines
+    filled = [(k, [len(samples[e["filepath"]]["points"]) for e in v])
+              for k, v in labelled.items() if v]
+    if len(lines) != len(filled) or any(
+            f"{k}: {len(n)} samples, points avg={np.mean(n):.0f}"
+            not in line for line, (k, n) in zip(lines, filled)):
+        bad.append("data_stats")
+
+    pictures = []
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    real = viz_pickle.save_cloud_png
+    viz_pickle.save_cloud_png = (
+        lambda pts, c, path: pictures.append((pts, c))
+        or (real(pts, c, path) if has_mpl else path))
+    try:
+        viz_pickle.main([mine[0], os.path.join(root, "v.png"), "--seg"])
+    finally:
+        viz_pickle.save_cloud_png = real
+    (pts, colors), = pictures
+    rep["viz_pickle"] = {"points": list(pts.shape), "colors":
+                         list(colors.shape), "png": has_mpl}
+    if (colors.shape != pts.shape or colors.min() < 0 or colors.max() > 1
+            or (has_mpl and not os.path.isfile(os.path.join(root,
+                                                            "v.png")))):
+        bad.append("viz_pickle")
+    rep["seconds"] = time.perf_counter() - t0
+    if bad:
+        raise AssertionError(f"phase 19 data tools {bad}: {rep}")
+    return rep
+
+
+def _no_picture(fn, *args):
+    """``fn(*args)`` with ``utils.visualization.save_cloud_png`` recording
+    the arrays instead of drawing (the card's machine has no
+    matplotlib)."""
+    from mrcc_tpu_torch.utils import visualization as vis
+
+    pictures, real = [], vis.save_cloud_png
+    vis.save_cloud_png = lambda pts, c, path, **kw: pictures.append(
+        (pts, c)) or path
+    try:
+        return fn(*args), pictures
+    finally:
+        vis.save_cloud_png = real
+
+
+def phase_tools(counters):
+    """Phase 19 (``tools``): the user tools of ``mrcc_tpu_torch.tools``.
+    (a) tools 1-8 on a recorded set written by the port, outputs checked
+    against the samples (``_data_tools``); (b) ``play_icp``,
+    ``play_ee_icp`` and ``play_keypoints`` on the card: ICP's rows that
+    start near the optimum within ``play_icp.CONVERGED`` (printed by the
+    tool), ``play_ee_icp``'s starts within ``TOOL_EE_ICP``, the keypoint
+    labels equal to a CPU run's and its Kabsch pose within TOOL_KP_POSE;
+    (c) ``play_segmentation`` at the engine's default full width on the
+    card, launch counts zeroed just before and read just after, no plain
+    twin called; its labels against the same tool on the CPU (same seeded
+    weights) on >= SEG_AGREE_BF16 of the points.  Returns the launches of
+    path ``tl``."""
+    import tempfile
+
+    from mrcc_tpu_torch.tools import (play_ee_icp, play_icp, play_keypoints,
+                                      play_segmentation)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        data = _data_tools(root)
+    log("tools_data", **data)
+
+    t = time.perf_counter()
+    icp = play_icp.main(["--device", "cuda"])
+    ee_icp = play_ee_icp.main(["--device", "cuda"])
+    kp, _ = _no_picture(play_keypoints.main, ["--device", "cuda"])
+    kp_cpu, _ = _no_picture(play_keypoints.main, ["--device", "cpu"])
+    near = [r for r in ee_icp if r["init_rot"] <= TOOL_EE_ICP[0]]
+    play = dict(
+        icp_rows=icp, icp_thresholds=play_icp.CONVERGED,
+        icp_converged=all(map(play_icp.converged, icp)),
+        ee_icp_rows=ee_icp,
+        ee_icp_ok=all(r["rot_err"] <= TOOL_EE_ICP[1]
+                      and r["t_err"] <= TOOL_EE_ICP[2] for r in near),
+        kp={k: kp[k] for k in ("kp_idx", "ok", "t_err", "r_err")},
+        kp_pose_card_vs_cpu=float(np.abs(kp["rec"] - kp_cpu["rec"]).max()),
+        seconds=time.perf_counter() - t)
+    log("tools_play", **play)
+    if (not play["icp_converged"] or not play["ee_icp_ok"] or not kp["ok"]
+            or not np.array_equal(kp["kp_idx"], kp_cpu["kp_idx"])
+            or play["kp_pose_card_vs_cpu"] > TOOL_KP_POSE
+            or not np.isfinite([[r["rot_err"], r["t_err"]]
+                                for r in ee_icp]).all()):
+        raise AssertionError(f"phase 19 playground: {play}")
+
+    snap = "play_seg.png"   # recorded by _no_picture, not drawn
+    _zero(counters)
+    t = time.perf_counter()
+    with plain_calls() as plain:
+        seg, pictures = _no_picture(play_segmentation.main,
+                                    ["--device", "cuda", "--snapshot", snap])
+    launches = _read(counters)
+    seg_s = time.perf_counter() - t
+    t = time.perf_counter()
+    cpu, _ = _no_picture(play_segmentation.main,
+                         ["--device", "cpu", "--snapshot", snap])
+    agree = float((seg["segmentation"] == cpu["segmentation"]).mean())
+    report = dict(
+        seconds=seg_s, cpu_seconds=time.perf_counter() - t,
+        config={k: getattr(seg["engine"].cfg, k) for k in (
+            "point_capacity", "seg_voxel_capacity", "seg_backbone",
+            "compute_dtype")},
+        points=len(seg["segmentation"]), classes=dict(zip(*(
+            a.tolist() for a in np.unique(seg["segmentation"],
+                                          return_counts=True)))),
+        ee_count=int(seg["out"]["ee_count"][0]),
+        card_vs_cpu=agree, tolerance=SEG_AGREE_BF16,
+        picture=[list(a.shape) for a in pictures[0]], launches=launches,
+        plain=dict(plain), card=smi_line(),
+        phase_seconds=time.perf_counter() - t0)
+    log("tools_segmentation", **report)
+    rows = ("argsort", "conv_sk", "conv_down", "conv_up")
+    if (plain or agree < SEG_AGREE_BF16
+            or min(launches[r] for r in rows) <= 0
+            or pictures[0][0].shape != (report["points"], 3)):
+        raise AssertionError(f"phase 19 play_segmentation: {report}")
+    return {"tl": launches}
+
+
 def main():
     if len(sys.argv) == 3 and sys.argv[1] == "--eval-references":
         eval_references(sys.argv[2])   # the CPU process of phase 16
@@ -5758,6 +6048,7 @@ def main():
                  [sort.SORT, conv.SK, conv.DOWN, conv.UP, conv.K3_LISTS,
                   conv.K3_SUM]),
              "--demo-short": lambda: phase_demo(demo_counters()),
+             "--tools": lambda: phase_tools(tools_counters()),
              "--dense": lambda: phase_dense_only(
                  [sort.SORT, conv.SK, conv.DOWN, conv.UP, conv.K3_LISTS,
                   conv.K3_SUM],
@@ -5876,6 +6167,8 @@ def _main_phases(phase, card, references):
                           counters))
     torch.cuda.empty_cache()
     launches.update(phase("demo", phase_demo, demo_counters()))
+    torch.cuda.empty_cache()
+    launches.update(phase("tools", phase_tools, tools_counters()))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_by_path")

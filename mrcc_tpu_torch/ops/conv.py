@@ -39,7 +39,11 @@ weights / gradients of the same dtype, f32 accumulation) and runs its plain
 twin for CPU tensors.  The plain twins are the JAX ``"xla"`` formulation
 (``mrcc_tpu/sparse/conv.py:60-96``): a loop over offsets of gather ->
 mask -> matmul with f32 accumulation, cast back to the feature dtype (dW
-stays f32).  Bias stays outside (``sparse/conv.py``).
+stays f32).  They also take float64 (the parity tests' training steps):
+each offset's product is then computed in float64 and rounded to f32
+before the f32 sum, as XLA computes ``einsum(..., preferred_element_type=
+float32)`` of float64 operands, and dW is float64.  Bias stays outside
+(``sparse/conv.py``).
 """
 
 from __future__ import annotations
@@ -225,6 +229,11 @@ def _k3_lists(b, n, cout, device):
                        device=device)
 
 
+def _wide(dtype):
+    """The plain twins' operand dtype: f32, or float64 for float64."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def _gather(f, idx):
     """f [B, N, C], idx [B, M] -> [B, M, C]."""
     return f.gather(1, idx.long()[..., None].expand(-1, -1, f.shape[-1]))
@@ -253,13 +262,13 @@ def gather_gemm_sk_plain(feats, weights, key, kbits):
                       device=feats.device)
     if n == 0:
         return out.to(feats.dtype)
-    f = feats.float()
-    w = weights.to(feats.dtype).float()
+    f = feats.to(_wide(feats.dtype))
+    w = weights.to(feats.dtype).to(f.dtype)
     key = key.contiguous()
     for k, d in enumerate(_K3_DELTAS):
         idx, hit = _sk_neighbours(key, kbits, k, d)
         g = torch.where(hit[..., None], _gather(f, idx), 0.0)
-        out = out + g @ w[k]
+        out = out + (g @ w[k]).float()
     return out.to(feats.dtype)
 
 
@@ -300,13 +309,13 @@ def _map_conv(feats, weights, map_idx, map_hit):
     """``sum_k map_hit[k] * feats[map_idx[k]] @ W[k]`` in f32, cast back."""
     b = feats.shape[0]
     n_out = map_idx.shape[2]
-    f = feats.float()
-    w = weights.to(feats.dtype).float()
+    f = feats.to(_wide(feats.dtype))
+    w = weights.to(feats.dtype).to(f.dtype)
     out = torch.zeros((b, n_out, weights.shape[-1]), dtype=torch.float32,
                       device=feats.device)
     for k in range(weights.shape[0]):
         g = torch.where(map_hit[k][..., None], _gather(f, map_idx[k]), 0.0)
-        out = out + g @ w[k]
+        out = out + (g @ w[k]).float()
     return out.to(feats.dtype)
 
 
@@ -425,13 +434,14 @@ def gather_gemm_map(feats, weights, map_idx, map_hit):
 def gather_gemm_up_plain(feats, weights, parent_idx, row_ok, octant):
     """Plain twin of :func:`gather_gemm_up` (eight octant-masked products,
     as ``mrcc_tpu/sparse/conv.py:258-277``)."""
-    f = feats.float()
-    w = weights.to(feats.dtype).float()
+    f = feats.to(_wide(feats.dtype))
+    w = weights.to(feats.dtype).to(f.dtype)
     g = torch.where(row_ok[..., None], _gather(f, parent_idx), 0.0)
     out = torch.zeros(g.shape[:2] + (weights.shape[-1],), dtype=torch.float32,
                       device=feats.device)
     for k in range(weights.shape[0]):
-        out = out + torch.where((octant == k)[..., None], g @ w[k], 0.0)
+        out = out + torch.where((octant == k)[..., None],
+                                (g @ w[k]).float(), 0.0)
     return out.to(feats.dtype)
 
 
@@ -591,12 +601,12 @@ def child_sum(y, child_idx, child_hit, dtype):
 def dw_sk_plain(feats, g, key, kbits):
     """Plain twin of :func:`dw_sk`."""
     cin, cout = feats.shape[-1], g.shape[-1]
-    out = torch.zeros((27, cin, cout), dtype=torch.float32,
+    out = torch.zeros((27, cin, cout), dtype=_wide(feats.dtype),
                       device=feats.device)
     if feats.shape[1] == 0:
         return out
-    f = feats.float()
-    gf = g.to(feats.dtype).float()
+    f = feats.to(out.dtype)
+    gf = g.to(feats.dtype).to(out.dtype)
     key = key.contiguous()
     for k, d in enumerate(_K3_DELTAS):
         idx, hit = _sk_neighbours(key, kbits, k, d)
@@ -634,12 +644,12 @@ def dw_sk(feats, g, key, kbits):
 
 def _map_dw(feats, g, map_idx, map_hit):
     """``sum_{b, r} map_hit[k] * feats[map_idx[k]]^T (x) g`` per offset k,
-    in f32."""
+    in f32 (float64 for float64 features)."""
     k_taps = map_idx.shape[0]
     out = torch.zeros((k_taps, feats.shape[-1], g.shape[-1]),
-                      dtype=torch.float32, device=feats.device)
-    f = feats.float()
-    gf = g.to(feats.dtype).float()
+                      dtype=_wide(feats.dtype), device=feats.device)
+    f = feats.to(out.dtype)
+    gf = g.to(feats.dtype).to(out.dtype)
     for k in range(k_taps):
         out[k] = _outer_sum(torch.where(map_hit[k][..., None],
                                         _gather(f, map_idx[k]), 0.0), gf)
@@ -716,10 +726,11 @@ def dw_k3_map(feats, g, nbr_idx, nbr_hit):
 
 def dw_up_plain(feats, g, parent_idx, row_ok, octant):
     """Plain twin of :func:`dw_up`."""
-    out = torch.zeros((8, feats.shape[-1], g.shape[-1]), dtype=torch.float32,
-                      device=feats.device)
-    a = torch.where(row_ok[..., None], _gather(feats.float(), parent_idx), 0.0)
-    gf = g.to(feats.dtype).float()
+    out = torch.zeros((8, feats.shape[-1], g.shape[-1]),
+                      dtype=_wide(feats.dtype), device=feats.device)
+    a = torch.where(row_ok[..., None],
+                    _gather(feats.to(out.dtype), parent_idx), 0.0)
+    gf = g.to(feats.dtype).to(out.dtype)
     for k in range(8):
         out[k] = _outer_sum(torch.where((octant == k)[..., None], a, 0.0), gf)
     return out

@@ -2,10 +2,15 @@
 (port of ``mrcc_tpu/ops/points.py``, which has no Pallas kernel: plain
 PyTorch on every device, the JAX functions' formulas op for op).
 
-- Distances are ``|a|^2 + |b|^2 - 2 a.b`` with the product as one
-  ``einsum``; ball-query membership (``d2 > r^2``) reads those bits.  The
-  point ops' matmuls run at full f32 precision on the card whatever
-  ``torch.backends.cuda.matmul.allow_tf32`` says (:func:`full_f32`).
+- Distances are ``|a|^2 + |b|^2 - 2 a.b``; ball-query membership
+  (``d2 > r^2``) reads those bits.  On the card the product is one
+  ``einsum`` at full f32 precision whatever
+  ``torch.backends.cuda.matmul.allow_tf32`` says (:func:`full_f32`).  On
+  the CPU an f32 product is element-wise, the fused multiply-add chain of
+  XLA's CPU dot (:func:`dot3`): a pair's distance then has the same bits
+  whatever else is in the call (torch's CPU ``bmm`` takes another path for
+  small shapes, which rounds otherwise); float64 (the train-mode parity
+  tests) stays one ``einsum``.
 - A sum over xyz is ``(x + y) + z`` written out (:func:`sum3`): the order
   of XLA's reduce and of torch's CPU ``sum(-1)``, and on the card too.
 - FPS is the JAX ``fori_loop``: ``npoint`` serial steps over all clouds at
@@ -45,12 +50,29 @@ def sum3(v):
     return v[..., 0] + v[..., 1] + v[..., 2]
 
 
+def dot3(src, dst):
+    """``src [B, N, 3] . dst [B, M, 3]`` -> ``[B, N, M]`` f32 as
+    ``fma(x2, y2, fma(x1, y1, x0 * y0))``, element by element.  Each
+    product of two f32 is exact in float64, so each step is the fused
+    step but for a double rounding (float64, then f32), which differs only
+    where the float64 sum lands on a midpoint of two f32."""
+    a = src.double()[:, :, None, :]
+    b = dst.double()[:, None, :, :]
+    acc = (a[..., 0] * b[..., 0]).float()
+    for c in (1, 2):
+        acc = (a[..., c] * b[..., c] + acc).float()
+    return acc
+
+
 def square_distance(src, dst):
     """Pairwise squared distances ``[B, N, M]`` (``pointnet2_utils.py:21``)."""
     s2 = sum3(src ** 2)[..., None]                        # [B, N, 1]
     d2 = sum3(dst ** 2)[..., None, :]                     # [B, 1, M]
-    with full_f32():
-        dot = torch.einsum("bnc,bmc->bnm", src, dst)
+    if src.is_cuda or src.dtype != torch.float32:
+        with full_f32():
+            dot = torch.einsum("bnc,bmc->bnm", src, dst)
+    else:
+        dot = dot3(src, dst)
     return s2 + d2 - 2.0 * dot
 
 

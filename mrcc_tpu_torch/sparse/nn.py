@@ -277,14 +277,15 @@ def gelu(feats):
 
 class SparseLinear(nn.Module):
     """Per-voxel dense layer (ME ``MinkowskiLinear``).  Like flax's
-    ``nn.Dense`` with f32 parameters, it computes and returns f32."""
+    ``nn.Dense``, it computes and returns its parameters' dtype (f32 for a
+    bf16 input)."""
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
         self.linear = nn.Linear(in_channels, out_channels)
 
     def forward(self, feats, valid):
-        out = self.linear(feats.float())
+        out = self.linear(feats.to(self.linear.weight.dtype))
         return torch.where(valid[..., None], out, 0.0)
 
 

@@ -298,9 +298,9 @@ def segmentation_loss(logits, labels, valid, ignore_label=-100):
     [B, N] bool."""
     keep = valid & (labels != ignore_label)
     safe = torch.where(keep, labels, 0).long()
-    ll = -torch.log_softmax(logits.float(), dim=-1).gather(
-        -1, safe[..., None])[..., 0]
-    m = keep.float()
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
+    ll = -torch.log_softmax(logits, dim=-1).gather(-1, safe[..., None])[..., 0]
+    m = keep.to(ll.dtype)
     return (ll * m).sum() / torch.clamp_min(global_count(m.sum()), 1.0)
 
 

@@ -12,9 +12,11 @@
   B = 2, capacity 256, for its planes; 1e-5.
 - One feature step (minkunet14A, B = 4 clouds of two classes, 5 mm
   voxels, capacity 256, every level on k3 tables) against the JAX step
-  assembled as ``mrcc_tpu/cli/train_mains.py:348-383`` assembles it: loss
-  1e-5, gradients 1e-4 in relative norm over all parameters, the update
-  1e-3 where the gradient is above the noise (ROADMAP C9).
+  assembled as ``mrcc_tpu/cli/train_mains.py:348-383`` assembles it, in
+  float64 on both sides (in f32 the update sat 2.4e-3 from JAX on one
+  CPU, the JAX step's own spread under a 1e-7 input move 1.8e-3: ROADMAP
+  C21): loss 1e-5, gradients 1e-4 in relative norm over all parameters,
+  the update 1e-3 where the gradient is above the noise (ROADMAP C9).
 - ``YCBDataset`` items and batches exactly; ``train_feature_extractor``
   for one epoch on the CPU, and its device default.
 - The weight bridge for ``RobotNetVote`` (the ``seg`` scope) and
@@ -50,7 +52,7 @@ from mrcc_tpu_torch.sparse import build_hierarchy, voxelize
 from mrcc_tpu_torch.train import (TrainConfig,
                                   make_metric_learning_train_step)
 from mrcc_tpu_torch.train import metric_learning as ml
-from test_torch_train import _flat, _randomise, _rel
+from test_torch_train import _batch64, _flat, _randomise, _rel, _tree64
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -142,12 +144,13 @@ def _ycb_batch():
     return ds.collate([ds[i] for i in range(len(ds))])
 
 
-@functools.lru_cache(maxsize=None)
-def _feature_pair():
-    """One feature step of each package from the same weights and batch,
-    and the JAX embeddings before it."""
+def feature_step_pair(float64=True, move=0.0):
+    """One feature step of each package from the same weights and batch
+    (its colours times ``1 + move``), in float64 on both sides unless
+    ``float64`` is False, and the JAX f32 embeddings before it."""
     batch = _ycb_batch()
-    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    batch["feats"] = (batch["feats"] * np.float32(1 + move)).astype(
+        np.float32)
     jmod = JaxFeatureNet(in_channels=3, out_channels=16,
                          backbone="minkunet14A")
     train_cfg = JaxTrainConfig()
@@ -162,12 +165,19 @@ def _feature_pair():
         vox, levels = hierarchy(b)
         return jmod.init(jax.random.PRNGKey(1), vox.feats, levels)
 
-    variables = _randomise(init(jb), 2)
-    state = TrainState(params=variables["params"],
-                       batch_stats=variables["batch_stats"],
-                       opt_state=optimizer.init(variables["params"]))
-
     @jax.jit
+    def embed(variables, b):
+        vox, levels = hierarchy(b)
+        return jmod.apply(variables, vox.feats, levels, train=True,
+                          mutable=["batch_stats"])[0]
+
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    variables = _randomise(init(jb), 2)
+    emb = np.asarray(embed(variables, jb))
+    jbatch, jvars = batch, variables
+    if float64:
+        jbatch, jvars = _batch64(batch), _tree64(variables)
+
     def step(state, batch, lr):  # train_mains.py:362-383
         vox, levels = hierarchy(batch)
 
@@ -175,10 +185,9 @@ def _feature_pair():
             emb, updates = jmod.apply(
                 {"params": params, "batch_stats": state.batch_stats},
                 vox.feats, levels, train=True, mutable=["batch_stats"])
-            return jml.triplet_margin_loss(emb, batch["labels"]), (
-                updates, emb)
+            return jml.triplet_margin_loss(emb, batch["labels"]), updates
 
-        (loss, (updates, emb)), grads = jax.value_and_grad(
+        (loss, updates), grads = jax.value_and_grad(
             loss_fn, has_aux=True)(state.params)
         opt_state = _set_lr(state.opt_state, lr)
         upd, opt_state = optimizer.update(grads, opt_state, state.params)
@@ -186,24 +195,39 @@ def _feature_pair():
         return (state.replace(params=params,
                               batch_stats=updates["batch_stats"],
                               opt_state=opt_state),
-                {"loss": loss}, grads, emb)
+                {"loss": loss}, grads)
 
-    new_state, metrics, grads, emb = step(state, jb, LR)
+    with jax.enable_x64(float64):
+        state = TrainState(params=jvars["params"],
+                           batch_stats=jvars["batch_stats"],
+                           opt_state=optimizer.init(jvars["params"]))
+        new_state, metrics, grads = jax.device_get(jax.jit(step)(
+            state, {k: jnp.asarray(v) for k, v in jbatch.items()}, LR))
     port = load_jax_variables(FeatureNet(backbone="minkunet14A"), variables)
+    if float64:
+        port.double()
     port_step, _ = make_metric_learning_train_step(
         port, YCBDataset(num_classes=1, samples_per_class=1,
                          max_points=256).cfg, TrainConfig(), CAP,
         device="cpu")
     before = {k: v.detach().clone() for k, v in port.named_parameters()}
-    port_metrics = port_step(batch, LR)
+    port_metrics = port_step(jbatch, LR)
     return dict(
-        batch=batch, variables=variables, jax_emb=np.asarray(emb),
+        batch=batch, variables=variables, jax_emb=emb,
         step=port_step, jax_loss=float(metrics["loss"]),
         port_loss=float(port_metrics["loss"]),
-        jax_params=_flat(jax.device_get(new_state.params)),
-        jax_old=_flat(variables["params"]),
-        jax_stats=_flat(jax.device_get(new_state.batch_stats)),
-        jax_grads=_flat(jax.device_get(grads)), port=port, before=before)
+        jax_params=_flat(new_state.params),
+        jax_old=_flat(jvars["params"]),
+        jax_stats=_flat(new_state.batch_stats),
+        jax_grads=_flat(grads), port=port, before=before)
+
+
+@functools.lru_cache(maxsize=None)
+def _feature_pair():
+    """The feature step in float64 on both sides (ROADMAP C21: in f32 a
+    ReLU gate at the forward's rounding noise moves the update past
+    1e-3)."""
+    return feature_step_pair()
 
 
 def _leaf(flat, model, name, tensor):

@@ -5,7 +5,9 @@ Each of the seven functions of ``mrcc_tpu/ops/points.py`` takes the same
 seeded numpy clouds on both sides (B = 2, N up to 2048): integer outputs
 (FPS, ball query, index gathers) exactly; ``square_distance`` bit for bit
 against the eager JAX function (a jitted one fuses otherwise and moves
-~15 % of the entries by an ulp); ``three_nn_interpolate`` to 1e-6 against
+~15 % of the entries by an ulp) at a large and a small shape, and bit for
+bit with itself between a small call and the same points inside a large
+one (ROADMAP C36); ``three_nn_interpolate`` to 1e-6 against
 the eager function, with its three neighbours equal to ``jax.lax.top_k``'s
 on a cloud of duplicate points.  FPS per item from ``start_idx``, with
 fewer points than picks, and over parked invalid rows; the ball query with
@@ -56,6 +58,19 @@ def test_square_distance_bit_equal(n, m):
     want = np.asarray(J.square_distance(jnp.asarray(a), jnp.asarray(b)))
     got = T.square_distance(_t(a), _t(b)).numpy()
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_square_distance_shape_stable():
+    """A pair's distance has the same bits alone and inside a larger call
+    (the [37, 5] case zero-padded to [1024, 2048])."""
+    a, b = _cloud(0, (2, 37, 3)), _cloud(1, (2, 5, 3))
+    pa, pb = np.zeros((2, 1024, 3), np.float32), np.zeros((2, 2048, 3),
+                                                          np.float32)
+    pa[:, :37], pb[:, :5] = a, b
+    alone = T.square_distance(_t(a), _t(b)).numpy()
+    inside = T.square_distance(_t(pa), _t(pb)).numpy()[:, :37, :5]
+    np.testing.assert_array_equal(alone.view(np.uint32),
+                                  inside.view(np.uint32))
 
 
 def test_index_points():
