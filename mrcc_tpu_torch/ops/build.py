@@ -26,6 +26,8 @@ from typing import Dict, Iterable, Optional, Sequence
 
 import torch
 
+from ..tracing import launch_span
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
@@ -130,18 +132,10 @@ class KernelLibrary:
         return self._lib
 
     def call(self, fname: str, *args) -> None:
-        err = getattr(self.lib(), fname)(*args)
+        with launch_span(f"kernel.{self.name}.{fname}"):
+            err = getattr(self.lib(), fname)(*args)
         if err != 0:
             raise RuntimeError(f"{self.name}.{fname} failed: CUDA error {err}")
-
-
-class LaunchCounter:
-    """Plain integer count of one wrapper's kernel launches: the wrapper adds
-    one where it launches its kernel and nowhere else."""
-
-    def __init__(self, name: str):
-        self.name = name
-        self.launches = 0
 
 
 def build_all(libraries: Iterable[KernelLibrary]):

@@ -51,7 +51,8 @@ from __future__ import annotations
 import torch
 
 from ..sparse.hierarchy import K3_DELTAS as _K3_DELTAS
-from .build import I, KernelLibrary, LaunchCounter, P, ptr, stream_ptr
+from ..tracing import LaunchCounter
+from .build import I, KernelLibrary, P, ptr, stream_ptr
 
 # The k3 data cotangent is the same self-keyed conv with W[26 - k]^T: a hit
 # (i, k) exists iff the hit (i + delta_k, 26 - k) does.

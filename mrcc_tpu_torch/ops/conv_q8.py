@@ -57,7 +57,8 @@ import torch
 import torch.nn.functional as F
 
 from ..sparse.hierarchy import TABLE_BUDGET as _TABLE_BUDGET
-from .build import I, KernelLibrary, LaunchCounter, P, ptr, stream_ptr
+from ..tracing import LaunchCounter
+from .build import I, KernelLibrary, P, ptr, stream_ptr
 from .conv import (_K3_DELTAS, _gather, _k3_lists, _list_bytes, _route,
                    _scratch, _sk_neighbours)
 

@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import torch
 
-from .build import I, KernelLibrary, LaunchCounter, P, ptr, stream_ptr
+from ..tracing import LaunchCounter
+from .build import I, KernelLibrary, P, ptr, stream_ptr
 
 LIB = KernelLibrary("nn_search", {
     "mrcc_nn_search": (P, P, P, P, P, P, P, I, I, I, I, I, P),

@@ -28,7 +28,8 @@ from typing import Sequence, Tuple
 
 import torch
 
-from .build import I, KernelLibrary, LaunchCounter, P, ptr, stream_ptr
+from ..tracing import LaunchCounter
+from .build import I, KernelLibrary, P, ptr, stream_ptr
 
 LIB = KernelLibrary("rank", {
     "mrcc_rank_lookup": (P, P, P, P, P, P, I, I, I, I, I, I, P),

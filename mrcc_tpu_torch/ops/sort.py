@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from .build import I, KernelLibrary, LaunchCounter, P, ptr, stream_ptr
+from ..tracing import LaunchCounter
+from .build import I, KernelLibrary, P, ptr, stream_ptr
 
 _TILE = 2048     # entries of one radix tile (csrc/sort.cu kTile)
 _RADIX = 2048    # buckets of an 11-bit digit

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..ops.rank import border_bits, child_tables, rank_lookup
+from ..tracing import span
 from .quantize import run_ids, segment_ids, segment_min, segment_sum
 from .sorting import argsort_keys
 from .types import (COORD_BITS, COORD_RANGE, KEY_PAD, SparseVoxels,
@@ -271,6 +272,7 @@ def hierarchy_caps(voxel_capacity: int) -> Tuple[int, ...]:
             max(voxel_capacity // 4, 64), max(voxel_capacity // 8, 64))
 
 
+@span("sparse.build_hierarchy")
 def build_hierarchy(voxels: SparseVoxels, depth: int,
                     capacities: Optional[Tuple[int, ...]] = None,
                     build_k3: bool = True,

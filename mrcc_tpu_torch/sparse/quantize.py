@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..tracing import span
 from .sorting import argsort_keys
 from .types import (COORD_OFFSET, COORD_RANGE, KEY_PAD, SparseVoxels,
                     pack_key, unpack_key)
@@ -85,6 +86,7 @@ def f32_div(x, s: float):
     return x / torch.full((), s, dtype=x.dtype, device=x.device)
 
 
+@span("sparse.voxelize")
 def voxelize(points, feats, mask, quantization_size, capacity,
              labels=None, ignore_label=-100):
     """Batched voxelization.

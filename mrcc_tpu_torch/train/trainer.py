@@ -57,9 +57,13 @@ from ..parallel import mesh as mesh_lib
 from ..solve.keypoints import key_point_predictions
 from ..sparse import (build_hierarchy, hierarchy_caps, train_uses_k3_tables,
                       voxelize)
+from ..tracing import Counter, span
 from . import checkpoint as ckpt
 from .losses import LossConfig, LossType, get_criterion, segmentation_loss
 from .metric_learning import triplet_margin_loss
+
+# batches the sparse train steps prepared: the denominator of launches a step
+TRAIN_BATCHES = Counter("train_batches")
 
 
 @dataclasses.dataclass
@@ -143,6 +147,7 @@ class _OptimizerStep:
         return {k: torch.as_tensor(batch[k], device=self.device)
                 for k in keys}
 
+    @span("train.backward")
     def backward(self, loss):
         """Gradients of ``loss``; in a data-parallel step of the shares'
         sum over the ranks."""
@@ -151,6 +156,7 @@ class _OptimizerStep:
         mesh_lib.sync_gradients([p for g in self.optimizer.param_groups
                                  for p in g["params"]])
 
+    @span("train.update")
     def update(self, lr):
         for group in self.optimizer.param_groups:
             group["lr"] = lr
@@ -179,12 +185,15 @@ class SegmentationTrainStep(_TrainStep):
     """One per-voxel cross-entropy train step (``train_segmentation.py`` hot
     loop), callable as ``step(batch, lr)``.
 
-    Its stages run in order and can be called one by one (to time them):
-    :meth:`prepare` (voxelize with labels, ``build_hierarchy``, outside
-    autograd), :meth:`forward` (model in train mode, loss), :meth:`backward`
-    and :meth:`update` (optimizer step at ``lr``).  ``batch`` holds numpy
-    arrays or tensors ``points [B, P, 3]``, ``feats [B, P, C]``,
-    ``mask [B, P]`` and ``labels [B, P]``.
+    Its stages run in order and can be called one by one: :meth:`prepare`
+    (voxelize with labels, ``build_hierarchy``, outside autograd),
+    :meth:`forward` (model in train mode, loss), :meth:`backward` and
+    :meth:`update` (optimizer step at ``lr``).  Under ``torch.profiler``
+    the step and each stage leave a span (``mrcc.train.step``,
+    ``mrcc.train.prepare``, ...; ``tracing``), which times them inside the
+    step as it runs.  ``batch`` holds numpy arrays or tensors
+    ``points [B, P, 3]``, ``feats [B, P, C]``, ``mask [B, P]`` and
+    ``labels [B, P]``.
     """
 
     def __init__(self, model, optimizer, data_cfg, voxel_capacity: int,
@@ -194,8 +203,10 @@ class SegmentationTrainStep(_TrainStep):
                          k3_self_keyed, device)
         self.ignore_label = ignore_label
 
+    @span("train.prepare")
     def prepare(self, batch):
         """-> (SparseVoxels, voxel labels, levels)."""
+        TRAIN_BATCHES.count += 1
         t = self._tensors(batch, ("points", "feats", "mask", "labels"))
         with torch.no_grad():
             vox, _, vlabels = voxelize(t["points"], t["feats"], t["mask"],
@@ -205,6 +216,7 @@ class SegmentationTrainStep(_TrainStep):
             levels = self._levels(vox)
         return vox, vlabels, levels
 
+    @span("train.forward")
     def forward(self, vox, vlabels, levels):
         """-> (logits, loss)."""
         self.model.train()
@@ -212,6 +224,7 @@ class SegmentationTrainStep(_TrainStep):
         return logits, segmentation_loss(logits, vlabels, vox.valid,
                                          ignore_label=self.ignore_label)
 
+    @span("train.step")
     def __call__(self, batch, lr):
         """Run every stage; returns ``{"loss", "accuracy"}`` as device
         scalars."""
@@ -259,6 +272,7 @@ class PoseTrainStep(_TrainStep):
 
     def prepare(self, batch):
         """-> (SparseVoxels, levels, pose, joint angles or None)."""
+        TRAIN_BATCHES.count += 1
         keys = ("points", "feats", "mask", "pose") + (
             ("joint_angles",) if self.use_joint_angles else ())
         t = self._tensors(batch, keys)
@@ -334,6 +348,7 @@ class MetricLearningTrainStep(_TrainStep):
 
     def prepare(self, batch):
         """-> (SparseVoxels, levels, labels)."""
+        TRAIN_BATCHES.count += 1
         t = self._tensors(batch, ("points", "feats", "mask", "labels"))
         with torch.no_grad():
             vox, _ = voxelize(t["points"], t["feats"], t["mask"], self.qsize,

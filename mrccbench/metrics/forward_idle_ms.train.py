@@ -1,0 +1,13 @@
+"""forward_idle_ms.train: the card's idle ms per train step while the host is
+inside the program's ``mrcc.train.forward`` spans (the model in train mode
+and the loss), over the traced steps (``harness/stage_idle.py``).  Layer:
+models.  Moves: train_steps_per_s."""
+
+from mrccbench.harness import stage_idle
+
+LAYER = "models"
+MOVES = "train_steps_per_s"
+
+
+def read(ctx):
+    return stage_idle.stage_idle_ms(ctx.get("trace"), "forward")

@@ -1,0 +1,13 @@
+"""update_idle_ms.train: the card's idle ms per train step while the host is
+inside the program's ``mrcc.train.update`` spans (the AdamW step), over the
+traced steps (``harness/stage_idle.py``).  Layer: trainer.  Moves:
+train_steps_per_s."""
+
+from mrccbench.harness import stage_idle
+
+LAYER = "trainer"
+MOVES = "train_steps_per_s"
+
+
+def read(ctx):
+    return stage_idle.stage_idle_ms(ctx.get("trace"), "update")
