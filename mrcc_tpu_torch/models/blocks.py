@@ -10,7 +10,6 @@ follow the reference state dict: ``conv1``, ``norm1``, ``conv2``,
 
 from __future__ import annotations
 
-import torch
 from torch import nn
 
 from ..sparse.nn import SparseBatchNorm, SparseConv1x1, SparseConvK3
@@ -33,13 +32,14 @@ class SparseBasicBlock(nn.Module):
                                              SparseBatchNorm(planes)])
 
     def forward(self, feats, level):
-        out = torch.relu(self.norm1(self.conv1(feats, level), level.valid))
-        out = self.norm2(self.conv2(out, level), level.valid)
+        valid = level.valid
+        out = self.norm1(self.conv1(feats, level), valid, relu=True)
+        out = self.conv2(out, level)
         residual = feats
         if self.downsample is not None:
             conv, norm = self.downsample
-            residual = norm(conv(feats, level.valid), level.valid)
-        return torch.relu(out + residual)
+            residual = norm(conv(feats, valid), valid)
+        return self.norm2(out, valid, relu=True, residual=residual)
 
 
 class SparseBottleneck(nn.Module):
@@ -63,14 +63,14 @@ class SparseBottleneck(nn.Module):
 
     def forward(self, feats, level):
         valid = level.valid
-        out = torch.relu(self.norm1(self.conv1(feats, valid), valid))
-        out = torch.relu(self.norm2(self.conv2(out, level), valid))
-        out = self.norm3(self.conv3(out, valid), valid)
+        out = self.norm1(self.conv1(feats, valid), valid, relu=True)
+        out = self.norm2(self.conv2(out, level), valid, relu=True)
+        out = self.conv3(out, valid)
         residual = feats
         if self.downsample is not None:
             conv, norm = self.downsample
             residual = norm(conv(feats, valid), valid)
-        return torch.relu(out + residual)
+        return self.norm3(out, valid, relu=True, residual=residual)
 
 
 BLOCKS = {"basic": SparseBasicBlock, "bottleneck": SparseBottleneck}

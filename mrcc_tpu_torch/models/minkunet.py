@@ -10,7 +10,6 @@ from __future__ import annotations
 
 from typing import Tuple
 
-import torch
 from torch import nn
 
 from ..sparse import conv as C
@@ -113,13 +112,13 @@ class MinkUNetBase(nn.Module):
     def _encoder(self, feats, levels):
         """Stem and encoder; returns the stride-1..16 outputs."""
         l0 = levels[0]
-        out = torch.relu(self.bn0(self.conv0p1s1(feats, l0), l0.valid))
+        out = self.bn0(self.conv0p1s1(feats, l0), l0.valid, relu=True)
         skips = [out]
         for s in (1, 2, 3, 4):
             fine, coarse = levels[s - 1], levels[s]
             down = getattr(self, f"conv{s}p{(1 << (s - 1))}s2")
             bn = getattr(self, f"bn{s}")
-            out = torch.relu(bn(down(out, fine, coarse), coarse.valid))
+            out = bn(down(out, fine, coarse), coarse.valid, relu=True)
             out = self._run(getattr(self, f"block{s}"), out, coarse)
             skips.append(out)
         return skips
@@ -136,7 +135,7 @@ class MinkUNetBase(nn.Module):
             coarse, fine = levels[8 - s], levels[7 - s]
             up = getattr(self, f"convtr{s}p{(1 << (8 - s))}s2")
             bn = getattr(self, f"bntr{s}")
-            out = torch.relu(bn(up(out, coarse, fine), fine.valid))
+            out = bn(up(out, coarse, fine), fine.valid, relu=True)
             out = C.cat(out, skips[7 - s], fine.valid)
             out = self._run(getattr(self, f"block{s + 1}"), out, fine)
         return out

@@ -4,5 +4,7 @@
 down / up and k3-table convs over explicit maps) and their weight
 gradients, ``conv_q8`` the int8 k3, k3-table and down / up convs, ``rank``
 B8 (neighbour tables from sorted keys), ``nn`` B10 (ICP nearest
-neighbours); ``build`` compiles and loads them.
+neighbours), ``norm`` the masked batch norm with its ReLU and residual add
+(forward and backward; no TPU kernel's counterpart); ``build`` compiles and
+loads them.
 """

@@ -23,7 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.mesh import global_count, global_rows, global_sum
+from ..ops.norm import batch_norm
+from ..parallel.mesh import global_rows
 from . import conv as C
 
 
@@ -185,23 +186,16 @@ class SparseBatchNorm(nn.Module):
             self.bn.running_mean.zero_()
             self.bn.running_var.fill_(1.0)
 
-    def forward(self, feats, valid):
+    def forward(self, feats, valid, relu=False, residual=None):
+        """The norm of ``feats`` [B, N, C], then ``+ residual`` and ``relu``
+        where asked (``ops.norm.batch_norm``: on the card one hand-written
+        kernel chain, forward and backward; on the CPU the eager
+        expression)."""
         bn = self.bn
-        f32 = feats.float()
-        if self.training:
-            v = valid[..., None].float()
-            n = torch.clamp_min(global_count(v.sum()), 1.0)
-            mean = global_sum((f32 * v).sum(dim=(0, 1))) / n
-            var = global_sum((((f32 - mean) ** 2) * v).sum(dim=(0, 1))) / n
-            with torch.no_grad():
-                m = self.momentum
-                unbiased = var * n / torch.clamp_min(n - 1.0, 1.0)
-                bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
-                bn.running_var.copy_((1 - m) * bn.running_var + m * unbiased)
-        else:
-            mean, var = bn.running_mean, bn.running_var
-        out = (f32 - mean) * torch.rsqrt(var + self.eps) * bn.weight + bn.bias
-        return torch.where(valid[..., None], out.to(feats.dtype), 0.0)
+        return batch_norm(feats, valid, bn.weight, bn.bias, bn.running_mean,
+                          bn.running_var, training=self.training,
+                          momentum=self.momentum, eps=self.eps, relu=relu,
+                          residual=residual)
 
 
 class SparseInstanceNorm(nn.Module):

@@ -31,11 +31,12 @@ row within 1e-6 of |a|^2, the scale of the f32 rounding of
 keys, overflowed parents, a level of padding rows), and the self-keyed
 and table dW give the same bits on one level.  One vote step (self-keyed)
 and one metric-learning step (every level on tables) hold the card
-against the CPU at the train-step gates (loss 1e-5, gradients 1e-4, the
-update 1e-3, BN statistics 1e-5).  The strided map conv holds the conv
-tolerances (two launches bit-equal), the child tables equal the rank
-kernel's plain twin, and the reduced SparseResNet50 (f32 1e-4, bf16 2e-2)
-and AliveUNet (f32 1e-4) hold the card against the CPU.  B7's k3-table,
+against the exact step (the CPU's in float64) at the train-step gates
+(loss 1e-5, gradients 1e-4, the update 1e-3, BN statistics 1e-5).  The
+strided map conv holds the conv tolerances (two launches bit-equal), the
+child tables equal the rank kernel's plain twin, and the reduced
+SparseResNet50 (f32 1e-4, bf16 2e-2) and AliveUNet (f32 1e-4) hold the
+card against the CPU.  B7's k3-table,
 down and up modes on f32 features (an int8 engine at f32 compute) equal
 their twins bit for bit; ``evaluate_segmentation`` at a reduced size
 holds the card against the CPU (metrics 1e-3).  The engine on a 1-rank
@@ -48,7 +49,7 @@ import pytest
 import torch
 
 from mrcc_tpu_torch.data.synthetic import build_batch
-from mrcc_tpu_torch.ops import conv, conv_q8, nn, rank, sort
+from mrcc_tpu_torch.ops import conv, conv_q8, nn, norm, rank, sort
 from mrcc_tpu_torch.sparse import (KEY_PAD, build_hierarchy, neighbor_tables,
                                    voxelize)
 from mrcc_tpu_torch.sparse.hierarchy import K3_DELTAS
@@ -1028,13 +1029,15 @@ def test_vote_and_feature_steps_card_vs_cpu(cuda, monkeypatch, head):
     crops with cross-section labels, capacity 1024, self-keyed) and of
     FeatureNet (minkunet14A, the mined triplet loss, B = 4 clouds of two
     classes, capacity 1024, every level on tables) on the card against the
-    CPU from the same weights: loss 1e-5, gradients 1e-4 and Adam's first
-    update 1e-3 in relative norm (the update where |g| is above 1 % of its
-    tensor's rms), BN statistics 1e-5.  The reference is the CPU step at
-    the batch or, where a ReLU gate of it sits within rounding of 0, at the
-    batch's features moved by +-1e-7 relative (seeded draws, tried in
-    turn; ROADMAP C21).  The card step launches its route's kernels and no
-    plain twin."""
+    exact step from the same weights: loss 1e-5, gradients 1e-4 and Adam's
+    first update 1e-3 in relative norm (the update where |g| is above 1 %
+    of its tensor's rms), BN statistics 1e-5.  The exact step is the CPU's
+    in float64 (weights and features cast exactly: a second f32 step adds
+    its own rounding, and the triplet loss moves by up to 1.5e-5 between
+    f32 steps) at the batch or, where a ReLU gate sits within f32 rounding
+    of 0, at the batch's features moved by +-1e-7 relative (seeded draws,
+    tried in turn; ROADMAP C21).  The card step launches its route's
+    kernels and no plain twin, the norm's included."""
     import copy
 
     import numpy as np
@@ -1063,7 +1066,7 @@ def test_vote_and_feature_steps_card_vs_cpu(cuda, monkeypatch, head):
     before = {n: p.detach().clone() for n, p in start.named_parameters()}
 
     calls = []
-    for mod in (sort, conv, conv_q8, rank, nn):
+    for mod in (sort, conv, conv_q8, rank, nn, norm):
         for name in dir(mod):
             if name.endswith("_plain"):
                 monkeypatch.setattr(
@@ -1079,13 +1082,13 @@ def test_vote_and_feature_steps_card_vs_cpu(cuda, monkeypatch, head):
     monkeypatch.undo()
 
     tried = []
+    feats = batch["feats"].astype(np.float64)
     for draw, sign in [(None, 0)] + [(d, s) for d in range(3)
                                      for s in (1, -1)]:
-        moved = batch if draw is None else dict(batch, feats=(
-            batch["feats"] * (1 + sign * 1e-7 * np.random.default_rng(
-                draw).standard_normal(batch["feats"].shape))).astype(
-                    np.float32))
-        cpu = copy.deepcopy(start)
+        moved = dict(batch, feats=feats if draw is None else feats * (
+            1 + sign * 1e-7 * np.random.default_rng(draw).standard_normal(
+                feats.shape)))
+        cpu = copy.deepcopy(start).double()
         want = float(_step_on(cpu, "cpu", head, moved)["loss"])
         errs = (abs(got - want) / want,) + _pair_errors(
             cpu, gpu, before, () if head == "vote" else ("final.bias",))

@@ -251,8 +251,46 @@ def _demo(mesh, spec):
             "table": out.get("table")}
 
 
+def _norm(mesh, spec):
+    """``SparseBatchNorm(relu=True, residual=...)`` in train mode on this
+    rank's rows of ``spec``'s batch, the cotangent ``spec["cot"]``'s
+    loss share backpropagated and the parameter gradients summed over the
+    ranks (a data-parallel step's norm, on ``spec["device"]``)."""
+    import torch
+
+    from mrcc_tpu_torch.parallel import mesh as mesh_lib
+    from mrcc_tpu_torch.sparse.nn import SparseBatchNorm
+    from mrcc_tpu_torch.tracing import LaunchCounter, counts
+
+    dev = spec["device"]
+    rows = mesh_lib.batch_sharding(mesh, spec["feats"].shape[0])
+
+    def local(name, grad=False):
+        return torch.tensor(spec[name][rows], device=dev, requires_grad=grad)
+
+    feats, res = local("feats", True), local("residual", True)
+    layer = SparseBatchNorm(feats.shape[-1]).to(dev).train()
+    with torch.no_grad():
+        layer.bn.weight.copy_(torch.from_numpy(spec["weight"]))
+        layer.bn.bias.copy_(torch.from_numpy(spec["bias"]))
+    before = counts(LaunchCounter)
+    with mesh_lib.data_parallel(mesh):
+        y = layer(feats, local("valid"), relu=True, residual=res)
+        (y * local("cot")).sum().backward()
+        mesh_lib.sync_gradients(list(layer.parameters()))
+    after = counts(LaunchCounter)
+    out = {k: v.detach().cpu().numpy() for k, v in (
+        ("y", y), ("dx", feats.grad), ("dres", res.grad),
+        ("dgamma", layer.bn.weight.grad), ("dbeta", layer.bn.bias.grad),
+        ("running_mean", layer.bn.running_mean),
+        ("running_var", layer.bn.running_var))}
+    out["launches"] = {k: after[k] - before[k] for k in after
+                       if k.startswith("norm_")}
+    return out
+
+
 MODES = {"roundtrip": _roundtrip, "engine": _engine, "train": _train,
-         "metric": _metric, "demo": _demo}
+         "metric": _metric, "demo": _demo, "norm": _norm}
 
 
 def main():
@@ -267,12 +305,13 @@ def main():
 
     with open(spec_path, "rb") as f:
         spec = pickle.load(f)
+    device = spec.get("device", "cpu")  # "cuda": gloo ranks on one card
     assert fleet.init_distributed(f"127.0.0.1:{port}", world, rank,
-                                  device="cpu", timeout_s=120) is True
-    mesh = fleet.make_global_mesh("cpu")
+                                  device=device, timeout_s=120) is True
+    mesh = fleet.make_global_mesh(device)
     # a tiny collective right away: gloo's context deadline trips when the
     # ranks reach their first collective far apart
-    t = torch.ones(1)
+    t = torch.ones(1, device=device)
     dist.all_reduce(t)
     assert float(t) == world
     res = MODES[mode](mesh, spec)
