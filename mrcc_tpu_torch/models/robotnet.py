@@ -20,6 +20,7 @@ from torch import nn
 
 from ..sparse import conv as C
 from ..sparse.nn import SparseBatchNorm, SparseLinear
+from ..tracing import span
 from .minkunet import MinkUNetBase, variant
 
 JOINT_ANGLES = 9  # joint angles per item in a pose batch (dataset collate)
@@ -48,7 +49,8 @@ def _finalize_pose_output(out, train: bool, quantization_size: float = 0.0,
 
 class _PoseHead(MinkUNetBase):
     """BN + ReLU over the backbone's output, a global pool, optional joint
-    angles, MLP(2048) with LeakyReLU, ``out_channels`` outputs."""
+    angles, MLP(2048) with LeakyReLU, ``out_channels`` outputs; under
+    ``torch.profiler`` the head leaves a span (``mrcc.models.pose_head``)."""
 
     def __init__(self, backbone, in_channels, out_channels, use_joint_angles,
                  rot_dims, **unet_kw):
@@ -57,14 +59,17 @@ class _PoseHead(MinkUNetBase):
         width = self.inplanes
         self.use_joint_angles = use_joint_angles
         self.rot_dims = rot_dims
-        self.output_layer = nn.ModuleList([SparseBatchNorm(width), nn.ReLU()])
+        # the release's output layer is BN then ReLU; the ReLU runs inside
+        # the norm (``relu=True``), one pass fewer each way
+        self.output_layer = nn.ModuleList([SparseBatchNorm(width)])
         self.pose_regression = nn.ModuleList([
             nn.Linear(width + (JOINT_ANGLES if use_joint_angles else 0),
                       2048),
             nn.LeakyReLU(0.01), nn.Linear(2048, out_channels)])
 
+    @span("models.pose_head")
     def _regress(self, feats, valid, pool, joint_angles, quantization_size):
-        out = torch.relu(self.output_layer[0](feats, valid))
+        out = self.output_layer[0](feats, valid, relu=True)
         pooled = pool(out, valid).float()
         if self.use_joint_angles:
             if joint_angles is None:

@@ -256,10 +256,12 @@ def make_segmentation_train_step(model, data_cfg, train_cfg: TrainConfig,
 
 class PoseTrainStep(_TrainStep):
     """One pose-regression train step (``train.py`` hot loop), callable as
-    ``step(batch, lr)``, with the stages of :class:`SegmentationTrainStep`.
-    ``batch`` holds ``points``, ``feats``, ``mask``, ``pose [B, 7]`` (WXYZ)
-    and, with ``use_joint_angles``, ``joint_angles [B, 9]``.  The criterion
-    gets the level-0 voxel coordinates and their validity."""
+    ``step(batch, lr)``, with the stages and spans of
+    :class:`SegmentationTrainStep`; the criterion's call leaves its own span
+    (``mrcc.train.criterion``) inside ``mrcc.train.forward``.  ``batch``
+    holds ``points``, ``feats``, ``mask``, ``pose [B, 7]`` (WXYZ) and, with
+    ``use_joint_angles``, ``joint_angles [B, 9]``.  The criterion gets the
+    level-0 voxel coordinates and their validity."""
 
     def __init__(self, model, optimizer, criterion, loss_cfg: LossConfig,
                  data_cfg, voxel_capacity: int, use_joint_angles: bool,
@@ -270,6 +272,7 @@ class PoseTrainStep(_TrainStep):
         self.rot6d = LossType(loss_cfg.loss_type) == LossType.COS2_6D
         self.use_joint_angles = use_joint_angles
 
+    @span("train.prepare")
     def prepare(self, batch):
         """-> (SparseVoxels, levels, pose, joint angles or None)."""
         TRAIN_BATCHES.count += 1
@@ -282,14 +285,18 @@ class PoseTrainStep(_TrainStep):
             levels = self._levels(vox)
         return vox, levels, t["pose"], t.get("joint_angles")
 
+    @span("train.forward")
     def forward(self, vox, levels, pose, joint_angles):
         """-> (head output, loss)."""
         self.model.train()
         out = self.model(vox.feats, levels, joint_angles)
-        return out, self.criterion(pose, out,
-                                   coords=vox.coords().to(torch.float32),
-                                   coords_valid=vox.valid)
+        with span("train.criterion"):
+            loss = self.criterion(pose, out,
+                                  coords=vox.coords().to(torch.float32),
+                                  coords_valid=vox.valid)
+        return out, loss
 
+    @span("train.step")
     def __call__(self, batch, lr):
         """Run every stage; returns ``{"loss", "dist", "dist_position",
         "dist_orientation", "angle_diff"}`` (batch means) as device

@@ -1,14 +1,16 @@
 """The port's spans and counters (``mrcc_tpu_torch/tracing.py``) on the CPU.
 
-A segmentation train step at minkunet14A, B = 2, 1600 points, capacity
-1024:
+A segmentation train step and a pose train step (``RobotNet`` with the
+cos2 criterion on end-effector crops) at minkunet14A, B = 2, 1600 points,
+capacity 1024:
 
 - with no profiler recording, a step never enters ``record_function``
   or the fast record function;
 - under ``torch.profiler`` each call leaves one ``mrcc.train.step`` span
   holding ``prepare`` (itself holding ``mrcc.sparse.voxelize`` and
   ``mrcc.sparse.build_hierarchy``), ``forward``, ``backward`` and
-  ``update``, in that order;
+  ``update``, in that order; the pose step's ``forward`` holds its
+  ``mrcc.models.pose_head`` and, after it, its ``mrcc.train.criterion``;
 - a kernel library's call leaves ``mrcc.kernel.<library>.<function>``;
 - every ``LaunchCounter`` of ``ops/`` is registered under a unique name;
 - ``train_batches`` goes up by one for each ``prepare``.
@@ -22,13 +24,15 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from mrcc_tpu_torch import tracing
-from mrcc_tpu_torch.data.dataset import DataConfig
+from mrcc_tpu_torch.data.dataset import DataConfig, PoseDataset
 from mrcc_tpu_torch.data.synthetic import generate_sample
-from mrcc_tpu_torch.models import RobotNetSegmentation
+from mrcc_tpu_torch.models import RobotNet, RobotNetSegmentation
 from mrcc_tpu_torch.ops import build, conv, conv_q8, nn, norm, rank, sort
 from mrcc_tpu_torch.sparse.nn import init_parameters
-from mrcc_tpu_torch.train import TrainConfig, make_segmentation_train_step
-from mrcc_tpu_torch.train.trainer import TRAIN_BATCHES
+from mrcc_tpu_torch.train import (LossConfig, TrainConfig,
+                                  make_pose_train_step,
+                                  make_segmentation_train_step)
+from mrcc_tpu_torch.train.trainer import TRAIN_BATCHES, PoseTrainStep
 
 B, P, CAP = 2, 1600, 1024
 STAGES = ("prepare", "forward", "backward", "update")
@@ -51,6 +55,32 @@ def step():
         model, DataConfig(data_type=None, max_points=P, scale=100.0),
         TrainConfig(batch_size=B), CAP, device="cpu")
     return s
+
+
+@pytest.fixture(scope="module")
+def pose_step():
+    model = init_parameters(RobotNet(backbone="minkunet14A"), 0)
+    s, _ = make_pose_train_step(
+        model, DataConfig(max_points=P), LossConfig(loss_type="cos2"),
+        TrainConfig(batch_size=B), CAP, device="cpu")
+    return s
+
+
+@pytest.fixture(scope="module")
+def pose_batch():
+    """Two end-effector crops of synthetic scenes, collated."""
+    data = PoseDataset(DataConfig(max_points=P), B, seed=11, n_ee=1200,
+                       n_arm=300, n_bg=300)
+    return data.collate(data.items)
+
+
+@pytest.fixture(params=["segmentation", "pose"])
+def stepped(request):
+    """``(train step, batch)`` of each kind of sparse train step."""
+    if request.param == "pose":
+        return (request.getfixturevalue("pose_step"),
+                request.getfixturevalue("pose_batch"))
+    return request.getfixturevalue("step"), request.getfixturevalue("batch")
 
 
 @pytest.fixture(scope="module")
@@ -81,7 +111,9 @@ def _inside(inner, outer):
 
 
 def test_a_step_without_a_profiler_never_enters_record_function(
-        step, batch, monkeypatch):
+        stepped, monkeypatch):
+    step, batch = stepped
+
     def refuse(name):
         raise AssertionError(f"a span {name!r} entered with no profiler")
 
@@ -93,22 +125,33 @@ def test_a_step_without_a_profiler_never_enters_record_function(
 
 @pytest.mark.parametrize("calls", [1, 2])
 def test_each_call_leaves_one_step_span_with_its_stages_in_order(
-        step, batch, calls):
+        stepped, calls):
+    step, batch = stepped
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         for _ in range(calls):
             step(batch, 1e-4)
     spans = _spans(prof)
     steps = [s for s in spans if s[0] == "mrcc.train.step"]
     assert len(steps) == calls
+    names = [f"mrcc.train.{k}" for k in STAGES]
     for outer in steps:
         inner = [s for s in spans if s is not outer and _inside(s, outer)]
-        stages = [s for s in inner if s[0].startswith("mrcc.train.")]
-        assert [s[0] for s in stages] == [f"mrcc.train.{k}" for k in STAGES]
+        stages = [s for s in inner if s[0] in names]
+        assert [s[0] for s in stages] == names
         assert all(a[2] <= b[1] for a, b in zip(stages, stages[1:]))
-        prepare = stages[0]
+        prepare, forward = stages[:2]
         for name in ("mrcc.sparse.voxelize", "mrcc.sparse.build_hierarchy"):
             found = [s for s in inner if s[0] == name]
             assert len(found) == 1 and _inside(found[0], prepare), name
+        head = [s for s in inner if s[0] in (
+            "mrcc.models.pose_head", "mrcc.train.criterion")]
+        if isinstance(step, PoseTrainStep):
+            assert [s[0] for s in head] == ["mrcc.models.pose_head",
+                                            "mrcc.train.criterion"]
+            assert all(_inside(s, forward) for s in head)
+            assert head[0][2] <= head[1][1]
+        else:
+            assert not head
 
 
 @pytest.mark.parametrize("kind", ["span", "launch_span"])
