@@ -69,7 +69,15 @@ last line):
    table k3 convs, down, up, also down / up at the level 0 <-> 1 pair at
    384 <-> 416) and of the batch norm (8 x 16384 x 384 with ReLU and
    residual, level 4 with ReLU) on the card against autograd through the
-   plain twins on the card (f32, 1e-5); then
+   plain twins on the card (f32, 1e-5); then the k3 order at the
+   benchmark cells' levels (``--k3-order`` alone): the order's kernels
+   equal their plain twin integer for integer, both k3 convs over it
+   equal the one-pass tile bit for bit and their plain twins within
+   tolerance (f32 and bf16, forward and data cotangent); ring stages and
+   MMA slots per hit in row order and in the order, the order's build
+   time, and the f32 k3 conv at each level over the order, without one
+   and, at levels 0 and 1, one segment at a time, beside the 3xTF32
+   bound; then
    one full 640 x 480 frame (B = 1, P = 307200): ``measure_seg_caps``,
    ``voxelize`` and ``build_hierarchy`` on the card against the CPU, every
    integer output equal;
@@ -480,12 +488,13 @@ def bound_ms(nbytes, ops, kind):
 # ------------------------------------------------------------- phases
 
 def phase_build():
-    from mrcc_tpu_torch.ops import conv, conv_q8, nn, norm, rank, sort
+    from mrcc_tpu_torch.ops import (conv, conv_q8, k3_order, nn, norm, rank,
+                                    sort)
     from mrcc_tpu_torch.ops.build import build_all
 
     t0 = time.perf_counter()
     infos = build_all([sort.LIB, *conv.LIBRARIES, *conv_q8.LIBRARIES,
-                       rank.LIB, nn.LIB, norm.LIB])
+                       rank.LIB, nn.LIB, norm.LIB, k3_order.LIB])
     log("build", seconds=round(time.perf_counter() - t0, 3),
         sources={i.name: {"seconds": round(i.seconds, 3),
                           "ptxas": i.resource_lines()} for i in infos})
@@ -549,12 +558,153 @@ def scene_batch(batch=2, seed=40):
     return data.collate(data.items)
 
 
+def cell_levels(mix, device):
+    """The hierarchy the train step builds for the first batch of a
+    benchmark cell's traffic (``mrccbench/traffic/<mix>.json``: its scene
+    set, batch, points and voxel capacity; the pose kind's EE crops)."""
+    from mrccbench.data import crops, scenes
+
+    with open(os.path.join("mrccbench", "traffic", f"{mix}.json")) as fh:
+        cfg = json.load(fh)
+    b = cfg["batch"]
+    seeds = scenes.scene_seeds(cfg["scene_set"], cfg["pool"] * b)[:b]
+    make = crops.pose_batch if cfg["kind"] == "pose_steps" else \
+        scenes.train_batch
+    batch = make(seeds, cfg["max_points"], **cfg["scene"])
+    return train_levels(batch, device, capacity=cfg["voxel_capacity"])
+
+
+def _segment_only(order, s):
+    """``order`` with no tiles in any segment but s: times one segment of
+    the ordered tile.  Its rows that carry a partial sum read whatever out
+    holds: a timing, not a result."""
+    counts = order.counts.clone()
+    counts[torch.arange(order.segments, device=counts.device) != s] = 0
+    return dataclasses.replace(order, counts=counts)
+
+
+K3_ORDER_CELLS = (("train.seg18-b8", "scenes24k-b8"),
+                  ("train.seg18-scene", "scenes98k-b2"),
+                  ("train.pose18-b8", "crops4k-b8"))
+
+
+def check_k3_order(lv, name):
+    """The order's kernels against the plain twin on the card, integer for
+    integer (masks, lists, counts), from both row sources: the key search
+    and the level's neighbour tables (built here for a self-keyed level).
+    Raises on a difference; returns the tables."""
+    from mrcc_tpu_torch.ops import k3_order
+    from mrcc_tpu_torch.sparse import neighbor_tables
+
+    tables = ((lv.nbr_idx, lv.nbr_hit) if lv.nbr_idx is not None
+              else neighbor_tables(lv))
+    want = k3_order.build_k3_order_plain(lv.key, lv.kbits)
+    for maps in ((), tables):
+        got = k3_order.build_k3_order(lv.key, lv.kbits, *maps)
+        differ = [k for k in ("mask", "lists", "counts")
+                  if not torch.equal(getattr(got, k), getattr(want, k))]
+        if differ:
+            raise AssertionError(f"{name}: the order's kernels differ from "
+                                 f"the twin in {differ} "
+                                 f"({'tables' if maps else 'keys'})")
+    return tables
+
+
+def check_ordered_convs(lv, tables, f, w, name):
+    """Both k3 wrappers over the level's order, f32 and bf16, forward and
+    data cotangent (``W[26 - k]^T``): each ``torch.equal`` to the one-pass
+    tile (no order) and within TOL_F32 / TOL_BF16 of its plain twin (f32
+    operands).  Raises on a miss; returns the relative errors."""
+    from mrcc_tpu_torch.ops import conv
+
+    order = lv.k3_order
+    routes = (("conv_sk", conv.gather_gemm_sk, conv.gather_gemm_sk_plain,
+               (lv.key, lv.kbits)),
+              ("conv_k3map", conv.gather_gemm_k3_map,
+               conv.gather_gemm_k3_map_plain, tables))
+    errs = {}
+    for route, fn, plain, maps in routes:
+        for way, wd in (("forward", w), ("dx", w.flip(0).transpose(1, 2))):
+            want = plain(f, wd, *maps)
+            for dtype, tol in ((torch.float32, TOL_F32),
+                               (torch.bfloat16, TOL_BF16)):
+                fx, wx = f.to(dtype), wd.contiguous().to(dtype)
+                got = fn(fx, wx, *maps, order)
+                err = rel_err(got, want)
+                key = f"{route}.{way}.{str(dtype).removeprefix('torch.')}"
+                errs[key] = err
+                if not torch.equal(got, fn(fx, wx, *maps)) or err > tol:
+                    raise AssertionError(
+                        f"{name} {key}: ordered vs one-pass equal "
+                        f"{torch.equal(got, fn(fx, wx, *maps))}, relative "
+                        f"error to the twin {err} (limit {tol})")
+    return errs
+
+
+def phase_k3_order():
+    """``--k3-order``: the k3 order at the benchmark cells' levels (the
+    first batch of each cell's traffic).  Checks, raising on a miss: the
+    order's kernels equal their plain twin integer for integer
+    (:func:`check_k3_order`), and both k3 wrappers over the level's order
+    equal the one-pass tile bit for bit and their plain twins within
+    tolerance, f32 and bf16, forward and data cotangent
+    (:func:`check_ordered_convs`), at the decoder's width there (384 ->
+    384, 256 -> 256 at level 4).  Logs ring stages and MMA slots per hit
+    in row order and in the order (``k3_tile_stages``), the order's build
+    time, and the f32 conv of the level's route over the order and with
+    no order, and at levels 0 and 1 one segment at a time, each beside the
+    3xTF32 bound of its hits (CUDA events)."""
+    from mrcc_tpu_torch.ops import conv, k3_order
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for cell, mix in K3_ORDER_CELLS:
+        levels = cell_levels(mix, dev)
+        for l, lv in enumerate(levels):
+            name = f"k3_order[{cell} level {l}]"
+            c = 256 if l == 4 else 384
+            st = conv.k3_tile_stages(lv)
+            f = torch.randn(lv.key.shape + (c,), device=dev, generator=gen)
+            f = torch.where(lv.valid[..., None], f, 0.0)
+            w = torch.randn((27, c, c), device=dev, generator=gen) / c ** 0.5
+            tables = check_k3_order(lv, name)
+            errs = check_ordered_convs(lv, tables, f, w, name)
+            if lv.nbr_idx is not None:
+                maps, fn = (lv.nbr_idx, lv.nbr_hit), conv.gather_gemm_k3_map
+            else:
+                maps, fn = (lv.key, lv.kbits), conv.gather_gemm_sk
+            order = lv.k3_order
+            rec = {"cell": cell, "level": l, "rows": list(lv.key.shape),
+                   "voxels": int(lv.count.sum()),
+                   "route": "table" if lv.nbr_idx is not None else "keys",
+                   **{k: round(v, 4) if isinstance(v, float) else v
+                      for k, v in st.items()},
+                   "order_equals_twin": True,
+                   "ordered_equals_one_pass": True, "rel_err": errs,
+                   "tolerance": {"f32": TOL_F32, "bf16": TOL_BF16},
+                   "order_build_ms": cuda_ms(
+                       lambda lv=lv: k3_order.level_order(lv), iters=5),
+                   "shape": f"{c}->{c} f32",
+                   "ms_ordered": cuda_ms(lambda: fn(f, w, *maps, order), 10),
+                   "ms_one_pass": cuda_ms(lambda: fn(f, w, *maps), 10),
+                   "bound_3xtf32_ms": 1e3 * 3 * 2 * st["hits"] * c * c
+                   / PEAK_OPS["tf32"]}
+            if l < 2:
+                rec["ms_by_segment"] = [cuda_ms(
+                    lambda o=_segment_only(order, s): fn(f, w, *maps, o), 10)
+                    for s in range(order.segments)]
+            log("k3_order", card=smi_line(), **rec)
+            del f, w, tables
+        del levels
+        torch.cuda.empty_cache()
+
+
 def phase_kernels(levels, tlevels, plevels, slevels, device):
     """Each kernel vs its plain twin at the main paths' shapes: ``levels``
     of the inference path, ``tlevels`` of the training path, ``plevels`` of
     the production path (tables on its levels 0 and 1), ``slevels`` of the
     scene-scale training path (tables on its levels 0-2)."""
-    from mrcc_tpu_torch.ops import conv, nn, rank, sort
+    from mrcc_tpu_torch.ops import conv, k3_order, nn, rank, sort
     from mrcc_tpu_torch.sparse import neighbor_tables
     from mrcc_tpu_torch.sparse.hierarchy import K3_DELTAS
 
@@ -656,11 +806,16 @@ def phase_kernels(levels, tlevels, plevels, slevels, device):
                 "plain_f32": float((want.double() - exact).norm()
                                    / exact.norm())}
 
+    def ordered(fn, lv):
+        # the wrapper over the level's k3 order, as the main paths call it
+        # (the packed stem, Cin <= 8, runs the one-pass tile)
+        return lambda *args: fn(*args, lv.k3_order)
+
     for li, cin, cout in ((0, 3, 32), (0, 128, 96), (3, 384, 256)):
         lv = levels[li]
         b, n = lv.key.shape
         conv_case(f"conv_sk[{b}x{n} {cin}->{cout}]", "conv_sk", K2_TPU,
-                  conv.gather_gemm_sk, conv.gather_gemm_sk_plain,
+                  ordered(conv.gather_gemm_sk, lv), conv.gather_gemm_sk_plain,
                   [feats(lv, cin), weights(27, cin, cout), lv.key, lv.kbits],
                   _sk_work(lv), 27)
     # the training step's level 0: the stem (Cin 3), the widest decoder
@@ -669,16 +824,18 @@ def phase_kernels(levels, tlevels, plevels, slevels, device):
     b, n = lv.key.shape
     for cin, cout in ((384, 384), (3, 32), (416, 384)):
         conv_case(f"conv_sk[{b}x{n} {cin}->{cout} f32]", "conv_sk", K2_TPU,
-                  conv.gather_gemm_sk, conv.gather_gemm_sk_plain,
+                  ordered(conv.gather_gemm_sk, lv), conv.gather_gemm_sk_plain,
                   [feats(lv, cin), weights(27, cin, cout), lv.key, lv.kbits],
                   _sk_work(lv), 27, path="training")
     # a level whose rows are all padding (kbits 0): every tile skips every
-    # offset and writes zeros
+    # offset and writes zeros (its order: every row in segment 0, no
+    # offset)
     lv = dataclasses.replace(levels[3], kbits=torch.zeros_like(
         levels[3].kbits))
+    lv = dataclasses.replace(lv, k3_order=k3_order.level_order(lv))
     b, n = lv.key.shape
     conv_case(f"conv_sk[{b}x{n} 384->256 all padding]", "conv_sk", K2_TPU,
-              conv.gather_gemm_sk, conv.gather_gemm_sk_plain,
+              ordered(conv.gather_gemm_sk, lv), conv.gather_gemm_sk_plain,
               [feats(lv, 384), weights(27, 384, 256), lv.key, lv.kbits],
               _sk_work(lv), 27)
     # K3 down at the inference path's first down conv; at the training
@@ -762,7 +919,7 @@ def phase_kernels(levels, tlevels, plevels, slevels, device):
                                     (lv_bench, 128, 96, K3_TPU)):
         b, n = lv.key.shape
         conv_case(f"conv_k3map[{b}x{n} {cin}->{cout}]", "conv_k3map",
-                  replaces, conv.gather_gemm_k3_map,
+                  replaces, ordered(conv.gather_gemm_k3_map, lv),
                   conv.gather_gemm_k3_map_plain,
                   [feats(lv, cin), weights(27, cin, cout), lv.nbr_idx,
                    lv.nbr_hit], _table_work(lv), 27, path="production")
@@ -895,7 +1052,8 @@ def phase_kernels(levels, tlevels, plevels, slevels, device):
                 path=path)
     b, n = lv_train.key.shape
     conv_case(f"conv_k3map[{b}x{n} 384->384 f32]", "conv_k3map", HBM_TPU,
-              conv.gather_gemm_k3_map, conv.gather_gemm_k3_map_plain,
+              ordered(conv.gather_gemm_k3_map, lv_train),
+              conv.gather_gemm_k3_map_plain,
               [feats(lv_train, 384), weights(27, 384, 384), lv_train.nbr_idx,
                lv_train.nbr_hit], _table_work(lv_train), 27,
               path="training_tables")
@@ -2779,11 +2937,11 @@ def sk_timed():
 
     calls, orig = [], conv.gather_gemm_sk
 
-    def timed(feats, weights, key, kbits):
+    def timed(feats, weights, key, kbits, *order):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = orig(feats, weights, key, kbits)
+        out = orig(feats, weights, key, kbits, *order)
         end.record()
         calls.append((key.shape[1], feats.shape[-1], weights.shape[-1],
                       start, end))
@@ -5027,11 +5185,11 @@ def dp_rank(rank, world, port, out_dir):
 
 
 def _dp_counters():
-    from mrcc_tpu_torch.ops import conv, rank, sort
+    from mrcc_tpu_torch.ops import conv, k3_order, rank, sort
 
     return [sort.SORT, conv.SK, conv.DOWN, conv.UP, conv.K3_LISTS,
             conv.K3_SUM, conv.DW_SK, conv.DW_DOWN, conv.DW_UP, conv.DW_LISTS,
-            rank.RANK, conv.K3MAP, conv.DW_K3MAP]
+            rank.RANK, conv.K3MAP, conv.DW_K3MAP, k3_order.K3_ORDER]
 
 
 def _dp_metric_step():
@@ -5558,11 +5716,11 @@ DEMO_CPU_FRAMES = 2    # frames of that check (4 in --demo)
 
 
 def demo_counters():
-    from mrcc_tpu_torch.ops import conv, rank, sort
+    from mrcc_tpu_torch.ops import conv, k3_order, rank, sort
 
     return [sort.SORT, conv.SK, conv.DOWN, conv.UP, conv.K3_LISTS,
             conv.K3_SUM, conv.DW_SK, conv.DW_DOWN, conv.DW_UP, conv.DW_LISTS,
-            rank.RANK, conv.K3MAP, conv.DW_K3MAP]
+            rank.RANK, conv.K3MAP, conv.DW_K3MAP, k3_order.K3_ORDER]
 
 
 def _demo_main(flags, root, counters=None):
@@ -6166,12 +6324,13 @@ def main():
         count=torch.cuda.device_count(), smi=card,
         torch=torch.__version__, cuda=torch.version.cuda)
 
-    from mrcc_tpu_torch.ops import conv, conv_q8, nn, rank, sort
+    from mrcc_tpu_torch.ops import conv, conv_q8, k3_order, nn, rank, sort
 
     if len(sys.argv) == 6 and sys.argv[1] == "--dp-rank":
         dp_rank(*(int(a) for a in sys.argv[2:5]), sys.argv[5])  # phase 17 b
         return 0
     modes = {"--pose-k2": phase_pose_k2,
+             "--k3-order": phase_k3_order,
              "--rank-nn": phase_rank_nn,
              "--icp": phase_icp,
              "--dw": lambda: phase_step_breakdown(DW_WRAPPERS, "dw"),
@@ -6180,7 +6339,8 @@ def main():
              "--train-more": lambda: phase_train_more(
                  [sort.SORT, conv.SK, conv.DOWN, conv.UP, conv.K3_LISTS,
                   conv.K3_SUM, conv.DW_SK, conv.DW_DOWN, conv.DW_UP,
-                  conv.DW_LISTS, rank.RANK, conv.K3MAP, conv.DW_K3MAP]),
+                  conv.DW_LISTS, rank.RANK, conv.K3MAP, conv.DW_K3MAP,
+                  k3_order.K3_ORDER]),
              "--int8": phase_int8_paths,
              "--resnet": lambda: phase_resnet_only(
                  resnet_counters(), bottleneck_counters()),
@@ -6241,7 +6401,8 @@ def _with_references(fn):
 
 
 def _main_phases(phase, card, references):
-    from mrcc_tpu_torch.ops import conv, conv_q8, nn, norm, rank, sort
+    from mrcc_tpu_torch.ops import (conv, conv_q8, k3_order, nn, norm, rank,
+                                    sort)
 
     dev = torch.device("cuda")
     inputs, caps, levels = bench_levels(dev)
@@ -6253,6 +6414,7 @@ def _main_phases(phase, card, references):
                     slevels, dev)
     phase("backward", phase_backward, tlevels, dev)
     del tlevels, plevels, slevels
+    phase("k3_order", phase_k3_order)
     frame = phase("frame", phase_frame, [sort.SORT, conv.SK, rank.RANK])
     phase("card_vs_cpu", phase_card_vs_cpu)
     phase("int8_card_vs_cpu", phase_int8_card_vs_cpu)
@@ -6262,7 +6424,7 @@ def _main_phases(phase, card, references):
     phase("train_tables_card_vs_cpu", phase_train_card_vs_cpu, False)
     phase("pose_card_vs_cpu", phase_pose_card_vs_cpu)
     counters = [sort.SORT, conv.SK, conv.DOWN, conv.UP, conv.K3_LISTS,
-                conv.K3_SUM]
+                conv.K3_SUM, k3_order.K3_ORDER]
     # the batch norm: eval launches its apply kernel alone, training all
     # five (forward: sums, deviations, apply; backward: sums, dx)
     infer_counters = counters + [norm.NORM_APPLY]

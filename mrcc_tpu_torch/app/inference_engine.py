@@ -309,8 +309,9 @@ class InferenceEngine:
         return self
 
     def _hierarchy(self, vox, stage):
+        q8 = self.dtype if stage in q8_stages(self.cfg) else None
         return build_hierarchy(vox, 4, capacities=self.level_caps[stage][1:],
-                               k3_tables=self.k3_tables[stage])
+                               k3_tables=self.k3_tables[stage], q8_dtype=q8)
 
     def _tensor(self, x, dtype):
         return torch.as_tensor(x, dtype=dtype, device=self.device)

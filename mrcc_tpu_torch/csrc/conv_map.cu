@@ -43,11 +43,12 @@
 // tensor-core tile (gather_mma.cuh) with a table load for the key search:
 // its neighbour list is the same as K2's (the identity offset's entry is
 // the row itself where valid), so the two k3 routes give the same bits,
-// forward and backward.  The strided map conv runs the same tile with a
-// map source of K <= 27 offsets and separate input and output row counts:
-// a k=3 s=2 map sends one output row up to 27 input rows and one input row
-// to several outputs, so it is no list GEMM (which needs each output row
-// in one list at most).
+// forward and backward; over a level's k3 order (k3_order.cu) both run
+// the ordered tile, again with the same bits.  The strided map conv runs
+// the same tile with a map source of K <= 27 offsets and separate input
+// and output row counts: a k=3 s=2 map sends one output row up to 27 input
+// rows and one input row to several outputs, so it is no list GEMM (which
+// needs each output row in one list at most).
 
 #include "gather_mma.cuh"
 #include "hit_lists.cuh"
@@ -208,6 +209,34 @@ extern "C" int mrcc_conv_k3map_bf16(const void* feats, const void* w,
   const cudaError_t err = tc::launch_gather_mma<__nv_bfloat16>(
       feats, w, NbrTable{{nbr_idx, nbr_hit, batch}}, lists, out, batch, n, cin,
       cout, stream);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// k3 table over the level's k3 order: as mrcc_conv_sk_ordered_*
+// (conv_sk.cu).
+extern "C" int mrcc_conv_k3map_ordered_f32(const void* feats, const void* w,
+                                           const int* lists,
+                                           const int* counts, float* part,
+                                           int* sync, void* out, int segments,
+                                           int batch, int n, int cin,
+                                           int cout, cudaStream_t stream) {
+  const cudaError_t err = tc::launch_gather_mma_ordered<float, NbrTable>(
+      feats, w, lists, counts, static_cast<float*>(out), out, sync, segments,
+      batch, n, cin, cout, stream);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+extern "C" int mrcc_conv_k3map_ordered_bf16(const void* feats, const void* w,
+                                            const int* lists,
+                                            const int* counts, float* part,
+                                            int* sync, void* out,
+                                            int segments, int batch, int n,
+                                            int cin, int cout,
+                                            cudaStream_t stream) {
+  const cudaError_t err =
+      tc::launch_gather_mma_ordered<__nv_bfloat16, NbrTable>(
+          feats, w, lists, counts, part, out, sync, segments, batch, n, cin,
+          cout, stream);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 

@@ -32,7 +32,11 @@
 // MMA block itself where Cout fits one 128-column tile and else once by a
 // resolve kernel for all of the tile's column blocks.  Offsets no row of
 // the tile hits are skipped, and the MMAs of 16-row groups without a hit.
-// A tile of padding rows hits nothing and only writes zeros.
+// A tile of padding rows hits nothing and only writes zeros.  Over a
+// level's k3 order (k3_order.cu) the ordered tile runs instead: each tile
+// takes 64 rows that share most of their hits in one segment of the
+// offsets, so it runs few stages beyond those its rows' hits need, with
+// the same bits.
 
 #include "gather_mma.cuh"
 #include "k3_sources.cuh"
@@ -65,5 +69,36 @@ extern "C" int mrcc_conv_sk_bf16(const void* feats, const void* w,
   const cudaError_t err = mrcc::tc::launch_gather_mma<__nv_bfloat16>(
       feats, w, KeySearch{{key, kbits}}, lists, out, batch, n, cin, cout,
       stream);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// The same conv over the level's k3 order: lists [S, B, ceil(n / 64),
+// order_list_ints(27 / S)] and counts [S, B] int32 (k3_order.cu), part an
+// f32 [B, n, cout] scratch for bf16 (null for f32, which carries its sums
+// in out), sync a scratch of 1 + S * B ints.  Cin > 8.  Returns
+// cudaGetLastError().
+extern "C" int mrcc_conv_sk_ordered_f32(const void* feats, const void* w,
+                                        const int* lists, const int* counts,
+                                        float* part, int* sync, void* out,
+                                        int segments, int batch, int n,
+                                        int cin, int cout,
+                                        cudaStream_t stream) {
+  const cudaError_t err =
+      mrcc::tc::launch_gather_mma_ordered<float, KeySearch>(
+          feats, w, lists, counts, static_cast<float*>(out), out, sync,
+          segments, batch, n, cin, cout, stream);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+extern "C" int mrcc_conv_sk_ordered_bf16(const void* feats, const void* w,
+                                         const int* lists, const int* counts,
+                                         float* part, int* sync, void* out,
+                                         int segments, int batch, int n,
+                                         int cin, int cout,
+                                         cudaStream_t stream) {
+  const cudaError_t err =
+      mrcc::tc::launch_gather_mma_ordered<__nv_bfloat16, KeySearch>(
+          feats, w, lists, counts, part, out, sync, segments, batch, n, cin,
+          cout, stream);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

@@ -33,6 +33,21 @@
 // ceil(27 Cin / 32) stages, not 27.  Shared-memory rows are
 // padded (A: +16 bytes, B: +16 / +32 bytes) so that ldmatrix phases and the
 // f32 fragment loads hit 32 distinct banks.
+//
+// Ordered mode (gather_mma_ordered_kernel): 64 consecutive rows in key
+// order together hit nearly all 27 offsets although each row hits a few,
+// so a tile runs 2-4x the stages its rows' hits need.  A level's k3 order
+// (k3_order.cu, built once per level) cuts the offsets into S segments of
+// 27 / S and sorts each segment's rows by their hit mask in it (stable:
+// rows of one mask stay in key order); a tile is 64 rows of one segment's
+// order and runs only that segment's offsets, from lists resolved once per
+// level.  Each row's f32 sum is carried from segment to segment in memory
+// (out itself in f32, an f32 scratch in bf16): every row sees the same f32
+// additions in the same order as in the one-pass tile, less additions of
+// exact zeros, so both give the same bits.  One launch of as many blocks
+// as the card holds: each loops over the tiles with rows, taking the next
+// by a ticket in segment order, and a tile whose rows carry a partial sum
+// waits until every tile of the earlier segments of its item is done.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -77,6 +92,28 @@ template <typename T>
 __host__ __device__ constexpr size_t smem_bytes() {
   return sizeof(T) * Geometry<T>::STAGES * stage_elems<T>() +
          sizeof(int) * (K3 * BM + K3 + K3 + 1);
+}
+
+// One tile's list of a level's k3 order (k3_order.cu), for segments of ks
+// offsets: nbr[j * BM + r] (the input row of the segment's offset j for
+// tile row r, -1 for a miss), rows[BM] (the output row of tile row r with
+// its flags, -1 for none), klist[ks] (the segment's offsets some row hits,
+// each with its mask of 16-row groups that hit: j | mask << 8; 0 past the
+// count), the count, and the number of rows.
+__host__ __device__ constexpr int order_list_ints(int ks) {
+  return ks * BM + BM + ks + 2;
+}
+constexpr int ROW_LOAD = 1 << 30;   // an earlier segment holds its partial sum
+constexpr int ROW_FINAL = 1 << 29;  // no later segment hits the row
+constexpr int ROW_INDEX = ROW_FINAL - 1;
+
+// Dynamic shared memory of an ordered block, but for its groups' first
+// items: the ring, the neighbour list [27][BM] (ks rows used) and the rest
+// of its tile's list.
+template <typename T>
+__host__ __device__ constexpr size_t ordered_smem_bytes() {
+  return sizeof(T) * Geometry<T>::STAGES * stage_elems<T>() +
+         sizeof(int) * (K3 * BM + BM + K3 + 2);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -383,6 +420,19 @@ __device__ __forceinline__ void store_rows(T* __restrict__ ob,
     }
 }
 
+// Columns c and c + 1 (those below cout) of one row at p, as store_rows
+// stores them.
+template <typename T>
+__device__ __forceinline__ void store_cols(T* p, float v0, float v1, int c,
+                                           int cout) {
+  if ((cout & 1) == 0 || c + 1 >= cout) {
+    store2(p, v0, v1, c + 1 < cout);
+  } else {  // odd cout: the pair is not aligned
+    store2(p, v0, 0.f, false);
+    store2(p + 1, v1, 0.f, false);
+  }
+}
+
 // Rows m0 + lr of the block's tile, those below n.
 template <typename T>
 __device__ __forceinline__ void store_tile(T* __restrict__ ob,
@@ -529,6 +579,163 @@ gather_mma_kernel(const T* __restrict__ feats, const T* __restrict__ w,
   }
 }
 
+// The tile over a level's k3 order (k3_order.cu): lists [S, B, tiles,
+// order_list_ints(27 / S)] and counts [S, B], the tiles of each group g =
+// segment * B + b that hold rows (they come first).  Its work items are
+// the (group, row tile with rows, column tile) triples, group by group,
+// ctiles column tiles of a row tile together; blocks loop, taking the
+// next item by a ticket, so that a block only ever waits on items of
+// lower tickets, which running blocks hold or have finished.  An item
+// with a ROW_LOAD row first waits until every item of its item's earlier
+// segments is done (sync[1 + g'] reaches counts[g'] * ctiles), loads those
+// rows' f32 sums from part and runs its segment's offsets (W[segment * ks
+// + j]); then it stores each row's sum to out if ROW_FINAL, else to part.
+// part is out itself in f32, an f32 [B, n, cout] scratch in bf16.  sync:
+// 1 + S * B ints, zero before the launch: the ticket, then each group's
+// count of finished items.  Tag only names the launching library's
+// kernel.  Any grid (the launcher fills the card once), THREADS threads,
+// ordered_smem_bytes<T>(S * B) dynamic shared memory.
+template <typename T, class Tag>
+__global__ void __launch_bounds__(THREADS, 2)
+gather_mma_ordered_kernel(const T* __restrict__ feats,
+                          const T* __restrict__ w,
+                          const int* __restrict__ lists,
+                          const int* __restrict__ counts, float* part,
+                          T* out, int* sync, int groups, int batch, int n,
+                          int tiles, int ctiles, int ks, int cin, int cout,
+                          int vec_a, int vec_b) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int STAGES = Geometry<T>::STAGES;
+  constexpr int SE = stage_elems<T>();
+  T* ring = reinterpret_cast<T*>(smem);
+  int* nbr = reinterpret_cast<int*>(ring + STAGES * SE);
+  int* rows = nbr + K3 * BM;
+  int* klist = rows + BM;
+  int* first = klist + K3 + 2;  // [groups + 1]: each group's first item
+  __shared__ int ticket;
+  __shared__ int group;
+
+  if (threadIdx.x == 0) {
+    int c = 0;
+    for (int g = 0; g < groups; ++g) {
+      first[g] = c;
+      c += counts[g] * ctiles;
+    }
+    first[groups] = c;
+  }
+  const int lane = threadIdx.x & 31;
+  const int wm = (threadIdx.x >> 5) >> 2;
+  const int wn = (threadIdx.x >> 5) & 3;
+  const int nchunk = (cin + BK - 1) / BK;
+  const int len = order_list_ints(ks);
+
+  for (;;) {
+    if (threadIdx.x == 0) {
+      const int i = atomicAdd(sync, 1);
+      int g = 0;
+      while (g < groups && first[g + 1] <= i) ++g;
+      ticket = i;
+      group = g;
+    }
+    __syncthreads();
+    if (ticket >= first[groups]) break;
+    const int g = group;
+    const int item = ticket - first[g];
+    const int n0 = (item % ctiles) * BN;
+    const int seg = g / batch;
+    const int b = g % batch;
+    const int* src =
+        lists + (static_cast<size_t>(g) * tiles + item / ctiles) * len;
+    for (int e = threadIdx.x; e < len; e += THREADS)
+      (e < ks * BM ? nbr + e : rows + (e - ks * BM))[0] = src[e];
+    const bool load = __syncthreads_or(
+        threadIdx.x < BM && src[ks * BM + threadIdx.x] >= 0 &&
+        (src[ks * BM + threadIdx.x] & ROW_LOAD));
+    if (load && threadIdx.x == 0) {
+      for (int p = 0; p < seg; ++p) {
+        const int q = p * batch + b;
+        const volatile int* c = sync + 1 + q;
+        while (*c < counts[q] * ctiles) __nanosleep(256);
+      }
+      __threadfence();
+    }
+    __syncthreads();
+
+    const int steps = klist[ks] * nchunk;
+    const T* fb = feats + static_cast<size_t>(b) * n * cin;
+    const T* ws = w + static_cast<size_t>(seg) * ks * cin * cout;
+
+    auto load_stage = [&](int s) {
+      T* As = ring + (s % STAGES) * SE;
+      T* Bs = As + BM * Geometry<T>::A_LD;
+      const int k = klist[s / nchunk] & 0xff;
+      const int c0 = (s % nchunk) * BK;
+      load_a(As, fb, nbr + k * BM, cin, c0, vec_a);
+      load_b(Bs, ws + static_cast<size_t>(k) * cin * cout, cin, cout, c0, n0,
+             vec_b);
+    };
+
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < steps) load_stage(s);
+      cp_async_commit();
+    }
+    // the rows' sums so far, while the first stages land
+    const float* pb = part + static_cast<size_t>(b) * n * cout;
+    float acc[2][4][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int e = rows[wm * 32 + mi * 16 + (lane >> 2) + h * 8];
+        const bool from = e >= 0 && (e & ROW_LOAD);
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const int c = n0 + wn * 32 + ni * 8 + 2 * (lane & 3);
+          const float* p = pb + static_cast<size_t>(e & ROW_INDEX) * cout + c;
+          acc[mi][ni][2 * h] = from && c < cout ? __ldcg(p) : 0.f;
+          acc[mi][ni][2 * h + 1] = from && c + 1 < cout ? __ldcg(p + 1) : 0.f;
+        }
+      }
+    for (int s = 0; s < steps; ++s) {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();  // stage s landed; stage s - 1 is free
+      if (s + STAGES - 1 < steps) load_stage(s + STAGES - 1);
+      cp_async_commit();
+      const T* As = ring + (s % STAGES) * SE;
+      const int mask = klist[s / nchunk] >> (8 + 2 * wm);
+      const bool on[2] = {(mask & 1) != 0, (mask & 2) != 0};
+      mma_stage(acc, As, As + BM * Geometry<T>::A_LD, wm, wn, on);
+    }
+    cp_async_wait<0>();
+
+    T* ob = out + static_cast<size_t>(b) * n * cout;
+    float* qb = part + static_cast<size_t>(b) * n * cout;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int e = rows[wm * 32 + mi * 16 + (lane >> 2) + h * 8];
+        if (e < 0) continue;
+        const size_t r = static_cast<size_t>(e & ROW_INDEX) * cout;
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const int c = n0 + wn * 32 + ni * 8 + 2 * (lane & 3);
+          if (c >= cout) continue;
+          const float v0 = acc[mi][ni][2 * h];
+          const float v1 = acc[mi][ni][2 * h + 1];
+          if (e & ROW_FINAL) store_cols(ob + r + c, v0, v1, c, cout);
+          else store_cols(qb + r + c, v0, v1, c, cout);
+        }
+      }
+    __syncthreads();  // every row stored; the ring and lists are free
+    if (threadIdx.x == 0) {
+      __threadfence();
+      atomicAdd(sync + 1 + g, 1);
+    }
+  }
+}
+
 // Launch the tile for a row source: one kernel where Cout fits one column
 // tile, else the resolve kernel and one MMA block per (row tile, column
 // tile); lists is a scratch of B * ceil(n / BM) * LIST ints (unused and may
@@ -567,6 +774,56 @@ cudaError_t launch_gather_mma(const void* feats, const void* w,
                            static_cast<const T*>(w), source, lists,
                            static_cast<T*>(out), n, n_in, taps, cin, cout,
                            vec_a, vec_b);
+  return cudaGetLastError();
+}
+
+// Launch the ordered tile over a level's k3 order of S segments: lists
+// [S, B, ceil(n / BM), order_list_ints(27 / S)] and counts [S, B]
+// (k3_order.cu), part the f32 partial sums (out itself for f32), sync a
+// scratch of 1 + S * B ints that this clears first.  Two blocks an SM
+// (what the registers and shared memory allow), at most one an item.  Not
+// for the packed mode (Cin * 4 <= BK) nor a strided map.  Returns the
+// first CUDA error.
+template <typename T, class Tag>
+cudaError_t launch_gather_mma_ordered(const void* feats, const void* w,
+                                      const int* lists, const int* counts,
+                                      float* part, void* out, int* sync,
+                                      int segments, int batch, int n,
+                                      int cin, int cout,
+                                      cudaStream_t stream) {
+  if (n <= 0 || batch <= 0 || cout <= 0) return cudaSuccess;
+  if (segments < 1 || K3 % segments != 0 || cin * 4 <= BK || n > ROW_INDEX)
+    return cudaErrorInvalidValue;
+  constexpr int V = Geometry<T>::VEC;
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const int vec_a = cin % V == 0 && aligned(feats);
+  const int vec_b = cout % V == 0 && aligned(w);
+  const int tiles = (n + BM - 1) / BM;
+  const int ctiles = (cout + BN - 1) / BN;
+  const int groups = segments * batch;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err != cudaSuccess) return err;
+  const long long items = static_cast<long long>(groups) * tiles * ctiles;
+  const int blocks = static_cast<int>(
+      items < 2LL * sms ? items : 2LL * sms);
+  const size_t smem = ordered_smem_bytes<T>() + sizeof(int) * (groups + 1);
+  const auto kernel = gather_mma_ordered_kernel<T, Tag>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  err = cudaMemsetAsync(sync, 0, sizeof(int) * (1 + groups), stream);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, THREADS, smem, stream>>>(
+      static_cast<const T*>(feats), static_cast<const T*>(w), lists, counts,
+      part, static_cast<T*>(out), sync, groups, batch, n, tiles, ctiles,
+      K3 / segments, cin, cout, vec_a, vec_b);
   return cudaGetLastError();
 }
 

@@ -29,7 +29,7 @@ from ..sparse import conv as C
 from ..sparse.hierarchy import downsample_level
 from ..sparse.nn import (SparseBatchNorm, SparseConv1x1, SparseConvDown,
                          SparseConvK3, SparseDropout, SparseInstanceNorm,
-                         gelu)
+                         gelu, q8_convs)
 from .blocks import BLOCKS, EXPANSION
 
 
@@ -109,19 +109,25 @@ class SparseResNetBase(nn.Module):
         caps = self.stage_caps or tuple(max(cap >> i, 64)
                                         for i in range(1, 8))
 
+        # the k3 order's cue: an int8 net's k3 convs read none
+        q8 = (feats.dtype if any(m.q8 for _, m in q8_convs(self))
+              else None)
+
         # stem: k3 s2 conv + IN + ReLU + k2 s2 max pool
-        _, l1 = downsample_level(level0, caps[0], stride=2, kernel_size=3)
+        _, l1 = downsample_level(level0, caps[0], stride=2, kernel_size=3,
+                                 q8_dtype=q8)
         out = C.conv_kernel_map(feats, self.stem_kernel, l1.child_idx,
                                 l1.child_hit, l1.valid)
         out = torch.relu(self.stem_in(out, l1.valid))
-        f1, l2 = downsample_level(l1, caps[1], stride=2, kernel_size=2)
+        f1, l2 = downsample_level(l1, caps[1], stride=2, kernel_size=2,
+                                  q8_dtype=q8)
         cur = C.max_pool_down(out, f1, l2)
 
         cur_level = l2
         for s in range(len(self.layers)):
             blocks = getattr(self, f"layer{s + 1}")
             fine, coarse = downsample_level(cur_level, caps[2 + s], stride=2,
-                                            kernel_size=2)
+                                            kernel_size=2, q8_dtype=q8)
             cur = blocks[0](cur, fine, coarse)
             for blk in blocks[1:]:
                 cur = blk(cur, coarse)
@@ -130,7 +136,7 @@ class SparseResNetBase(nn.Module):
         # conv5: dropout + k3 s3 conv + IN + GELU
         cur = self.drop5(cur)
         _, l5 = downsample_level(cur_level, max(64, caps[-1]), stride=3,
-                                 kernel_size=3)
+                                 kernel_size=3, q8_dtype=q8)
         cur = C.conv_kernel_map(cur, self.conv5_kernel, l5.child_idx,
                                 l5.child_hit, l5.valid)
         cur = gelu(self.in5(cur, l5.valid))

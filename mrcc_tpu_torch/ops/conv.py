@@ -32,7 +32,11 @@ rows and a fixed-order sum of its partials.  The autograd Functions
 ``pallas_conv_op``): data cotangents through the forward kernels over the
 reverse maps (the k3 convs over their own level with ``W[26 - k]^T``),
 weight cotangents through the dW kernels.  Both k3 routes train: the self-keyed one and the
-table one.
+table one.  Given a level's k3 order (``ops/k3_order.py``: rows grouped by
+their neighbour masks, in three offset segments), both k3 convs run the
+ordered tile over it instead of the one-pass tile, with the same bits; the
+packed stem (Cin <= 8) keeps the one-pass tile.  :func:`k3_tile_stages`
+counts the stages of both schedules on a level.
 
 Each wrapper launches its kernel for CUDA tensors (f32 or bf16 features,
 weights / gradients of the same dtype, f32 accumulation) and runs its plain
@@ -52,6 +56,7 @@ import torch
 
 from ..sparse.hierarchy import K3_DELTAS as _K3_DELTAS
 from ..tracing import LaunchCounter
+from . import k3_order as _order
 from .build import I, KernelLibrary, P, ptr, stream_ptr
 
 # The k3 data cotangent is the same self-keyed conv with W[26 - k]^T: a hit
@@ -62,6 +67,8 @@ if any(_K3_DELTAS[26 - k] != -d for k, d in enumerate(_K3_DELTAS)):
 SK_LIB = KernelLibrary("conv_sk", {
     "mrcc_conv_sk_f32": (P, P, P, P, P, P, I, I, I, I, P),
     "mrcc_conv_sk_bf16": (P, P, P, P, P, P, I, I, I, I, P),
+    "mrcc_conv_sk_ordered_f32": (P, P, P, P, P, P, P, I, I, I, I, I, P),
+    "mrcc_conv_sk_ordered_bf16": (P, P, P, P, P, P, P, I, I, I, I, I, P),
 })
 MAP_LIB = KernelLibrary("conv_map", {
     "mrcc_conv_down_lists": (P, P, P, P, P, I, I, I, P),
@@ -74,6 +81,8 @@ MAP_LIB = KernelLibrary("conv_map", {
     "mrcc_zero_rows_bf16": (P, P, P, I, I, P),
     "mrcc_conv_k3map_f32": (P, P, P, P, P, P, I, I, I, I, P),
     "mrcc_conv_k3map_bf16": (P, P, P, P, P, P, I, I, I, I, P),
+    "mrcc_conv_k3map_ordered_f32": (P, P, P, P, P, P, P, I, I, I, I, I, P),
+    "mrcc_conv_k3map_ordered_bf16": (P, P, P, P, P, P, P, I, I, I, I, I, P),
     "mrcc_conv_map_f32": (P, P, P, P, P, P, I, I, I, I, I, I, P),
     "mrcc_conv_map_bf16": (P, P, P, P, P, P, I, I, I, I, I, I, P),
 })
@@ -230,6 +239,35 @@ def _k3_lists(b, n, cout, device):
                        device=device)
 
 
+def _ordered(order, feats, name):
+    """Whether a k3 conv runs the ordered tile over ``order`` (given, and
+    not the packed stem: Cin <= 8); raises if it is another level's."""
+    if order is None or feats.shape[-1] * 4 <= 32:
+        return False
+    b, n = feats.shape[:2]
+    if order.mask.shape != (b, n):
+        raise ValueError(f"{name}: k3 order of {tuple(order.mask.shape)} "
+                         f"rows, feats {tuple(feats.shape)}")
+    return True
+
+
+def _ordered_launch(lib, fname, feats, weights, order):
+    """The ordered tile on checked, contiguous CUDA operands: its f32
+    partial sums in out (f32) or in a scratch (bf16), its ticket and each
+    (segment, item)'s count of finished tiles in a scratch of 1 + S * B
+    ints."""
+    b, n, cin = feats.shape
+    cout = weights.shape[-1]
+    out = torch.empty((b, n, cout), dtype=feats.dtype, device=feats.device)
+    f32 = feats.dtype == torch.float32
+    _, (part, sync) = _scratch(feats.device, (
+        0 if f32 else 4 * b * n * cout, 4 * (1 + order.segments * b)))
+    lib.call(fname, ptr(feats), ptr(weights), ptr(order.lists),
+             ptr(order.counts), part, sync, ptr(out), order.segments, b, n,
+             cin, cout, stream_ptr(feats))
+    return out
+
+
 def _wide(dtype):
     """The plain twins' operand dtype: f32, or float64 for float64."""
     return torch.promote_types(dtype, torch.float32)
@@ -273,7 +311,7 @@ def gather_gemm_sk_plain(feats, weights, key, kbits):
     return out.to(feats.dtype)
 
 
-def gather_gemm_sk(feats, weights, key, kbits):
+def gather_gemm_sk(feats, weights, key, kbits, order=None):
     """Self-keyed k=3 s=1 conv.
 
     ``out[b, i] = sum_k bit_k(kbits[b, i]) * feats[b, j] @ W[k]`` with
@@ -283,6 +321,8 @@ def gather_gemm_sk(feats, weights, key, kbits):
       feats: [B, N, Cin] f32/bf16; weights: [27, Cin, Cout] same dtype.
       key: int32 [B, N] sorted per item (KEY_PAD padding).
       kbits: int32 [B, N] per-row offset validity bitmap (0 at padding).
+      order: the level's k3 order (``ops.k3_order``) or None; the card
+        runs the ordered tile over it (the same bits).
     Returns [B, N, Cout] in the feature dtype (f32 accumulation).
     """
     if not _route(feats, weights, key, kbits):
@@ -294,6 +334,11 @@ def gather_gemm_sk(feats, weights, key, kbits):
     if key.shape != (b, n) or kbits.shape != (b, n):
         raise ValueError("gather_gemm_sk: key/kbits must be [B, N]")
     feats, weights = feats.contiguous(), weights.contiguous()
+    if _ordered(order, feats, "gather_gemm_sk"):
+        out = _ordered_launch(SK_LIB, "mrcc_conv_sk_ordered_"
+                              f"{_SUFFIX[feats.dtype]}", feats, weights, order)
+        SK.launches += 1
+        return out
     key, kbits = key.contiguous(), kbits.contiguous()
     out = torch.empty((b, n, cout), dtype=feats.dtype, device=feats.device)
     lists = _k3_lists(b, n, cout, feats.device)
@@ -356,7 +401,7 @@ def gather_gemm_k3_map_plain(feats, weights, nbr_idx, nbr_hit):
     return _map_conv(feats, weights, nbr_idx, nbr_hit)
 
 
-def gather_gemm_k3_map(feats, weights, nbr_idx, nbr_hit):
+def gather_gemm_k3_map(feats, weights, nbr_idx, nbr_hit, order=None):
     """k=3 s=1 conv over a level's neighbour tables.
 
     ``out[b, i] = sum_k nbr_hit[k, b, i] * feats[b, nbr_idx[k, b, i]] @ W[k]``
@@ -365,6 +410,7 @@ def gather_gemm_k3_map(feats, weights, nbr_idx, nbr_hit):
       feats: [B, N, Cin] f32/bf16; weights: [27, Cin, Cout] same dtype.
       nbr_idx: int32 [27, B, N]; nbr_hit: bool [27, B, N]
         (``sparse.hierarchy.neighbor_tables``).
+      order: the level's k3 order or None, as for :func:`gather_gemm_sk`.
     Returns [B, N, Cout] in the feature dtype (f32 accumulation).
     """
     if not _route(feats, weights, nbr_idx, nbr_hit):
@@ -376,6 +422,11 @@ def gather_gemm_k3_map(feats, weights, nbr_idx, nbr_hit):
     if nbr_idx.shape != (27, b, n) or nbr_hit.shape != (27, b, n):
         raise ValueError("gather_gemm_k3_map: tables must be [27, B, N]")
     feats, weights = feats.contiguous(), weights.contiguous()
+    if _ordered(order, feats, "gather_gemm_k3_map"):
+        out = _ordered_launch(MAP_LIB, "mrcc_conv_k3map_ordered_"
+                              f"{_SUFFIX[feats.dtype]}", feats, weights, order)
+        K3MAP.launches += 1
+        return out
     nbr_idx, nbr_hit = nbr_idx.contiguous(), nbr_hit.contiguous()
     out = torch.empty((b, n, cout), dtype=feats.dtype, device=feats.device)
     lists = _k3_lists(b, n, cout, feats.device)
@@ -384,6 +435,31 @@ def gather_gemm_k3_map(feats, weights, nbr_idx, nbr_hit):
                  ptr(out), b, n, feats.shape[-1], cout, stream_ptr(feats))
     K3MAP.launches += 1
     return out
+
+
+def k3_tile_stages(level, order=None):
+    """How far the k3 order cuts the k3 tile's work on one level: ring
+    stages as 64 x the (tile, offset) pairs with a hit, and MMA slots as 16
+    x the (16-row group, offset) pairs with a hit, each per (row, offset)
+    hit, in key order (the one-pass tile: 64 consecutive rows, all 27
+    offsets) and in ``order`` (default: the level's ``k3_order``, else built
+    here).  Off the hot path: it reads the counts back to the host.
+
+    Returns ``{"hits", "stages_row_order", "stages_ordered",
+    "mma_row_order", "mma_ordered"}`` (per hit; 0 for a level with no
+    hit)."""
+    order = order or level.k3_order or _order.level_order(level)
+    if order is None:
+        return {"hits": 0, "stages_row_order": 0.0, "stages_ordered": 0.0,
+                "mma_row_order": 0.0, "mma_ordered": 0.0}
+    hits = _order.hits(order)
+    per = max(hits, 1)
+    pairs0, groups0 = _order.key_order_stages(order.mask)
+    pairs1, groups1 = _order.tile_stages(order)
+    return {"hits": hits, "stages_row_order": 64 * pairs0 / per,
+            "stages_ordered": 64 * pairs1 / per,
+            "mma_row_order": 16 * groups0 / per,
+            "mma_ordered": 16 * groups1 / per}
 
 
 def gather_gemm_map_plain(feats, weights, map_idx, map_hit):
@@ -897,12 +973,14 @@ def _masked(g, valid, dtype):
 
 class SkConvFn(torch.autograd.Function):
     """:func:`gather_gemm_sk` with the self-keyed conv's VJP.
-    ``apply(feats, weights, key, kbits, valid)``."""
+    ``apply(feats, weights, key, kbits, valid, order=None)``: the data
+    cotangent runs over the same k3 order (the same hits)."""
 
     @staticmethod
-    def forward(ctx, feats, weights, key, kbits, valid):
+    def forward(ctx, feats, weights, key, kbits, valid, order=None):
         ctx.save_for_backward(feats, weights, key, kbits, valid)
-        return gather_gemm_sk(feats, weights, key, kbits)
+        ctx.order = order
+        return gather_gemm_sk(feats, weights, key, kbits, order)
 
     @staticmethod
     def backward(ctx, g):
@@ -911,10 +989,10 @@ class SkConvFn(torch.autograd.Function):
         dfeats = dw = None
         if ctx.needs_input_grad[0]:
             dfeats = gather_gemm_sk(g_m, weights.flip(0).transpose(1, 2),
-                                    key, kbits)
+                                    key, kbits, ctx.order)
         if ctx.needs_input_grad[1]:
             dw = dw_sk(feats, g_m, key, kbits).to(weights.dtype)
-        return dfeats, dw, None, None, None
+        return dfeats, dw, None, None, None, None
 
 
 class K3MapConvFn(torch.autograd.Function):
@@ -922,12 +1000,14 @@ class K3MapConvFn(torch.autograd.Function):
     ``pallas_conv_op``).  ``apply(feats, weights, nbr_idx, nbr_hit,
     valid)``.  The data cotangent runs the same tables: they are symmetric
     (``nbr(i, k) = j`` with a hit iff ``nbr(j, 26 - k) = i`` with a hit,
-    the ``kbits`` gate holding both ways)."""
+    the ``kbits`` gate holding both ways), and so does the k3 order
+    (``apply(..., valid, order=None)``)."""
 
     @staticmethod
-    def forward(ctx, feats, weights, nbr_idx, nbr_hit, valid):
+    def forward(ctx, feats, weights, nbr_idx, nbr_hit, valid, order=None):
         ctx.save_for_backward(feats, weights, nbr_idx, nbr_hit, valid)
-        return gather_gemm_k3_map(feats, weights, nbr_idx, nbr_hit)
+        ctx.order = order
+        return gather_gemm_k3_map(feats, weights, nbr_idx, nbr_hit, order)
 
     @staticmethod
     def backward(ctx, g):
@@ -936,10 +1016,10 @@ class K3MapConvFn(torch.autograd.Function):
         dfeats = dw = None
         if ctx.needs_input_grad[0]:
             dfeats = gather_gemm_k3_map(g_m, weights.flip(0).transpose(1, 2),
-                                        nbr_idx, nbr_hit)
+                                        nbr_idx, nbr_hit, ctx.order)
         if ctx.needs_input_grad[1]:
             dw = dw_k3_map(feats, g_m, nbr_idx, nbr_hit).to(weights.dtype)
-        return dfeats, dw, None, None, None
+        return dfeats, dw, None, None, None, None
 
 
 class DownConvFn(torch.autograd.Function):

@@ -34,7 +34,7 @@ from ..ops.conv import (DownConvFn, K3MapConvFn, SkConvFn, UpConvFn,
                         gather_gemm_sk, gather_gemm_up)
 from ..ops.conv_q8 import (gather_gemm_down_q8, gather_gemm_k3_map_q8,
                            gather_gemm_sk_q8, gather_gemm_up_q8)
-from .hierarchy import q8_route
+from .hierarchy import k3_takes_q8, q8_route
 
 
 def _with_bias(out, bias, valid):
@@ -52,25 +52,27 @@ def conv_k3(feats, weights, level, bias=None, q8=False, act_absmax=None):
     """k=3 s=1 submanifold conv on one level: the k3-table conv (K3; B7
     with ``q8`` where :func:`~.hierarchy.q8_route` accepts the level) where
     the level carries tables, else the self-keyed one (K2; B6 with
-    ``q8``)."""
+    ``q8``); K2 and K3 over the level's k3 order where it has one."""
     tables = level.nbr_idx is not None
-    n = feats.shape[1]
-    if q8 and (not tables or q8_route("k3", n, n, feats.element_size())):
+    if q8 and k3_takes_q8(level, feats.element_size()):
         out = (gather_gemm_k3_map_q8(feats, weights, level.nbr_idx,
                                      level.nbr_hit, act_absmax) if tables
                else gather_gemm_sk_q8(feats, weights, level.key, level.kbits,
                                       act_absmax))
         return _with_bias(out, bias, level.valid)
     w = weights.to(feats.dtype)
+    order = level.k3_order
     if tables:
         maps = (level.nbr_idx, level.nbr_hit)
-        out = (K3MapConvFn.apply(feats, w, *maps, level.valid)
-               if _recorded(feats, w) else gather_gemm_k3_map(feats, w, *maps))
+        out = (K3MapConvFn.apply(feats, w, *maps, level.valid, order)
+               if _recorded(feats, w)
+               else gather_gemm_k3_map(feats, w, *maps, order))
         return _with_bias(out, bias, level.valid)
     if _recorded(feats, w):
-        out = SkConvFn.apply(feats, w, level.key, level.kbits, level.valid)
+        out = SkConvFn.apply(feats, w, level.key, level.kbits, level.valid,
+                             order)
     else:
-        out = gather_gemm_sk(feats, w, level.key, level.kbits)
+        out = gather_gemm_sk(feats, w, level.key, level.kbits, order)
     return _with_bias(out, bias, level.valid)
 
 

@@ -12,7 +12,10 @@ kernel read (port of ``ops/rank_pallas.py::sk_bits``; plain tensor code,
 no kernel), and on the levels :func:`uses_k3_tables` (inference) or
 :func:`train_uses_k3_tables` (training) names, the 27-offset neighbour
 tables ``nbr_idx``/``nbr_hit`` built by the rank kernel
-(:func:`neighbor_tables`).  :func:`downsample_level` builds one coarser
+(:func:`neighbor_tables`), and on the card each level's k3 order
+(``ops.k3_order``: the schedule of the k3 convs' tile, rows grouped by
+their neighbour masks in three offset segments), which every k3 conv on
+the level reads but an int8 one (:func:`with_k3_order`).  :func:`downsample_level` builds one coarser
 level for any (kernel size, stride): parents by floor division and a
 strided child map from the rank kernel's child-table mode
 (``ops.rank.child_tables``).
@@ -26,6 +29,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..ops.k3_order import K3Order, level_order
 from ..ops.rank import border_bits, child_tables, rank_lookup
 from ..tracing import span
 from .quantize import run_ids, segment_ids, segment_min, segment_sum
@@ -92,6 +96,8 @@ class Level:
       kernel).
     nbr_idx/nbr_hit: [27, B, N] k=3 neighbour tables (int32 / bool) on the
       levels that take the table route, else None.
+    k3_order: the level's k3 order (``ops.k3_order.K3Order``) where
+      ``build_hierarchy`` built it (levels on the card), else None.
     """
 
     off: torch.Tensor
@@ -107,6 +113,7 @@ class Level:
     kbits: Optional[torch.Tensor] = None
     nbr_idx: Optional[torch.Tensor] = None
     nbr_hit: Optional[torch.Tensor] = None
+    k3_order: Optional[K3Order] = None
 
 
 def uses_k3_tables(n: int, conv_impl: str = "pallas",
@@ -195,6 +202,28 @@ def q8_route(kind: str, n_fine: int, n_coarse: int, itemsize: int) -> bool:
     raise ValueError(f"q8_route: kind {kind!r}")
 
 
+def k3_takes_q8(level: Level, itemsize: int) -> bool:
+    """Whether an int8 stage's k3 conv on ``level`` (features of
+    ``itemsize`` bytes) runs in int8 (B6 / B7): always on a self-keyed
+    level, where :func:`q8_route` accepts it on a table level."""
+    n = level.key.shape[1]
+    return level.nbr_idx is None or q8_route("k3", n, n, itemsize)
+
+
+def with_k3_order(level: Level,
+                  q8_dtype: Optional[torch.dtype] = None) -> Level:
+    """``level`` with its k3 order (``Level.k3_order``, built by
+    ``ops.k3_order``) where its k3 convs run the ordered tile: on the card,
+    on a level with a k3 bitmap, and not where they run in int8
+    (``q8_dtype``: the features' dtype of a stage whose convs take the
+    int8 route, else None).  The plain twins of the CPU need no order."""
+    if (level.kbits is None or not level.key.is_cuda
+            or (q8_dtype is not None
+                and k3_takes_q8(level, q8_dtype.itemsize))):
+        return level
+    return dataclasses.replace(level, k3_order=level_order(level))
+
+
 def neighbor_tables(level: Level):
     """The level's 27-offset neighbour tables ``(idx [27, B, N] int32,
     hit [27, B, N] bool)`` through the rank kernel (port of
@@ -276,7 +305,8 @@ def hierarchy_caps(voxel_capacity: int) -> Tuple[int, ...]:
 def build_hierarchy(voxels: SparseVoxels, depth: int,
                     capacities: Optional[Tuple[int, ...]] = None,
                     build_k3: bool = True,
-                    k3_tables: Optional[Sequence[bool]] = None
+                    k3_tables: Optional[Sequence[bool]] = None,
+                    q8_dtype: Optional[torch.dtype] = None
                     ) -> Tuple[Level, ...]:
     """Build ``depth + 1`` stride levels (stride 1, 2, ..., 2**depth).
 
@@ -285,7 +315,9 @@ def build_hierarchy(voxels: SparseVoxels, depth: int,
     level's k=3 bitmap (``False`` for occupancy probes).  ``k3_tables``:
     per level (``depth + 1`` flags, finest first), whether to build its
     neighbour tables for the table conv (:func:`uses_k3_tables`); None
-    builds none (every level self-keyed).  Finest first.
+    builds none (every level self-keyed).  With ``build_k3``, each level
+    gets its k3 order where :func:`with_k3_order` (given ``q8_dtype``)
+    says its k3 convs read one.  Finest first.
     """
     n0 = voxels.key.shape[1]
     if capacities is None:
@@ -303,10 +335,10 @@ def build_hierarchy(voxels: SparseVoxels, depth: int,
             return level
         level = dataclasses.replace(level, kbits=k3_bits(level.off,
                                                          level.valid))
-        if not table:
-            return level
-        idx, hit = neighbor_tables(level)
-        return dataclasses.replace(level, nbr_idx=idx, nbr_hit=hit)
+        if table:
+            idx, hit = neighbor_tables(level)
+            level = dataclasses.replace(level, nbr_idx=idx, nbr_hit=hit)
+        return with_k3_order(level, q8_dtype)
 
     levels = []
     cur = Level(off=voxels.off, key=voxels.key, valid=voxels.valid,
@@ -343,7 +375,8 @@ def child_table_plain(parent_off, parent_valid, child_key, offsets, stride=2):
 
 
 def downsample_level(level: Level, capacity: int, stride: int = 2,
-                     kernel_size: int = 2, build_k3: bool = True):
+                     kernel_size: int = 2, build_k3: bool = True,
+                     q8_dtype: Optional[torch.dtype] = None):
     """The next-coarser level for a (kernel_size, stride) conv (port of
     ``mrcc_tpu/sparse/hierarchy.py::downsample_level``), the sparse ResNet's
     pyramid: its k=3 s=2 stem, k=2 s=2 pools and stages, k=3 s=3 conv5.
@@ -354,7 +387,8 @@ def downsample_level(level: Level, capacity: int, stride: int = 2,
     ``child_hit`` [K, B, Np] (K = 8 for k=2, 27 for k=3, offsets centred on
     ``parent * stride``) from the rank kernel's child-table mode, and with
     ``build_k3`` its ``kbits`` and 27-offset neighbour tables (the JAX
-    function always builds tables here, never a self-keyed pack).
+    function always builds tables here, never a self-keyed pack) and its k3
+    order as :func:`build_hierarchy` gives one (``q8_dtype``).
     Returns ``(fine level with parent links, coarse level)``.
     """
     coarse, parent_idx, parent_ok, octant = downsample(
@@ -371,5 +405,6 @@ def downsample_level(level: Level, capacity: int, stride: int = 2,
         coarse = dataclasses.replace(coarse, kbits=k3_bits(coarse.off,
                                                            coarse.valid))
         idx, hit = neighbor_tables(coarse)
-        coarse = dataclasses.replace(coarse, nbr_idx=idx, nbr_hit=hit)
+        coarse = with_k3_order(dataclasses.replace(coarse, nbr_idx=idx,
+                                                   nbr_hit=hit), q8_dtype)
     return fine, coarse

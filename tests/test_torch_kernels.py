@@ -41,7 +41,12 @@ down and up modes on f32 features (an int8 engine at f32 compute) equal
 their twins bit for bit; ``evaluate_segmentation`` at a reduced size
 holds the card against the CPU (metrics 1e-3).  The engine on a 1-rank
 NCCL mesh gives the engine's own bits; the host runtime's voxels
-(``native``) equal the card voxelizer's (feature means 1e-5).
+(``native``) equal the card voxelizer's (feature means 1e-5).  The k3
+order's kernels equal their plain twin integer for integer (both row
+sources; two launches a build, one build a level in ``build_hierarchy``),
+and K2 and the k3-table conv over it give the same bits (``torch.equal``)
+as over the one-segment identity order and as the one-pass tile, f32 and
+bf16, forward and data cotangent, padding rows and rows with no hit 0.
 """
 
 import numpy as np
@@ -49,7 +54,7 @@ import pytest
 import torch
 
 from mrcc_tpu_torch.data.synthetic import build_batch
-from mrcc_tpu_torch.ops import conv, conv_q8, nn, norm, rank, sort
+from mrcc_tpu_torch.ops import conv, conv_q8, k3_order, nn, norm, rank, sort
 from mrcc_tpu_torch.sparse import (KEY_PAD, build_hierarchy, neighbor_tables,
                                    voxelize)
 from mrcc_tpu_torch.sparse.hierarchy import K3_DELTAS
@@ -827,6 +832,165 @@ def test_conv_k3_map(cuda, levels, l, cin, cout):
     assert _rel(got, want) <= 1e-5
     got16 = conv.gather_gemm_k3_map(f.bfloat16(), w.bfloat16(), idx, hit)
     assert got16.dtype == torch.bfloat16 and _rel(got16, want) <= 2e-2
+
+
+# ------------------------------------------------------- the k3 order
+
+
+def _orders(lv):
+    """The level's three-segment order, a nine-segment one and the
+    one-segment identity order (the one-pass tile's own schedule), each
+    built on the card."""
+    maps = (lv.key, lv.kbits, lv.nbr_idx, lv.nbr_hit)
+    return (k3_order.level_order(lv),
+            k3_order.build_k3_order(*maps, segments=9),
+            k3_order.build_k3_order(*maps, segments=1, sort=False))
+
+
+@pytest.mark.parametrize("l", [0, 2])
+def test_k3_order_equals_twin(cuda, levels, l):
+    """The order's kernels (rows, K1, lists) equal the plain twin integer
+    for integer on both row sources, for three segments, one sorted
+    segment and the identity order: two launches on ``k3_order`` a build
+    and one K1 sort where it sorts."""
+    lv = levels[l]
+    tables = neighbor_tables(lv)
+    cpu = [t.cpu() for t in (lv.key, lv.kbits, *tables)]
+    for segments, srt in ((3, True), (9, True), (1, True), (1, False)):
+        want = k3_order.build_k3_order_plain(*cpu[:2], segments=segments,
+                                             sort=srt)
+        for maps in ((), tables):
+            before = (k3_order.K3_ORDER.launches, sort.SORT.launches)
+            got = k3_order.build_k3_order(lv.key, lv.kbits, *maps,
+                                          segments=segments, sort=srt)
+            assert (k3_order.K3_ORDER.launches, sort.SORT.launches) == (
+                before[0] + 2, before[1] + int(srt))
+            assert torch.equal(got.mask.cpu(), want.mask)
+            assert torch.equal(got.lists.cpu(), want.lists)
+            assert torch.equal(got.counts.cpu(), want.counts)
+
+
+def test_k3_order_one_build_a_level(cuda):
+    """``build_hierarchy`` builds each level's order once (two launches on
+    ``k3_order``); the k3 convs over it launch none."""
+    from mrcc_tpu_torch.sparse import conv as C
+
+    pts, rgb, mask = build_batch(2, 4096, seed=3)
+    vox, _ = voxelize(torch.as_tensor(pts, device=cuda),
+                      torch.as_tensor(rgb, device=cuda),
+                      torch.as_tensor(mask, device=cuda), 1 / 100.0, 3072)
+    before = k3_order.K3_ORDER.launches
+    lvs = build_hierarchy(vox, 4, capacities=(2048, 1024, 512, 256))
+    assert k3_order.K3_ORDER.launches == before + 2 * len(lvs)
+    assert all(lv.k3_order is not None for lv in lvs)
+    f = _feats(lvs[0], 48).requires_grad_()
+    w = torch.randn((27, 48, 40), device=cuda, requires_grad=True)
+    before = k3_order.K3_ORDER.launches
+    C.conv_k3(f, w, lvs[0]).sum().backward()
+    assert k3_order.K3_ORDER.launches == before
+
+
+def test_k3_order_where_the_k3_convs_read_it(cuda):
+    """One rule for both level builders (``with_k3_order``): a level gets
+    its order unless its k3 convs take the int8 route, every self-keyed
+    level of an int8 stage and its table levels that ``q8_route``
+    accepts; ``downsample_level``'s coarse levels (the sparse ResNets')
+    get theirs too."""
+    from mrcc_tpu_torch.sparse import downsample_level
+    from mrcc_tpu_torch.sparse.hierarchy import k3_takes_q8
+
+    pts, rgb, mask = build_batch(2, 4096, seed=3)
+    vox, _ = voxelize(torch.as_tensor(pts, device=cuda),
+                      torch.as_tensor(rgb, device=cuda),
+                      torch.as_tensor(mask, device=cuda), 1 / 100.0, 3072)
+    caps, tables = (2048, 1000, 512, 256), (True, True, True, False, False)
+    bf16 = build_hierarchy(vox, 4, capacities=caps, k3_tables=tables)
+    q8 = build_hierarchy(vox, 4, capacities=caps, k3_tables=tables,
+                         q8_dtype=torch.bfloat16)
+    assert all(lv.k3_order is not None for lv in bf16)
+    int8 = [k3_takes_q8(lv, 2) for lv in q8]
+    assert int8 == [True, True, False, True, True]
+    assert [lv.k3_order is None for lv in q8] == int8
+    assert torch.equal(q8[2].k3_order.lists, bf16[2].k3_order.lists)
+    for cap, q8_dtype in ((1000, None), (1024, None), (1000, torch.bfloat16),
+                          (1024, torch.bfloat16)):
+        _, coarse = downsample_level(bf16[0], cap, stride=2, kernel_size=2,
+                                     q8_dtype=q8_dtype)
+        assert coarse.nbr_idx is not None
+        assert (coarse.k3_order is None) == (q8_dtype is not None
+                                             and cap == 1024)
+
+
+def _check_ordered(fn, plain, maps, lv, cin, cout, counter):
+    """One k3 conv over the level's three-segment order, over a
+    nine-segment one, over the identity order and with no order (the
+    one-pass tile), forward and data cotangent (W[26 - k]^T): all four
+    bit-equal (``torch.equal``) in f32 and bf16, one launch a call, f32
+    within 1e-5 and bf16 within 2e-2 of the plain twin; padding rows come
+    out 0."""
+    orders = _orders(lv) + (None,)
+    w0 = torch.randn((27, cin, cout), device=lv.key.device) / cin**0.5
+    for w, c in ((w0, cin), (w0.flip(0).transpose(1, 2), cout)):
+        f = _feats(lv, c)
+        want = plain(f, w, *maps)
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+            fd, wd = f.to(dtype), w.to(dtype)
+            before = counter.launches
+            outs = [fn(fd, wd, *maps, order) for order in orders]
+            assert counter.launches == before + len(orders)
+            assert all(o.dtype == dtype for o in outs)
+            assert all(torch.equal(outs[0], o) for o in outs[1:])
+            assert _rel(outs[0], want) <= tol
+            assert not outs[0][~lv.valid].any()
+
+
+@pytest.mark.parametrize("cin,cout", [(48, 64), (130, 70), (96, 256),
+                                      (384, 384)])
+@pytest.mark.parametrize("l", [0, 2])
+@pytest.mark.parametrize("route", ["sk", "k3map"])
+def test_ordered_k3_convs_bit_equal(cuda, levels, route, l, cin, cout):
+    lv = levels[l]
+    if route == "sk":
+        _check_ordered(conv.gather_gemm_sk, conv.gather_gemm_sk_plain,
+                       (lv.key, lv.kbits), lv, cin, cout, conv.SK)
+    else:
+        _check_ordered(conv.gather_gemm_k3_map, conv.gather_gemm_k3_map_plain,
+                       neighbor_tables(lv), lv, cin, cout, conv.K3MAP)
+
+
+@pytest.mark.parametrize("which", ["train", "scene"])
+def test_ordered_k3_convs_at_the_cells_level_0(cuda, request, which):
+    """The cells' widest k3 conv (416 -> 384) at their level 0: 8 x 16384
+    rows self-keyed, 2 x 65536 on tables; the order cuts the stages at
+    least 2x (``k3_tile_stages``)."""
+    lv = request.getfixturevalue(f"{which}_level")
+    if which == "train":
+        _check_ordered(conv.gather_gemm_sk, conv.gather_gemm_sk_plain,
+                       (lv.key, lv.kbits), lv, 416, 384, conv.SK)
+    else:
+        _check_ordered(conv.gather_gemm_k3_map, conv.gather_gemm_k3_map_plain,
+                       neighbor_tables(lv), lv, 416, 384, conv.K3MAP)
+    st = conv.k3_tile_stages(lv)
+    assert st["stages_row_order"] >= 2 * st["stages_ordered"] >= 2
+
+
+def test_ordered_k3_conv_rows_with_no_hit(cuda, ragged_level):
+    """Rows whose bitmap is 0 hit nothing: over an order built from such a
+    bitmap every row lies in segment 0 with no offset and comes out 0."""
+    import dataclasses
+
+    lv = dataclasses.replace(ragged_level,
+                             kbits=torch.zeros_like(ragged_level.kbits))
+    order = k3_order.level_order(lv)
+    f = _feats(ragged_level, 96)
+    w = torch.randn((27, 96, 256), device=cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        got = conv.gather_gemm_sk(f.to(dtype), w.to(dtype), lv.key, lv.kbits,
+                                  order)
+        assert got.dtype == dtype and not got.any()
+        got = conv.gather_gemm_k3_map(f.to(dtype), w.to(dtype),
+                                      *neighbor_tables(lv), order)
+        assert not got.any()
 
 
 @pytest.mark.parametrize("cin,cout", [(3, 32), (48, 64), (384, 40),
