@@ -343,13 +343,14 @@ NN kernels at phase 3's shapes under several values of their wrappers'
 constants (rank: query rows a block and shared-window keys; NN: blocks in
 flight), in turns, each run compared with its twin; ``--icp`` builds phase
 9's bf16 engine and runs only its ``icp_refine(use_pallas=True)`` check
-and timing, three times.  Phases 6-10 count K3's list stage and
-child sum beside its down / up launches and report ``k3_device_ms`` (its
-list kernel, list GEMM, child sum and zero pass) beside
-``dw_device_ms``; phases 8 and 9 count the int8 convs' quantisation, list
-and child-sum launches, and report ``q8_device_ms`` (every int8 kernel),
-the CUDA kernel launches of a profiled batch and the launches per int8
-conv call by kind.
+and timing, three times.  Phases 6-10 count the list kernel (one launch
+a map of the hierarchy, ``ops/hit_lists.py``) and K3's child sum beside
+its down / up launches and report ``lists_device_ms`` (the list kernel)
+beside ``k3_device_ms`` (K3's list GEMM, child sum and zero pass) and
+``dw_device_ms`` (the dW GEMM and its slot sum); phases 8 and 9 count the
+int8 convs' quantisation and child-sum launches, and report
+``q8_device_ms`` (every int8 kernel), the CUDA kernel launches of a
+profiled batch and the launches per int8 conv call by kind.
 
 f32 phases run with TF32 off (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` False).  The last lines are the card's
@@ -391,9 +392,9 @@ SOURCES = {
     "conv_sk": "mrcc_tpu_torch/csrc/conv_sk.cu",
     "conv_down": "mrcc_tpu_torch/csrc/conv_map.cu",
     "conv_up": "mrcc_tpu_torch/csrc/conv_map.cu",
-    "dw_sk": "mrcc_tpu_torch/csrc/conv_dw_sk.cu",
-    "dw_down": "mrcc_tpu_torch/csrc/conv_dw_map.cu",
-    "dw_up": "mrcc_tpu_torch/csrc/conv_dw_map.cu",
+    "dw_sk": "mrcc_tpu_torch/csrc/conv_dw.cu",
+    "dw_down": "mrcc_tpu_torch/csrc/conv_dw.cu",
+    "dw_up": "mrcc_tpu_torch/csrc/conv_dw.cu",
     "conv_sk_q8": "mrcc_tpu_torch/csrc/conv_sk_q8.cu",
     "conv_down_q8": "mrcc_tpu_torch/csrc/conv_map_q8.cu",
     "conv_up_q8": "mrcc_tpu_torch/csrc/conv_map_q8.cu",
@@ -403,8 +404,8 @@ SOURCES = {
     "conv_k3map_q8": "mrcc_tpu_torch/csrc/conv_map_q8.cu",
     "q8_quantize": "mrcc_tpu_torch/csrc/q8_quantize.cuh",
     "nn_search": "mrcc_tpu_torch/csrc/nn_search.cu",
-    "dw_k3map": "mrcc_tpu_torch/csrc/conv_dw_map.cu",
-    "dw_lists": "mrcc_tpu_torch/csrc/hit_lists.cuh",
+    "dw_k3map": "mrcc_tpu_torch/csrc/conv_dw.cu",
+    "hit_lists": "mrcc_tpu_torch/csrc/hit_lists.cu",
     "norm": "mrcc_tpu_torch/csrc/norm.cu",
 }
 K2_TPU = "mrcc_tpu/ops/conv_pallas.py:767"    # _gather_gemm_call_sk
@@ -488,13 +489,14 @@ def bound_ms(nbytes, ops, kind):
 # ------------------------------------------------------------- phases
 
 def phase_build():
-    from mrcc_tpu_torch.ops import (conv, conv_q8, k3_order, nn, norm, rank,
-                                    sort)
+    from mrcc_tpu_torch.ops import (conv, conv_q8, hit_lists, k3_order, nn,
+                                    norm, rank, sort)
     from mrcc_tpu_torch.ops.build import build_all
 
     t0 = time.perf_counter()
-    infos = build_all([sort.LIB, *conv.LIBRARIES, *conv_q8.LIBRARIES,
-                       rank.LIB, nn.LIB, norm.LIB, k3_order.LIB])
+    infos = build_all([sort.LIB, hit_lists.LIB, *conv.LIBRARIES,
+                       *conv_q8.LIBRARIES, rank.LIB, nn.LIB, norm.LIB,
+                       k3_order.LIB])
     log("build", seconds=round(time.perf_counter() - t0, 3),
         sources={i.name: {"seconds": round(i.seconds, 3),
                           "ptxas": i.resource_lines()} for i in infos})
@@ -704,7 +706,7 @@ def phase_kernels(levels, tlevels, plevels, slevels, device):
     of the inference path, ``tlevels`` of the training path, ``plevels`` of
     the production path (tables on its levels 0 and 1), ``slevels`` of the
     scene-scale training path (tables on its levels 0-2)."""
-    from mrcc_tpu_torch.ops import conv, k3_order, nn, rank, sort
+    from mrcc_tpu_torch.ops import conv, hit_lists, k3_order, nn, rank, sort
     from mrcc_tpu_torch.sparse import neighbor_tables
     from mrcc_tpu_torch.sparse.hierarchy import K3_DELTAS
 
@@ -971,10 +973,10 @@ def phase_kernels(levels, tlevels, plevels, slevels, device):
         # the hit lists, exact against their twin; then the yardstick of
         # the GEMM alone: torch.mm over the operands of the same hits,
         # gathered beforehand (f32, TF32 off)
-        kind = kernel.removeprefix("dw_")
+        kind = {"dw_k3_map": "k3map"}.get(kernel, kernel.removeprefix("dw_"))
         n_in = f.shape[1]
-        lists = conv.dw_hit_lists(kind, n_in, *maps)
-        twin = conv.dw_hit_lists_plain(kind, n_in, *maps)
+        lists = hit_lists.HitLists(kind, n_in, *maps).entries()
+        twin = hit_lists.hit_lists_plain(kind, n_in, *maps)
         if not all(torch.equal(a, b) for a, b in zip(lists, twin)):
             raise AssertionError(f"{name}: hit lists differ from the twin")
         ff, gg = f.reshape(-1, cin), g.reshape(-1, cout)
@@ -1000,15 +1002,14 @@ def phase_kernels(levels, tlevels, plevels, slevels, device):
         # the list kernel once per source: the maps of valid rows read,
         # two ints a hit and the counts written
         listed.add(kind)
-        raw = [m.contiguous() for m in maps]
         records.append(dict(
-            name=f"dw_lists[{kind} {name.split('[', 1)[1].split(' ')[0]}]",
-            kernel="dw_lists", path=path, route="cuda",
-            source=SOURCES["dw_lists"], replaces=DW_TPU[kernel],
+            name=f"hit_lists[{kind} {name.split('[', 1)[1].split(' ')[0]}]",
+            kernel="hit_lists", path=path, route="cuda",
+            source=SOURCES["hit_lists"], replaces=DW_TPU[kernel],
             max_abs_err=0.0, tolerance="exact", work=work,
-            ms=cuda_ms(lambda: conv._launch_hit_lists(kind, n_in, raw)),
-            plain_ms=cuda_ms(lambda: conv.dw_hit_lists_plain(kind, n_in,
-                                                             *maps)),
+            ms=cuda_ms(lambda: list_once(kind, n_in, maps)),
+            plain_ms=cuda_ms(lambda: hit_lists.hit_lists_plain(kind, n_in,
+                                                               *maps)),
             library_ms=None, **dict(zip(("bound_ms", "bound_by"), bound_ms(
                 work["map_bytes"] + 8 * work["hits"] + 4 * k, 0, "f32")))))
 
@@ -1213,22 +1214,22 @@ def phase_int8_paths():
     """``--int8``: phase 6 (bf16) and phase 8 (int8) alone, on the same
     batch, for comparing kernel versions end to end (the counters a
     version lacks are left out)."""
-    from mrcc_tpu_torch.ops import conv, conv_q8, sort
+    from mrcc_tpu_torch.ops import conv, conv_q8, hit_lists, sort
 
     inputs, caps, _ = bench_levels(torch.device("cuda"))
-    counters = [sort.SORT, conv.SK, conv.DOWN, conv.UP, conv.K3_LISTS,
+    counters = [sort.SORT, conv.SK, conv.DOWN, conv.UP, hit_lists.LISTS,
                 conv.K3_SUM]
     _, bf16_seg = phase_main_path(inputs, caps, counters)
     phase_int8_main_path(inputs, caps, counters + [
         getattr(conv_q8, n) for n in ("SK_Q8", "DOWN_Q8", "UP_Q8",
-                                      "Q8_QUANT", "Q8_LISTS", "Q8_SUM")
+                                      "Q8_QUANT", "Q8_SUM")
         if hasattr(conv_q8, n)], bf16_seg)
 
 
 def phase_q8_only():
     """``--q8``: the int8 convs' kernel cases and phase 8 alone (without
     its agreement with phase 6's labels), for comparing kernel versions."""
-    from mrcc_tpu_torch.ops import conv, conv_q8, sort
+    from mrcc_tpu_torch.ops import conv, conv_q8, hit_lists, sort
 
     dev = torch.device("cuda")
     inputs, caps, levels = bench_levels(dev)
@@ -1239,9 +1240,9 @@ def phase_q8_only():
     log("q8_kernels", card=smi_line(),
         cases=[{k: r.get(k) for k in CASE_KEYS} for r in records])
     phase_int8_main_path(inputs, caps, [
-        sort.SORT, conv.SK, conv.DOWN, conv.UP, conv.K3_LISTS, conv.K3_SUM,
+        sort.SORT, conv.SK, conv.DOWN, conv.UP, hit_lists.LISTS, conv.K3_SUM,
         conv_q8.SK_Q8, conv_q8.DOWN_Q8, conv_q8.UP_Q8, conv_q8.Q8_QUANT,
-        conv_q8.Q8_LISTS, conv_q8.Q8_SUM], None)
+        conv_q8.Q8_SUM], None)
 
 
 def _with_tables(level):
@@ -1262,7 +1263,7 @@ def q8_case(records, name, kernel, replaces, mode, fn, plain, unquantised, f,
     quantisation pass alone, ``lists_ms`` (down / up) the list stage
     alone, ``gemm_ms`` the yardstick of the integer product alone:
     ``torch._int_mm`` over each offset's hits, gathered beforehand."""
-    from mrcc_tpu_torch.ops import conv, conv_q8
+    from mrcc_tpu_torch.ops import conv, conv_q8, hit_lists
 
     want = plain(f, w, *maps)
     got = fn(f, w, *maps)
@@ -1285,9 +1286,9 @@ def q8_case(records, name, kernel, replaces, mode, fn, plain, unquantised, f,
         mode, f, w, n_table, per_octant=octant))}
     kind = {"k3": "sk", "k3_table": "k3map"}.get(mode, mode)
     if kind in ("down", "up"):
-        stages["lists_ms"] = cuda_ms(lambda: q8_lists(kind, f.shape[1],
-                                                      maps))
-    fidx, _, count = conv.dw_hit_lists(kind, f.shape[1], *maps)
+        stages["lists_ms"] = cuda_ms(lambda: list_once(kind, f.shape[1],
+                                                       maps))
+    fidx, _, count = hit_lists.HitLists(kind, f.shape[1], *maps).entries()
     rows = ops.q.reshape(-1, ops.cpad)
     pairs = []
     for j, c in enumerate(count.tolist()):
@@ -1399,19 +1400,12 @@ def q8_cases(levels, tlevels, plevels, feats, weights, records):
             path="production_int8")
 
 
-def q8_lists(kind, n_in, maps):
-    """B7's list stage alone ("down" / "up"): its instantiation of the hit
-    list kernel (Q8ChildMap / Q8ParentMap) into fresh buffers."""
-    from mrcc_tpu_torch.ops import conv, conv_q8
-    from mrcc_tpu_torch.ops.build import ptr, stream_ptr
+def list_once(kind, n_in, maps):
+    """The list kernel alone on one map ("sk", "k3map", "down" or "up";
+    ``ops/hit_lists.py``): one launch into fresh buffers."""
+    from mrcc_tpu_torch.ops import hit_lists
 
-    raw = [m.contiguous() for m in maps]
-    b, n = raw[0].shape[-2:]
-    lists, status, count = conv._list_buffers(8, b * n, raw[0].device)
-    conv_q8.MAP_Q8_LIB.call(f"mrcc_conv_{kind}_lists_q8", *map(ptr, raw),
-                            ptr(lists), ptr(status), ptr(count), b, n_in, n,
-                            stream_ptr(raw[0]))
-    return lists, count
+    return hit_lists.HitLists(kind, n_in, *maps).count
 
 
 def k3_f64(kind, f, w, *maps):
@@ -1436,13 +1430,12 @@ def k3_stages(kind, f, w, *maps):
     timed alone, and the yardstick of the GEMM alone: ``torch.mm`` over the
     per-octant operands of the same hits, gathered beforehand, summed over
     the octants (f32 with TF32 off, or bf16)."""
-    from mrcc_tpu_torch.ops import conv
+    from mrcc_tpu_torch.ops import conv, hit_lists
     from mrcc_tpu_torch.ops.build import ptr, stream_ptr
 
     n_in = f.shape[1]
     raw = [m.contiguous() for m in maps]
-    stage_ms = {"lists": cuda_ms(
-        lambda: conv._launch_hit_lists(kind, n_in, raw, k3=True))}
+    stage_ms = {"lists": cuda_ms(lambda: list_once(kind, n_in, raw))}
     cout = w.shape[-1]
     if kind == "down":
         y = torch.randn(f.shape[:2] + (cout,), device=f.device)
@@ -1455,7 +1448,7 @@ def k3_stages(kind, f, w, *maps):
         stage_ms["zero_rows"] = cuda_ms(lambda: conv.MAP_LIB.call(
             f"mrcc_zero_rows_{sfx}", ptr(raw[1]), ptr(raw[2]), ptr(out),
             out.shape[0] * out.shape[1], cout, stream_ptr(out)))
-    fidx, _, count = conv.dw_hit_lists(kind, n_in, *raw)
+    fidx, _, count = hit_lists.HitLists(kind, n_in, *raw).entries()
     ff = f.reshape(-1, f.shape[-1])
     pairs = [(ff[fidx[k, :c].long()], w[k])
              for k, c in enumerate(count.tolist())]
@@ -2463,21 +2456,22 @@ def phase_int8_main_path(inputs, caps, counters, bf16_seg, iters=12):
 
 def q8_launches_per_call(launches, report):
     """Launches per int8 conv call by kind, from one batch's counts: the
-    conv kernel (one a call), the quantisation pass, the list kernel (down
-    and up), the child sum (down), and every int8 kernel of the profiled
-    batch (the split k3 tiles' resolve launches and the up conv's zero pass
-    included) per call."""
+    conv kernel (one a call), the quantisation pass, the list kernel (per
+    int8 down and up call: one a map of the batch, which the down and up
+    convs that stay out of int8 read too), the child sum (down), and every
+    int8 kernel of the profiled batch (the split k3 tiles' resolve launches
+    and the up conv's zero pass included) per call."""
     n = {k: launches.get(k, 0) for k in (
         "conv_sk_q8", "conv_k3map_q8", "conv_down_q8", "conv_up_q8",
-        "q8_quantize", "q8_lists", "q8_child_sum")}
+        "q8_quantize", "hit_lists", "q8_child_sum")}
     calls = sum(n[k] for k in ("conv_sk_q8", "conv_k3map_q8", "conv_down_q8",
                                "conv_up_q8"))
     if not calls:
         return {"calls": 0}
     return {"calls": calls, "conv": 1.0,
             "quantise": n["q8_quantize"] / calls,
-            "lists": n["q8_lists"] / max(n["conv_down_q8"] + n["conv_up_q8"],
-                                         1),
+            "lists": n["hit_lists"] / max(n["conv_down_q8"]
+                                          + n["conv_up_q8"], 1),
             "child_sum": n["q8_child_sum"] / max(n["conv_down_q8"], 1),
             "all_q8_kernels_profiled": report["q8_kernel_launches"] / calls}
 
@@ -2524,7 +2518,7 @@ def _inference_report(engine, inputs, out, iters):
     top = dict(sorted(device_ms.items(), key=lambda kv: -kv[1])[:12])
     ported = {k: sum(v for n, v in device_ms.items() if k in n)
               for k in ("radix_", "KeySearch", "NbrTable", *K3_NAMES,
-                        *Q8_NAMES, "rank_kernel")}
+                        *Q8_NAMES, "rank_kernel", "hit_lists_kernel")}
 
     poses = torch.cat([out["ee_pose"], out["kp_pose"]])
     qnorm = poses[:, 3:].norm(dim=-1)
@@ -2545,6 +2539,7 @@ def _inference_report(engine, inputs, out, iters):
         stage_ms={k: 1e3 * v for k, v in stages.items()},
         device_busy_ms=busy, device_idle_share=1 - busy / batch_ms,
         ported_kernel_device_ms=ported, top_device_ms=top,
+        lists_device_ms=lists_device_ms(device_ms),
         k3_device_ms=k3_device_ms(device_ms),
         q8_device_ms=q8_device_ms(device_ms),
         cuda_kernel_launches=sum(kernel_launches.values()),
@@ -2553,16 +2548,15 @@ def _inference_report(engine, inputs, out, iters):
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **checks)
 
 
-# K3's down and up kernels: its instantiations of the list kernel (under
-# their own source names), the list GEMM, the child sum and the zero pass
-K3_NAMES = ("K3ChildMap", "K3ParentMap", "list_mma_kernel",
-            "child_sum_kernel", "zero_rows_kernel")
+# K3's down and up kernels: the list GEMM, the child sum and the zero pass
+# (their lists are the list kernel's, counted once under the lists)
+K3_NAMES = ("list_mma_kernel", "child_sum_kernel", "zero_rows_kernel")
 
 
-# the int8 convs' kernels (B6, B7 and their quantisation, lists, child sum
-# and zero pass): each name holds "q8" or "Q8" (the tiles' and the lists'
-# row sources Q8Keys, Q8Table, Q8ChildMap, Q8ParentMap)
-Q8_NAMES = ("Q8Keys", "Q8Table", "Q8ChildMap", "Q8ParentMap",
+# the int8 convs' kernels (B6, B7 and their quantisation, child sum and
+# zero pass): each name holds "q8" or "Q8" (the tiles' row sources Q8Keys,
+# Q8Table)
+Q8_NAMES = ("Q8Keys", "Q8Table",
             "list_mma_q8_kernel", "child_sum_q8_kernel",
             "zero_rows_q8_kernel", "act_absmax_q8_kernel",
             "quantize_q8_kernel", "quantize_w_q8_kernel")
@@ -2580,13 +2574,16 @@ def k3_device_ms(device_ms):
 
 
 def dw_device_ms(device_ms):
-    """The dW kernels' device time of one profile: their list kernel
-    instantiations (every one but K3's and B7's), the MMA kernel, the slot
-    sum."""
+    """The dW kernels' device time of one profile: the MMA kernel and the
+    slot sum (their lists are counted once under the lists)."""
     return sum(v for n, v in device_ms.items()
-               if ("hit_lists_kernel" in n and "K3" not in n
-                   and "Q8" not in n)
-               or "dw_mma_kernel" in n or "dw_reduce" in n)
+               if "dw_mma_kernel" in n or "dw_reduce" in n)
+
+
+def lists_device_ms(device_ms):
+    """The list kernel's device time of one profile: every map's lists,
+    whichever conv read them first."""
+    return sum(v for n, v in device_ms.items() if "hit_lists_kernel" in n)
 
 
 def profile_device_ms(fn, launches=None):
@@ -2779,8 +2776,7 @@ def _train_run(step, batch, counters, warmup, timed, lr=1e-4, falls=True):
     top = dict(sorted(device_ms.items(), key=lambda kv: -kv[1])[:14])
     ported = {k: sum(v for n, v in device_ms.items() if k in n)
               for k in ("radix_", "KeySearch", *K3_NAMES,
-                        "NbrTable", "rank_kernel", "SkSource",
-                        "DownSource", "UpSource", "TableSource",
+                        "NbrTable", "rank_kernel", "hit_lists_kernel",
                         "dw_mma_kernel", "dw_reduce")}
     checks = {"finite_losses": bool(np.isfinite(losses).all()),
               "loss_first": losses[0], "loss_last": losses[-1]}
@@ -2796,6 +2792,7 @@ def _train_run(step, batch, counters, warmup, timed, lr=1e-4, falls=True):
         stage_ms={k: 1e3 * v for k, v in stages.items()},
         device_busy_ms=busy, device_idle_share=1 - busy / step_ms,
         ported_kernel_device_ms=ported, top_device_ms=top,
+        lists_device_ms=lists_device_ms(device_ms),
         dw_device_ms=dw_device_ms(device_ms),
         k3_device_ms=k3_device_ms(device_ms),
         launches_per_step=launches, peak_mem_gb=peak_gb, losses=losses,
@@ -3680,9 +3677,9 @@ def resnet_counters():
     tables), the strided map conv (stem, conv5), K3 down (the strided
     blocks' k2 s2 convs, with its list stage and child sum) and the
     k3-table conv (the blocks on the coarse levels)."""
-    from mrcc_tpu_torch.ops import conv, rank, sort
+    from mrcc_tpu_torch.ops import conv, hit_lists, rank, sort
 
-    return [sort.SORT, rank.RANK, conv.MAP, conv.DOWN, conv.K3_LISTS,
+    return [sort.SORT, rank.RANK, conv.MAP, conv.DOWN, hit_lists.LISTS,
             conv.K3_SUM, conv.K3MAP]
 
 
@@ -3690,9 +3687,9 @@ def bottleneck_counters():
     """The kernels of the minkunet50 engine by compute dtype: bf16 runs
     phase 6's (self-keyed k3 convs), f32 takes tables on every level (the
     rank kernel and the k3-table conv instead of the self-keyed one)."""
-    from mrcc_tpu_torch.ops import conv, rank, sort
+    from mrcc_tpu_torch.ops import conv, hit_lists, rank, sort
 
-    shared = [sort.SORT, conv.DOWN, conv.UP, conv.K3_LISTS, conv.K3_SUM]
+    shared = [sort.SORT, conv.DOWN, conv.UP, hit_lists.LISTS, conv.K3_SUM]
     return {"bfloat16": shared + [conv.SK],
             "float32": shared + [rank.RANK, conv.K3MAP]}
 
@@ -4966,15 +4963,14 @@ def phase_eval(references):
     (a-e above) on the sample set of ``references`` (an
     ``EvalReferences``); returns the launches of paths ``ev``, ``app``,
     ``q8r`` and the ``q8_case`` records of (e)."""
-    from mrcc_tpu_torch.ops import conv, conv_q8, rank, sort
+    from mrcc_tpu_torch.ops import conv, conv_q8, hit_lists, rank, sort
 
     k3 = [sort.SORT, rank.RANK, conv.K3MAP, conv.DOWN, conv.UP,
-          conv.K3_LISTS, conv.K3_SUM]
-    app = [sort.SORT, conv.SK, conv.DOWN, conv.UP, conv.K3_LISTS,
+          hit_lists.LISTS, conv.K3_SUM]
+    app = [sort.SORT, conv.SK, conv.DOWN, conv.UP, hit_lists.LISTS,
            conv.K3_SUM]
     q8 = k3 + [conv.SK, conv_q8.SK_Q8, conv_q8.K3MAP_Q8, conv_q8.DOWN_Q8,
-               conv_q8.UP_Q8, conv_q8.Q8_QUANT, conv_q8.Q8_LISTS,
-               conv_q8.Q8_SUM]
+               conv_q8.UP_Q8, conv_q8.Q8_QUANT, conv_q8.Q8_SUM]
     root = references.root
     refs = references.wait()
     t = time.perf_counter()
@@ -5185,11 +5181,11 @@ def dp_rank(rank, world, port, out_dir):
 
 
 def _dp_counters():
-    from mrcc_tpu_torch.ops import conv, k3_order, rank, sort
+    from mrcc_tpu_torch.ops import conv, hit_lists, k3_order, rank, sort
 
-    return [sort.SORT, conv.SK, conv.DOWN, conv.UP, conv.K3_LISTS,
-            conv.K3_SUM, conv.DW_SK, conv.DW_DOWN, conv.DW_UP, conv.DW_LISTS,
-            rank.RANK, conv.K3MAP, conv.DW_K3MAP, k3_order.K3_ORDER]
+    return [sort.SORT, conv.SK, conv.DOWN, conv.UP, hit_lists.LISTS,
+            conv.K3_SUM, conv.DW_SK, conv.DW_DOWN, conv.DW_UP, rank.RANK,
+            conv.K3MAP, conv.DW_K3MAP, k3_order.K3_ORDER]
 
 
 def _dp_metric_step():
@@ -5716,11 +5712,11 @@ DEMO_CPU_FRAMES = 2    # frames of that check (4 in --demo)
 
 
 def demo_counters():
-    from mrcc_tpu_torch.ops import conv, k3_order, rank, sort
+    from mrcc_tpu_torch.ops import conv, hit_lists, k3_order, rank, sort
 
-    return [sort.SORT, conv.SK, conv.DOWN, conv.UP, conv.K3_LISTS,
-            conv.K3_SUM, conv.DW_SK, conv.DW_DOWN, conv.DW_UP, conv.DW_LISTS,
-            rank.RANK, conv.K3MAP, conv.DW_K3MAP, k3_order.K3_ORDER]
+    return [sort.SORT, conv.SK, conv.DOWN, conv.UP, hit_lists.LISTS,
+            conv.K3_SUM, conv.DW_SK, conv.DW_DOWN, conv.DW_UP, rank.RANK,
+            conv.K3MAP, conv.DW_K3MAP, k3_order.K3_ORDER]
 
 
 def _demo_main(flags, root, counters=None):
@@ -5960,8 +5956,7 @@ def phase_demo_full(record=None):
 
     counters = demo_counters()
     q8_counters = counters + [conv_q8.SK_Q8, conv_q8.DOWN_Q8, conv_q8.UP_Q8,
-                              conv_q8.Q8_QUANT, conv_q8.Q8_LISTS,
-                              conv_q8.Q8_SUM]
+                              conv_q8.Q8_QUANT, conv_q8.Q8_SUM]
     report = {"card": smi_line(), "flags": DEMO_FULL}
     with tempfile.TemporaryDirectory() as root:
         res, launches, plain, seconds = _demo_main(DEMO_FULL, root,
@@ -6051,9 +6046,9 @@ TOOL_EE_ICP = (20, 10.0, 0.01)  # play_ee_icp: starts within 20 degrees end
 
 
 def tools_counters():
-    from mrcc_tpu_torch.ops import conv, nn, rank, sort
+    from mrcc_tpu_torch.ops import conv, hit_lists, nn, rank, sort
 
-    return [sort.SORT, conv.SK, conv.DOWN, conv.UP, conv.K3_LISTS,
+    return [sort.SORT, conv.SK, conv.DOWN, conv.UP, hit_lists.LISTS,
             conv.K3_SUM, rank.RANK, conv.K3MAP, nn.NN]
 
 
@@ -6324,7 +6319,8 @@ def main():
         count=torch.cuda.device_count(), smi=card,
         torch=torch.__version__, cuda=torch.version.cuda)
 
-    from mrcc_tpu_torch.ops import conv, conv_q8, k3_order, nn, rank, sort
+    from mrcc_tpu_torch.ops import (conv, conv_q8, hit_lists, k3_order, nn,
+                                    rank, sort)
 
     if len(sys.argv) == 6 and sys.argv[1] == "--dp-rank":
         dp_rank(*(int(a) for a in sys.argv[2:5]), sys.argv[5])  # phase 17 b
@@ -6337,9 +6333,9 @@ def main():
              "--k3": lambda: phase_step_breakdown(K3_WRAPPERS, "k3"),
              "--q8": phase_q8_only,
              "--train-more": lambda: phase_train_more(
-                 [sort.SORT, conv.SK, conv.DOWN, conv.UP, conv.K3_LISTS,
+                 [sort.SORT, conv.SK, conv.DOWN, conv.UP, hit_lists.LISTS,
                   conv.K3_SUM, conv.DW_SK, conv.DW_DOWN, conv.DW_UP,
-                  conv.DW_LISTS, rank.RANK, conv.K3MAP, conv.DW_K3MAP,
+                  rank.RANK, conv.K3MAP, conv.DW_K3MAP,
                   k3_order.K3_ORDER]),
              "--int8": phase_int8_paths,
              "--resnet": lambda: phase_resnet_only(
@@ -6353,15 +6349,15 @@ def main():
              "--eval": lambda: _with_references(phase_eval),
              "--parallel": lambda: phase_parallel(
                  *bench_levels(torch.device("cuda"))[:2],
-                 [sort.SORT, conv.SK, conv.DOWN, conv.UP, conv.K3_LISTS,
+                 [sort.SORT, conv.SK, conv.DOWN, conv.UP, hit_lists.LISTS,
                   conv.K3_SUM]),
              "--demo-short": lambda: phase_demo(demo_counters()),
              "--tools": lambda: phase_tools(tools_counters()),
              "--dense": lambda: phase_dense_only(
-                 [sort.SORT, conv.SK, conv.DOWN, conv.UP, conv.K3_LISTS,
+                 [sort.SORT, conv.SK, conv.DOWN, conv.UP, hit_lists.LISTS,
                   conv.K3_SUM],
                  [conv_q8.SK_Q8, conv_q8.DOWN_Q8, conv_q8.UP_Q8,
-                  conv_q8.Q8_QUANT, conv_q8.Q8_LISTS, conv_q8.Q8_SUM])}
+                  conv_q8.Q8_QUANT, conv_q8.Q8_SUM])}
     if len(sys.argv) == 2 and sys.argv[1] in modes:
         phase_build()
         modes[sys.argv[1]]()
@@ -6401,8 +6397,8 @@ def _with_references(fn):
 
 
 def _main_phases(phase, card, references):
-    from mrcc_tpu_torch.ops import (conv, conv_q8, k3_order, nn, norm, rank,
-                                    sort)
+    from mrcc_tpu_torch.ops import (conv, conv_q8, hit_lists, k3_order, nn,
+                                    norm, rank, sort)
 
     dev = torch.device("cuda")
     inputs, caps, levels = bench_levels(dev)
@@ -6423,7 +6419,7 @@ def _main_phases(phase, card, references):
     phase("train_card_vs_cpu", phase_train_card_vs_cpu)
     phase("train_tables_card_vs_cpu", phase_train_card_vs_cpu, False)
     phase("pose_card_vs_cpu", phase_pose_card_vs_cpu)
-    counters = [sort.SORT, conv.SK, conv.DOWN, conv.UP, conv.K3_LISTS,
+    counters = [sort.SORT, conv.SK, conv.DOWN, conv.UP, hit_lists.LISTS,
                 conv.K3_SUM, k3_order.K3_ORDER]
     # the batch norm: eval launches its apply kernel alone, training all
     # five (forward: sums, deviations, apply; backward: sums, dx)
@@ -6436,12 +6432,12 @@ def _main_phases(phase, card, references):
                                 infer_counters)
     torch.cuda.empty_cache()
     train_counters = infer_counters + [
-        conv.DW_SK, conv.DW_DOWN, conv.DW_UP, conv.DW_LISTS, norm.NORM_SUM,
+        conv.DW_SK, conv.DW_DOWN, conv.DW_UP, norm.NORM_SUM,
         norm.NORM_VAR, norm.NORM_GRAD_SUMS, norm.NORM_GRAD]
     launches["training"] = phase("train", phase_train, train_counters)
     torch.cuda.empty_cache()
     q8_counters = [conv_q8.SK_Q8, conv_q8.DOWN_Q8, conv_q8.UP_Q8,
-                   conv_q8.Q8_QUANT, conv_q8.Q8_LISTS, conv_q8.Q8_SUM]
+                   conv_q8.Q8_QUANT, conv_q8.Q8_SUM]
     launches["int8"] = phase(
         "int8_main_path", phase_int8_main_path, inputs, caps,
         infer_counters + q8_counters, bf16_seg)

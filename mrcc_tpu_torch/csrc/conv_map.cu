@@ -27,19 +27,20 @@
 // 2 a coarse row at level 0 -> 1, 3-4 deeper) and costs 2 * Cin * Cout
 // operations against one gathered row.  The decoder's convs (256-512 ->
 // 384) are bound by operations, the narrow ones (32 -> 32) by bytes.
-// Design (list_mma.cuh): both are a list GEMM over per-octant hit lists
-// built once a call (hit_lists.cuh: a memset and one look-back kernel), so
-// the work is exactly the hits; a 64-row tile over the child map would
+// Design (list_mma.cuh): both are a list GEMM over the per-octant hit
+// lists of their map (hit_lists.cu: listed once a map and shared with the
+// other convs over it, the data cotangents and the dW kernels), so the
+// work is exactly the hits; a 64-row tile over the child map would
 // multiply all 8 octants for each coarse row.
-//   - up: the lists of the parent map (K3ParentMap); the GEMM gathers each
+//   - up: the lists of the fine level's parent map; the GEMM gathers each
 //     fine row's parent, multiplies it by W[octant] and stores the fine
 //     row of out; zero_rows_kernel clears the rows no list names.
-//   - down: the lists of the child map (K3ChildMap); the GEMM stores
+//   - down: the lists of the coarse level's child map; the GEMM stores
 //     feats[j] @ W[octant(j)] of every fine row j with a parent into an f32
 //     scratch Y, and child_sum_kernel sums each coarse row's children in
 //     octant order (bound by bytes) and casts once.
-// At most four launches a call, no host sync, no float atomics: the same
-// bits for the same inputs.  The k3 table conv runs the self-keyed conv's
+// Two launches a call, no host sync, no float atomics: the same bits for
+// the same inputs.  The k3 table conv runs the self-keyed conv's
 // tensor-core tile (gather_mma.cuh) with a table load for the key search:
 // its neighbour list is the same as K2's (the identity offset's entry is
 // the row itself where valid), so the two k3 routes give the same bits,
@@ -51,20 +52,12 @@
 // needs each output row in one list at most).
 
 #include "gather_mma.cuh"
-#include "hit_lists.cuh"
 #include "k3_sources.cuh"
 #include "list_mma.cuh"
 
 namespace {
 
 using namespace mrcc;
-
-constexpr int K2 = 8;
-
-// K3's names for the maps of hit_lists.cuh (the dW kernels list the same
-// maps under names of their own, conv_dw_map.cu).
-struct K3ChildMap : hitlist::ChildMap {};
-struct K3ParentMap : hitlist::ParentMap {};
 
 // The k3 table conv's row source (k3_sources.cuh) under K3's name.
 struct NbrTable : tc::NbrTable {};
@@ -95,32 +88,6 @@ struct StridedMap {
 };
 
 }  // namespace
-
-// The per-octant hit lists of a down conv's child map (child_idx /
-// child_hit [8, B, n_out]) and of an up conv's parent map (parent_idx /
-// octant [B, n_out] int32, row_ok [B, n_out] bool): lists [2, 8, B *
-// n_out] int32 (source rows b * n_in + j, then map rows b * n_out + i),
-// status [8 * ceil(B * n_out / 2048) + 1] u64, count [8] int32.  Each
-// returns cudaGetLastError().
-extern "C" int mrcc_conv_down_lists(const int* child_idx,
-                                    const uint8_t* child_hit, int* lists,
-                                    unsigned long long* status, int* count,
-                                    int batch, int n_in, int n_out,
-                                    cudaStream_t stream) {
-  return hitlist::build_lists(
-      K3ChildMap{{child_idx, child_hit, batch, n_out}}, lists, status, count,
-      batch, n_in, n_out, K2, stream);
-}
-
-extern "C" int mrcc_conv_up_lists(const int* parent_idx, const uint8_t* row_ok,
-                                  const int* octant, int* lists,
-                                  unsigned long long* status, int* count,
-                                  int batch, int n_in, int n_out,
-                                  cudaStream_t stream) {
-  return hitlist::build_lists(
-      K3ParentMap{{parent_idx, row_ok, octant, n_out}}, lists, status, count,
-      batch, n_in, n_out, K2, stream);
-}
 
 // The list GEMM: out[dst[k][e]] = feats[src[k][e]] @ w[k] for e < count[k].
 // feats [rows_in, cin], w [taps, cin, cout] (the feature type), src / dst

@@ -27,9 +27,9 @@
 // main path's shapes.  A 64-row tile over the child map would multiply
 // all 8 offsets of every coarse row, most of them misses, and an up conv
 // tile would need all 8 octants' weights per step.  Design (q8_mma.cuh):
-//   - down / up: K3's (conv_map.cu) in int8: per-octant hit lists built
-//     once a call (hit_lists.cuh, under B7's names Q8ChildMap /
-//     Q8ParentMap), then the int8 list GEMM (mma.sync m16n8k32).  Up
+//   - down / up: K3's (conv_map.cu) in int8: the int8 list GEMM
+//     (mma.sync m16n8k32) over the per-octant hit lists of the map
+//     (hit_lists.cu, listed once a map).  Up
 //     dequantises each group with its octant's scales and stores the fine
 //     rows (zero_rows_q8_kernel clears the rest); down stores each fine
 //     row's int32 product per group in a scratch and child_sum_q8_kernel
@@ -38,7 +38,6 @@
 //     source, so both int8 k3 routes give the same bits at equal groups.
 // No host sync, no float atomics: the same bits for the same inputs.
 
-#include "hit_lists.cuh"
 #include "k3_sources.cuh"
 #include "q8_mma.cuh"
 #include "q8_quantize.cuh"
@@ -47,11 +46,7 @@ namespace {
 
 using namespace mrcc;
 
-constexpr int K2 = 8;
-
-// B7's names for the maps of hit_lists.cuh and the k3 tables.
-struct Q8ChildMap : hitlist::ChildMap {};
-struct Q8ParentMap : hitlist::ParentMap {};
+// B7's name for the k3 tables' row source.
 struct Q8Table : tc::NbrTable {};
 
 template <typename T>
@@ -108,32 +103,6 @@ extern "C" int mrcc_quantize_q8_bf16(const void* x, const float* act_absmax,
   return static_cast<int>(q8::launch_quantize<__nv_bfloat16>(
       x, act_absmax, w, scratch, q, wq, m, rows, cin, cpad, taps, cout, gw,
       ng, per_octant, stream));
-}
-
-// The per-octant hit lists of a down conv's child map (child_idx /
-// child_hit [8, B, n_out]) and of an up conv's parent map (parent_idx /
-// octant [B, n_out] int32, row_ok [B, n_out] bool): lists [2, 8, B *
-// n_out] int32 (source rows b * n_in + j, then map rows b * n_out + i),
-// status [8 * ceil(B * n_out / 2048) + 1] u64, count [8] int32.  Each
-// returns cudaGetLastError().
-extern "C" int mrcc_conv_down_lists_q8(const int* child_idx,
-                                       const uint8_t* child_hit, int* lists,
-                                       unsigned long long* status, int* count,
-                                       int batch, int n_in, int n_out,
-                                       cudaStream_t stream) {
-  return hitlist::build_lists(
-      Q8ChildMap{{child_idx, child_hit, batch, n_out}}, lists, status, count,
-      batch, n_in, n_out, K2, stream);
-}
-
-extern "C" int mrcc_conv_up_lists_q8(const int* parent_idx,
-                                     const uint8_t* row_ok, const int* octant,
-                                     int* lists, unsigned long long* status,
-                                     int* count, int batch, int n_in,
-                                     int n_out, cudaStream_t stream) {
-  return hitlist::build_lists(
-      Q8ParentMap{{parent_idx, row_ok, octant, n_out}}, lists, status, count,
-      batch, n_in, n_out, K2, stream);
 }
 
 // The int8 list GEMM: for e < count[k], row src[k][e] of q [rows_in, cpad]

@@ -1,22 +1,21 @@
-// The weight-gradient kernels (conv_dw_sk.cu, conv_dw_map.cu):
+// The weight-gradient kernels (conv_dw.cu):
 //
-//   dW[k] = sum over rows r with a hit of feats[src_k(r)]^T (x) g[r]
+//   dW[k] = sum over the hits of offset k of feats[fidx]^T (x) g[gidx]
 //                                              -> [K, Cin, Cout] f32,
 //
 // a gather-GEMM whose product dimension is the hits of offset k and whose
-// output is the small [Cin, Cout] block.  src_k is a device functor: the
-// self-keyed neighbour search, the down conv's child map, the up conv's
-// parent / octant map or a level's neighbour tables.
+// output is the small [Cin, Cout] block.  The hits come listed: per
+// offset, the (feats row, g row) pairs in row order with their count, the
+// lists of the conv's map (hit_lists.cu: the self-keyed search or the k3
+// tables of a level, the down conv's child map, the up conv's parent /
+// octant map), built once a map and shared with every conv over it.
 //
 // Bound on the card: 2 * hits * Cin * Cout operations against one gathered
 // feature row and one g row a hit; the decoder's widths (256-416) are
 // bound by operations, the stem (3 x 32) and the narrow down convs by
-// bytes.  Three stages, at most four launches a call:
+// bytes.  Two stages, at most two launches a call:
 //
-// 1. hit_lists.cuh (a memset and one kernel): each (offset, row) pair is
-//    resolved once, and the hits of offset k are listed in row order as
-//    (feats row, g row) pairs with their count, on the device.
-// 2. dw_mma_kernel: one block per (dW tile, slot).  The slots spread over
+// 1. dw_mma_kernel: one block per (dW tile, slot).  The slots spread over
 //    the offsets by their hit counts on the card (slot_plan; no host
 //    sync), so that every block has about the same work; a slot splits
 //    its offset's list evenly, and one without hits writes a zero partial.
@@ -41,16 +40,14 @@
 //    their sums are added in replica order.  Blocks are numbered
 //    tile-fastest, so the blocks that read one slot's rows run together
 //    and share them in L2.
-// 3. dw_reduce: each offset's slot partials summed in slot order.
+// 2. dw_reduce: each offset's slot partials summed in slot order.
 //
 // Determinism: no float atomics; the lists are the same bits for the same
-// inputs, and every sum runs in a fixed order.  Two sources that give the
-// same lists (the self-keyed search and the k3 tables of one level) give
-// the same dW bits.
+// inputs, and every sum runs in a fixed order.  The self-keyed search and
+// the k3 tables of one level give the same lists, hence the same dW bits.
 #pragma once
 
 #include "gather_mma.cuh"
-#include "hit_lists.cuh"
 
 namespace mrcc {
 
@@ -516,24 +513,18 @@ cudaError_t launch_gemm(const T* pm, const T* pn, const int* lists,
 // thread: its A fragments are split just before use).
 constexpr int DW_MI_SPLIT = 128;
 
-// dW [k, cin, cout] f32 into out.  Scratch: lists [2, k, batch * n_rows]
-// int32, status [k * ceil(batch * n_rows / hitlist::TILE) + 1] u64, count
-// [k] int32 and, with slots > k, part [slots, cin, cout] f32.  Launches: a
-// memset and the list kernel, the MMA kernel, and the slot reduction where
-// slots > k.  Returns the first CUDA error.
-template <typename T, typename Source>
-int dw_launch(Source src, const void* feats, const void* g, int* lists,
-              unsigned long long* status, int* count, float* part, float* out,
-              int batch, int n_in, int n_rows, int k, int cin, int cout,
-              int slots, cudaStream_t stream) {
+// dW [k, cin, cout] f32 into out from the lists [2, k, total] and count
+// [k] of hit_lists.cu; with slots > k, part [slots, cin, cout] f32 holds
+// the slot partials.  Launches: the MMA kernel, and the slot reduction
+// where slots > k.  Returns the first CUDA error.
+template <typename T>
+int dw_launch(const void* feats, const void* g, const int* lists,
+              const int* count, float* part, float* out, int k, int total,
+              int cin, int cout, int slots, cudaStream_t stream) {
   if (k <= 0 || cin <= 0 || cout <= 0 || slots < k) return 0;
-  const int total = batch * n_rows;
   if (total <= 0)
     return static_cast<int>(cudaMemsetAsync(
         out, 0, static_cast<size_t>(k) * cin * cout * sizeof(float), stream));
-  cudaError_t err = hitlist::launch_hit_lists(src, lists, status, count, k,
-                                              batch, n_in, n_rows, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const bool swap = cin < cout;  // the narrower width on the n8 side
   const T* pm = static_cast<const T*>(swap ? g : feats);
   const T* pn = static_cast<const T*>(swap ? feats : g);
@@ -543,9 +534,9 @@ int dw_launch(Source src, const void* feats, const void* g, int* lists,
     return static_cast<int>(dw::launch_gemm<T, 4>(
         pm, pn, lists, count, part, out, k, total, m_width, n_width, swap,
         slots, stream));
-  err = dw::launch_gemm<T, 2>(pm, pn, lists, count, part, out, k, total,
-                              m_width, n_width, swap, slots, stream);
-  return static_cast<int>(err);
+  return static_cast<int>(dw::launch_gemm<T, 2>(
+      pm, pn, lists, count, part, out, k, total, m_width, n_width, swap,
+      slots, stream));
 }
 
 }  // namespace mrcc

@@ -1,6 +1,6 @@
 // Key helpers of the self-keyed k3 convs: the packed key delta of each
 // offset and a binary search in an item's sorted key row (k3_sources.cuh's
-// KeySearch for the convs' tiles, conv_dw_sk.cu for the dW lists).
+// KeySearch for the convs' tiles, hit_lists.cu for a level's k3 lists).
 #pragma once
 
 #include <cuda_runtime.h>

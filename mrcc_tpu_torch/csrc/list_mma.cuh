@@ -3,7 +3,7 @@
 //
 //   out[dst[k][e], :] = feats[src[k][e], :] @ W[k]  (k < taps, e < count[k])
 //
-// over per-octant hit lists (hit_lists.cuh).  The up conv lists each fine
+// over per-octant hit lists (hit_lists.cu).  The up conv lists each fine
 // row with row_ok under its octant k, src its parent's coarse row and dst
 // the fine row itself.  The down conv lists each fine row that has a
 // parent, src = dst = the fine row, into an f32 scratch Y; child_sum_kernel

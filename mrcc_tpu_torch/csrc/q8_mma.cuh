@@ -29,7 +29,7 @@
 //     stem) packs its (offset, channel word) pairs along K: ceil(27 cw /
 //     32) stages.
 //   - list_mma_q8_kernel: B7's down and up convs over per-octant hit lists
-//     (hit_lists.cuh), as list_mma.cuh does in bf16 / f32: block = (octant
+//     (hit_lists.cu), as list_mma.cuh does in bf16 / f32: block = (octant
 //     k, 64-entry slice of list k, 128-column tile), the ring over the
 //     groups' 64-channel chunks.  Up dequantises each group with its
 //     octant's scales m[g, k] and stores the fine rows in place

@@ -59,8 +59,8 @@
 // wrapper's (ops/rank.py RANK_ROWS, RANK_WINDOW), so its CPU emulation runs
 // the same windows.
 //
-// What the card shows (python -m mrcc_tpu_torch.cli.rank_variants
-// mrcc_tpu_torch/cli/rank_variants_design.json): at 2 x 72448 the block
+// What the card shows (textual variants of this file timed in turns on
+// an H100: the setup alone, without staging, ...): at 2 x 72448 the block
 // setup takes ~40 % of the time (staging alone ~16 %; searching the windows
 // in global memory instead costs more), and the rows' searches and tests
 // (~9 x 8 shared-memory steps, 27 chained tests and 54 stores a row) most

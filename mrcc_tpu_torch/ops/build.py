@@ -154,6 +154,19 @@ def build_all(libraries: Iterable[KernelLibrary]):
     return infos
 
 
+def route(*tensors) -> bool:
+    """True: launch the kernel (CUDA); False: plain twin (CPU); else raise."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"kernel inputs on several devices: {devices}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"kernel inputs on an unsupported device {dev}")
+    return True
+
+
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 

@@ -14,19 +14,20 @@ two k3 routes give the same bits), and in its generic strided-map mode
 (:func:`gather_gemm_map`, K2's tile over a [K, B, N_out] map into another
 level's rows: the sparse ResNet's stem and conv5); reading global memory
 at any N, it also stands in for ``conv_pallas._gather_gemm_call_hbm``.  The down and up convs
-are a list GEMM on tensor cores (``csrc/list_mma.cuh``) over per-octant
-hit lists built on the card by the dW kernels' list kernel: up stores each
-fine row's parent times ``W[octant]`` in place, down stores each fine
-row's product with its octant's slice in an f32 scratch and sums each
-coarse row's children (:func:`list_gemm`, :func:`child_sum`).
+are a list GEMM on tensor cores (``csrc/list_mma.cuh``) over the per-octant
+hit lists of their map (``ops/hit_lists.py``): up stores each fine row's
+parent times ``W[octant]`` in place, down stores each fine row's product
+with its octant's slice in an f32 scratch and sums each coarse row's
+children (:func:`list_gemm`, :func:`child_sum`).
 
-The weight gradients: ``csrc/conv_dw_sk.cu`` (:func:`dw_sk`) replaces
-``conv_pallas._dw_call_sk`` and ``csrc/conv_dw_map.cu`` (:func:`dw_down`,
-:func:`dw_up`, :func:`dw_k3_map`) replaces ``conv_pallas._dw_call`` in its
-down, up and k3-table modes.  Both run ``csrc/dw_gemm.cuh``: per-offset
-hit lists built once on the card (``csrc/hit_lists.cuh``, exposed as
-:func:`dw_hit_lists`), then a tensor-core gather-GEMM over the listed
-rows and a fixed-order sum of its partials.  The autograd Functions
+The weight gradients: ``csrc/conv_dw.cu`` (:func:`dw_sk`, :func:`dw_down`,
+:func:`dw_up`, :func:`dw_k3_map`) replaces ``conv_pallas._dw_call_sk`` and
+``conv_pallas._dw_call`` in its down, up and k3-table modes
+(``csrc/dw_gemm.cuh``): a tensor-core gather-GEMM over the map's hit lists
+and a fixed-order sum of its partials.  Every wrapper that reads lists
+takes a map's :class:`~.hit_lists.HitLists` as its last argument (a level
+holds one a map, so that each map is listed once a step) and lists the map
+itself where given none.  The autograd Functions
 :class:`SkConvFn`, :class:`K3MapConvFn`, :class:`DownConvFn` and
 :class:`UpConvFn` carry the JAX custom VJPs (``pallas_conv_sk_op``,
 ``pallas_conv_op``): data cotangents through the forward kernels over the
@@ -54,10 +55,11 @@ from __future__ import annotations
 
 import torch
 
-from ..sparse.hierarchy import K3_DELTAS as _K3_DELTAS
 from ..tracing import LaunchCounter
 from . import k3_order as _order
-from .build import I, KernelLibrary, P, ptr, stream_ptr
+from .build import I, KernelLibrary, P, ptr, route as _route, stream_ptr
+from .hit_lists import K3_DELTAS as _K3_DELTAS
+from .hit_lists import HitLists, _sk_neighbours
 
 # The k3 data cotangent is the same self-keyed conv with W[26 - k]^T: a hit
 # (i, k) exists iff the hit (i + delta_k, 26 - k) does.
@@ -71,8 +73,6 @@ SK_LIB = KernelLibrary("conv_sk", {
     "mrcc_conv_sk_ordered_bf16": (P, P, P, P, P, P, P, I, I, I, I, I, P),
 })
 MAP_LIB = KernelLibrary("conv_map", {
-    "mrcc_conv_down_lists": (P, P, P, P, P, I, I, I, P),
-    "mrcc_conv_up_lists": (P, P, P, P, P, P, I, I, I, P),
     "mrcc_list_gemm_f32": (P, P, P, P, P, P, I, I, I, I, I, I, P),
     "mrcc_list_gemm_bf16": (P, P, P, P, P, P, I, I, I, I, I, I, P),
     "mrcc_child_sum_f32": (P, P, P, P, I, I, I, I, P),
@@ -86,23 +86,11 @@ MAP_LIB = KernelLibrary("conv_map", {
     "mrcc_conv_map_f32": (P, P, P, P, P, P, I, I, I, I, I, I, P),
     "mrcc_conv_map_bf16": (P, P, P, P, P, P, I, I, I, I, I, I, P),
 })
-DW_SK_LIB = KernelLibrary("conv_dw_sk", {
-    "mrcc_dw_sk_f32": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, P),
-    "mrcc_dw_sk_bf16": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, P),
-    "mrcc_dw_sk_lists": (P, P, P, P, P, I, I, P),
+DW_LIB = KernelLibrary("conv_dw", {
+    "mrcc_dw_f32": (P, P, P, P, P, P, I, I, I, I, I, P),
+    "mrcc_dw_bf16": (P, P, P, P, P, P, I, I, I, I, I, P),
 })
-DW_MAP_LIB = KernelLibrary("conv_dw_map", {
-    "mrcc_dw_down_f32": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P),
-    "mrcc_dw_down_bf16": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P),
-    "mrcc_dw_down_lists": (P, P, P, P, P, I, I, I, P),
-    "mrcc_dw_up_f32": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P),
-    "mrcc_dw_up_bf16": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, P),
-    "mrcc_dw_up_lists": (P, P, P, P, P, P, I, I, I, P),
-    "mrcc_dw_k3map_f32": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, P),
-    "mrcc_dw_k3map_bf16": (P, P, P, P, P, P, P, P, P, I, I, I, I, I, P),
-    "mrcc_dw_k3map_lists": (P, P, P, P, P, I, I, P),
-})
-LIBRARIES = (SK_LIB, MAP_LIB, DW_SK_LIB, DW_MAP_LIB)
+LIBRARIES = (SK_LIB, MAP_LIB, DW_LIB)
 SK = LaunchCounter("conv_sk")
 DOWN = LaunchCounter("conv_down")
 UP = LaunchCounter("conv_up")
@@ -112,34 +100,19 @@ DW_SK = LaunchCounter("dw_sk")
 DW_DOWN = LaunchCounter("dw_down")
 DW_UP = LaunchCounter("dw_up")
 DW_K3MAP = LaunchCounter("dw_k3map")
-DW_LISTS = LaunchCounter("dw_lists")  # the hit-list stage of every dW call
-K3_LISTS = LaunchCounter("k3_lists")  # ... and of every K3 down / up call
 K3_SUM = LaunchCounter("k3_child_sum")  # the down conv's child sum
 
 _DW_MI_SPLIT = 128        # DW_MI_SPLIT of csrc/dw_gemm.cuh
-_DW_LIST_TILE = 2048      # TILE of csrc/hit_lists.cuh
 _DW_RESIDENT = 2 * 132    # dW blocks resident at once (2 an SM, 132 SMs)
 _DW_WAVES = 8             # waves of dW blocks a launch aims at
 _DW_MIN_ROWS = 4096       # list rows of one slot at least
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_K3_KINDS = ("sk", "k3map")  # a level's k3 map: both give the same lists
 
 _MMA_ROWS = 64     # BM of csrc/gather_mma.cuh
 _MMA_COLS = 128    # BN
 _MMA_LIST = 27 * 64 + 28  # LIST: one row tile's neighbours and offsets
-
-
-def _route(*tensors) -> bool:
-    """True: launch the kernel (CUDA); False: plain twin (CPU); else raise."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"conv inputs on several devices: {devices}")
-    dev = devices.pop()
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
-        raise ValueError(f"conv: unsupported device {dev}")
-    return True
 
 
 def _check_types(name, feats, other, label, index_tensors):
@@ -183,22 +156,6 @@ def _dw_slots(k, cin, cout, rows):
                       k * -(-rows // _DW_MIN_ROWS)))
 
 
-def _list_bytes(k, rows):
-    """Bytes of the hit-list stage's scratch: lists [2, k, rows] int32,
-    the status words, count [k] int32."""
-    return 8 * k * rows, 8 * (k * -(-rows // _DW_LIST_TILE) + 1), 4 * k
-
-
-def _list_buffers(k, rows, device):
-    """Scratch of the hit-list stage: ``(lists [2, k, rows] int32, status
-    words, count [k] int32)``."""
-    lists = torch.empty((2, k, rows), dtype=torch.int32, device=device)
-    status = torch.empty(k * -(-rows // _DW_LIST_TILE) + 1,
-                         dtype=torch.int64, device=device)
-    count = torch.empty(k, dtype=torch.int32, device=device)
-    return lists, status, count
-
-
 def _scratch(device, nbytes):
     """One allocation carved into 256-byte aligned pieces of ``nbytes``:
     ``(the allocation, the pieces' addresses, None for an empty one)``."""
@@ -211,22 +168,30 @@ def _scratch(device, nbytes):
                      for o, n in zip(starts, nbytes)]
 
 
-def _dw_launch(lib, fname, k, feats, g, maps, sizes):
-    """One dW launch: ``lib.fname(feats, g, *maps, lists, status, count,
-    part, out, *sizes, cin, cout, slots, stream)`` with its scratch carved
-    from one allocation (the list stage, and the partial sums where there
-    is more than one slot per offset).  Returns dW [k, cin, cout] f32."""
-    cin, cout = feats.shape[-1], g.shape[-1]
+def _lists(name, lists, kind, n_in, maps, kinds=None):
+    """A reader's hit lists: ``lists`` checked against the map it reads (of
+    ``kinds``, default ``kind``), or where None the lists of ``maps``."""
+    if lists is None:
+        return HitLists(kind, n_in, *maps)
+    lists.check(name, kinds or (kind,), n_in, maps[0].shape[-2:])
+    return lists
+
+
+def _dw_launch(feats, g, lists):
+    """One dW launch on checked, contiguous CUDA operands over the map's
+    ``lists`` (listed first where they are not yet), with the partial
+    sums' scratch where there is more than one slot per offset.  Returns
+    dW [K, cin, cout] f32."""
+    k, cin, cout = lists.count.shape[0], feats.shape[-1], g.shape[-1]
     rows = g.shape[0] * g.shape[1]
     slots = _dw_slots(k, cin, cout, rows)
     out = torch.empty((k, cin, cout), dtype=torch.float32,
                       device=feats.device)
-    _, (lists, status, count, part) = _scratch(feats.device, (
-        *_list_bytes(k, rows), 4 * slots * cin * cout if slots > k else 0))
-    lib.call(fname, ptr(feats), ptr(g), *map(ptr, maps), lists, status,
-             count, part, ptr(out), *sizes, cin, cout, slots,
-             stream_ptr(feats))
-    DW_LISTS.launches += 1
+    part = (torch.empty((slots, cin, cout), dtype=torch.float32,
+                        device=feats.device) if slots > k else None)
+    DW_LIB.call(f"mrcc_dw_{_SUFFIX[feats.dtype]}", ptr(feats), ptr(g),
+                ptr(lists.lists), ptr(lists.count), ptr(part), ptr(out), k,
+                rows, cin, cout, slots, stream_ptr(feats))
     return out
 
 
@@ -281,15 +246,6 @@ def _gather(f, idx):
 def _outer_sum(a, g):
     """sum over rows of a [B, M, Cin]^T (x) g [B, M, Cout] -> [Cin, Cout]."""
     return a.reshape(-1, a.shape[-1]).T @ g.reshape(-1, g.shape[-1])
-
-
-def _sk_neighbours(key, kbits, k, d):
-    """(row index, hit) of offset k for every row: searchsorted in the
-    sorted key row, gated by the offset bit."""
-    q = key + d
-    idx = torch.searchsorted(key, q).clamp_max(key.shape[1] - 1)
-    hit = (((kbits >> k) & 1) != 0) & (key.gather(1, idx) == q)
-    return idx, hit
 
 
 # ------------------------------------------------------------------- K2
@@ -370,7 +326,7 @@ def gather_gemm_down_plain(feats, weights, child_idx, child_hit):
     return _map_conv(feats, weights, child_idx, child_hit)
 
 
-def gather_gemm_down(feats, weights, child_idx, child_hit):
+def gather_gemm_down(feats, weights, child_idx, child_hit, lists=None):
     """k=2 s=2 down conv over the 8-child map.
 
     ``out[b, p] = sum_k child_hit[k, b, p] * feats[b, child_idx[k, b, p]] @ W[k]``
@@ -378,6 +334,7 @@ def gather_gemm_down(feats, weights, child_idx, child_hit):
     Args:
       feats: [B, N_fine, Cin]; weights: [8, Cin, Cout] same dtype.
       child_idx: int32 [8, B, N_coarse]; child_hit: bool [8, B, N_coarse].
+      lists: the child map's ``HitLists`` ("down") or None (listed here).
     Returns [B, N_coarse, Cout].
     """
     if not _route(feats, weights, child_idx, child_hit):
@@ -388,9 +345,11 @@ def gather_gemm_down(feats, weights, child_idx, child_hit):
     n_out = child_idx.shape[2]
     if child_idx.shape != (8, b, n_out) or child_hit.shape != (8, b, n_out):
         raise ValueError("gather_gemm_down: maps must be [8, B, N_coarse]")
+    lists = _lists("gather_gemm_down", lists, "down", n_in,
+                   (child_idx, child_hit))
     out = _map_conv_launch("down", feats, weights,
                            (child_idx.contiguous(), child_hit.contiguous()),
-                           n_out)
+                           n_out, lists)
     DOWN.launches += 1
     return out
 
@@ -522,7 +481,7 @@ def gather_gemm_up_plain(feats, weights, parent_idx, row_ok, octant):
     return out.to(feats.dtype)
 
 
-def gather_gemm_up(feats, weights, parent_idx, row_ok, octant):
+def gather_gemm_up(feats, weights, parent_idx, row_ok, octant, lists=None):
     """k=2 s=2 transpose conv: one parent gather per output row.
 
     ``out[b, c] = row_ok[b, c] * feats[b, parent_idx[b, c]] @ W[octant[b, c]]``
@@ -531,6 +490,7 @@ def gather_gemm_up(feats, weights, parent_idx, row_ok, octant):
       feats: [B, N_coarse, Cin]; weights: [8, Cin, Cout] same dtype.
       parent_idx, octant: int32 [B, N_fine]; row_ok: bool [B, N_fine]
         (valid & parent_ok — overflowed parents alias slot capacity-1).
+      lists: the parent map's ``HitLists`` ("up") or None (listed here).
     Returns [B, N_fine, Cout].
     """
     if not _route(feats, weights, parent_idx, row_ok, octant):
@@ -543,41 +503,40 @@ def gather_gemm_up(feats, weights, parent_idx, row_ok, octant):
     if (parent_idx.shape != (b, n_out) or row_ok.shape != (b, n_out)
             or octant.shape != (b, n_out)):
         raise ValueError("gather_gemm_up: maps must be [B, N_fine]")
-    out = _map_conv_launch("up", feats, weights, (
-        parent_idx.contiguous(), row_ok.contiguous(), octant.contiguous()),
-        n_out)
+    maps = (parent_idx, row_ok, octant)
+    lists = _lists("gather_gemm_up", lists, "up", feats.shape[1], maps)
+    out = _map_conv_launch("up", feats, weights,
+                           [m.contiguous() for m in maps], n_out, lists)
     UP.launches += 1
     return out
 
 
-def _map_conv_launch(kind, feats, weights, maps, n_out):
+def _map_conv_launch(kind, feats, weights, maps, n_out, lists):
     """K3's down or up conv on checked CUDA operands (``maps`` contiguous,
-    as the wrappers take them), at most four launches: the list stage (a
-    memset and the list kernel), the list GEMM, and the down conv's child
-    sum or the up conv's zero pass.  One scratch allocation holds the lists
-    and, for down, the f32 products of the fine rows."""
+    as the wrappers take them) over the map's ``lists`` (listed first where
+    they are not yet), two launches: the list GEMM, and the down conv's
+    child sum (over an f32 scratch of the fine rows' products) or the up
+    conv's zero pass."""
     feats, weights = feats.contiguous(), weights.contiguous()
     b, n_in, cin = feats.shape
     cout = weights.shape[-1]
     rows = b * n_out
     down = kind == "down"
+    fidx, gidx = lists.lists
     out = torch.empty((b, n_out, cout), dtype=feats.dtype, device=feats.device)
-    _, (lists, status, count, y) = _scratch(feats.device, (
-        *_list_bytes(8, rows), 4 * b * n_in * cout if down else 0))
+    y = (torch.empty((b * n_in, cout), dtype=torch.float32,
+                     device=feats.device) if down else out)
     stream = stream_ptr(feats)
-    _list_launch(kind, n_in, maps, lists, status, count, stream, k3=True)
     sfx = _SUFFIX[feats.dtype]
-    # down: src = dst = the fine row (the lists' first half), into y; up:
-    # src the coarse parent, dst the fine row (the second half), into out
-    src = lists
-    dst = lists if down else lists + 4 * 8 * rows
-    MAP_LIB.call(f"mrcc_list_gemm_{sfx}", ptr(feats), ptr(weights), src, dst,
-                 count, y if down else ptr(out), 8, rows,
-                 b * n_in if down else rows, cin, cout,
+    # down: src = dst = the fine row, into y; up: src the coarse parent,
+    # dst the fine row, into out
+    MAP_LIB.call(f"mrcc_list_gemm_{sfx}", ptr(feats), ptr(weights), ptr(fidx),
+                 ptr(fidx if down else gidx), ptr(lists.count), ptr(y), 8,
+                 rows, b * n_in if down else rows, cin, cout,
                  int(down or feats.dtype == torch.float32), stream)
     if down:
-        MAP_LIB.call(f"mrcc_child_sum_{sfx}", y, *map(ptr, maps), ptr(out),
-                     b, n_in, n_out, cout, stream)
+        MAP_LIB.call(f"mrcc_child_sum_{sfx}", ptr(y), *map(ptr, maps),
+                     ptr(out), b, n_in, n_out, cout, stream)
         K3_SUM.launches += 1
     else:
         MAP_LIB.call(f"mrcc_zero_rows_{sfx}", ptr(maps[1]), ptr(maps[2]),
@@ -692,7 +651,7 @@ def dw_sk_plain(feats, g, key, kbits):
     return out
 
 
-def dw_sk(feats, g, key, kbits):
+def dw_sk(feats, g, key, kbits, lists=None):
     """Weight gradient of :func:`gather_gemm_sk`.
 
     ``dW[k] = sum_{b, i} bit_k(kbits[b, i]) * feats[b, j]^T (x) g[b, i]``
@@ -702,19 +661,18 @@ def dw_sk(feats, g, key, kbits):
       feats: [B, N, Cin] f32/bf16 (the conv's input); g: [B, N, Cout] same
         dtype, the output cotangent masked by the level's validity.
       key, kbits: int32 [B, N] as for :func:`gather_gemm_sk`.
+      lists: the level's k3 ``HitLists`` ("sk" or "k3map": the same
+        lists) or None (listed here).
     Returns [27, Cin, Cout] f32.
     """
     if not _route(feats, g, key, kbits):
         return dw_sk_plain(feats, g, key, kbits)
     _check_dw("dw_sk", feats, g, ((key, torch.int32), (kbits, torch.int32)))
-    b, n, cin = feats.shape
-    cout = g.shape[-1]
+    b, n = feats.shape[:2]
     if g.shape[1] != n or key.shape != (b, n) or kbits.shape != (b, n):
         raise ValueError("dw_sk: g must be [B, N, Cout], key/kbits [B, N]")
-    feats, g = feats.contiguous(), g.contiguous()
-    key, kbits = key.contiguous(), kbits.contiguous()
-    out = _dw_launch(DW_SK_LIB, f"mrcc_dw_sk_{_SUFFIX[feats.dtype]}", 27,
-                     feats, g, (key, kbits), (b, n))
+    lists = _lists("dw_sk", lists, "sk", n, (key, kbits), _K3_KINDS)
+    out = _dw_launch(feats.contiguous(), g.contiguous(), lists)
     DW_SK.launches += 1
     return out
 
@@ -738,7 +696,7 @@ def dw_down_plain(feats, g, child_idx, child_hit):
     return _map_dw(feats, g, child_idx, child_hit)
 
 
-def dw_down(feats, g, child_idx, child_hit):
+def dw_down(feats, g, child_idx, child_hit, lists=None):
     """Weight gradient of :func:`gather_gemm_down`.
 
     ``dW[k] = sum_{b, p} child_hit[k, b, p] * feats[b, child_idx[k, b, p]]^T
@@ -748,20 +706,19 @@ def dw_down(feats, g, child_idx, child_hit):
       feats: [B, N_fine, Cin] f32/bf16; g: [B, N_coarse, Cout] same dtype,
         masked by the coarse level's validity.
       child_idx: int32 [8, B, N_coarse]; child_hit: bool [8, B, N_coarse].
+      lists: the child map's ``HitLists`` ("down") or None (listed here).
     Returns [8, Cin, Cout] f32.
     """
     if not _route(feats, g, child_idx, child_hit):
         return dw_down_plain(feats, g, child_idx, child_hit)
     _check_dw("dw_down", feats, g, ((child_idx, torch.int32),
                                     (child_hit, torch.bool)))
-    b, n_in, cin = feats.shape
-    n_out, cout = g.shape[1], g.shape[2]
+    b, n_in = feats.shape[:2]
+    n_out = g.shape[1]
     if child_idx.shape != (8, b, n_out) or child_hit.shape != (8, b, n_out):
         raise ValueError("dw_down: maps must be [8, B, N_coarse]")
-    feats, g = feats.contiguous(), g.contiguous()
-    child_idx, child_hit = child_idx.contiguous(), child_hit.contiguous()
-    out = _dw_launch(DW_MAP_LIB, f"mrcc_dw_down_{_SUFFIX[feats.dtype]}", 8,
-                     feats, g, (child_idx, child_hit), (b, n_in, n_out))
+    lists = _lists("dw_down", lists, "down", n_in, (child_idx, child_hit))
+    out = _dw_launch(feats.contiguous(), g.contiguous(), lists)
     DW_DOWN.launches += 1
     return out
 
@@ -771,7 +728,7 @@ def dw_k3_map_plain(feats, g, nbr_idx, nbr_hit):
     return _map_dw(feats, g, nbr_idx, nbr_hit)
 
 
-def dw_k3_map(feats, g, nbr_idx, nbr_hit):
+def dw_k3_map(feats, g, nbr_idx, nbr_hit, lists=None):
     """Weight gradient of :func:`gather_gemm_k3_map`.
 
     ``dW[k] = sum_{b, i} nbr_hit[k, b, i] * feats[b, nbr_idx[k, b, i]]^T
@@ -781,22 +738,21 @@ def dw_k3_map(feats, g, nbr_idx, nbr_hit):
       feats: [B, N, Cin] f32/bf16 (the conv's input); g: [B, N, Cout] same
         dtype, the output cotangent masked by the level's validity.
       nbr_idx: int32 [27, B, N]; nbr_hit: bool [27, B, N].
+      lists: the level's k3 ``HitLists`` ("k3map" or "sk") or None.
     Returns [27, Cin, Cout] f32.
     """
     if not _route(feats, g, nbr_idx, nbr_hit):
         return dw_k3_map_plain(feats, g, nbr_idx, nbr_hit)
     _check_dw("dw_k3_map", feats, g, ((nbr_idx, torch.int32),
                                       (nbr_hit, torch.bool)))
-    b, n, cin = feats.shape
-    cout = g.shape[-1]
+    b, n = feats.shape[:2]
     if (g.shape[1] != n or nbr_idx.shape != (27, b, n)
             or nbr_hit.shape != (27, b, n)):
         raise ValueError("dw_k3_map: g must be [B, N, Cout], tables "
                          "[27, B, N]")
-    feats, g = feats.contiguous(), g.contiguous()
-    nbr_idx, nbr_hit = nbr_idx.contiguous(), nbr_hit.contiguous()
-    out = _dw_launch(DW_MAP_LIB, f"mrcc_dw_k3map_{_SUFFIX[feats.dtype]}",
-                     27, feats, g, (nbr_idx, nbr_hit), (b, n))
+    lists = _lists("dw_k3_map", lists, "k3map", n, (nbr_idx, nbr_hit),
+                   _K3_KINDS)
+    out = _dw_launch(feats.contiguous(), g.contiguous(), lists)
     DW_K3MAP.launches += 1
     return out
 
@@ -813,7 +769,7 @@ def dw_up_plain(feats, g, parent_idx, row_ok, octant):
     return out
 
 
-def dw_up(feats, g, parent_idx, row_ok, octant):
+def dw_up(feats, g, parent_idx, row_ok, octant, lists=None):
     """Weight gradient of :func:`gather_gemm_up` (the broadcast-k map).
 
     ``dW[k] = sum_{b, c} row_ok[b, c] * [octant[b, c] == k]
@@ -823,136 +779,22 @@ def dw_up(feats, g, parent_idx, row_ok, octant):
       feats: [B, N_coarse, Cin] f32/bf16; g: [B, N_fine, Cout] same dtype,
         masked by the fine level's validity.
       parent_idx, octant: int32 [B, N_fine]; row_ok: bool [B, N_fine].
+      lists: the parent map's ``HitLists`` ("up") or None (listed here).
     Returns [8, Cin, Cout] f32.
     """
     if not _route(feats, g, parent_idx, row_ok, octant):
         return dw_up_plain(feats, g, parent_idx, row_ok, octant)
     _check_dw("dw_up", feats, g, ((parent_idx, torch.int32),
                                   (row_ok, torch.bool), (octant, torch.int32)))
-    b, n_in, cin = feats.shape
-    n_out, cout = g.shape[1], g.shape[2]
+    b, n_in = feats.shape[:2]
+    n_out = g.shape[1]
     if (parent_idx.shape != (b, n_out) or row_ok.shape != (b, n_out)
             or octant.shape != (b, n_out)):
         raise ValueError("dw_up: maps must be [B, N_fine]")
-    feats, g = feats.contiguous(), g.contiguous()
-    parent_idx, row_ok = parent_idx.contiguous(), row_ok.contiguous()
-    octant = octant.contiguous()
-    out = _dw_launch(DW_MAP_LIB, f"mrcc_dw_up_{_SUFFIX[feats.dtype]}", 8,
-                     feats, g, (parent_idx, row_ok, octant), (b, n_in, n_out))
+    lists = _lists("dw_up", lists, "up", n_in, (parent_idx, row_ok, octant))
+    out = _dw_launch(feats.contiguous(), g.contiguous(), lists)
     DW_UP.launches += 1
     return out
-
-
-# ------------------------------------------- the dW kernels' hit lists
-
-_LIST_TAPS = {"sk": 27, "down": 8, "up": 8, "k3map": 27}
-
-
-def _list_sources(kind, maps):
-    """``(hit [K, B, N] bool, source row j [K, B, N])`` of a dW kind's map:
-    the self-keyed search, the child map, the parent / octant map with
-    ``row_ok``, or the k3 tables."""
-    if kind == "sk":
-        key, kbits = maps
-        pairs = [_sk_neighbours(key.contiguous(), kbits, k, d)
-                 for k, d in enumerate(_K3_DELTAS)]
-        return (torch.stack([hit for _, hit in pairs]),
-                torch.stack([idx for idx, _ in pairs]))
-    if kind in ("down", "k3map"):
-        idx, hit = maps
-        return hit, idx
-    if kind == "up":
-        parent_idx, row_ok, octant = maps
-        return (torch.stack([row_ok & (octant == k) for k in range(8)]),
-                parent_idx.expand(8, -1, -1))
-    raise ValueError(f"dw_hit_lists: unknown kind {kind!r}")
-
-
-def dw_hit_lists_plain(kind, n_in, *maps):
-    """Plain twin of :func:`dw_hit_lists`."""
-    hit, j = _list_sources(kind, maps)
-    k_taps, b, n = hit.shape
-    hit = hit.reshape(k_taps, b * n)
-    base = n_in * torch.arange(b, device=hit.device)[:, None]
-    src = (j.long() + base).reshape(k_taps, b * n)
-    fidx = torch.full((k_taps, b * n), -1, dtype=torch.int32,
-                      device=hit.device)
-    gidx = fidx.clone()
-    for k in range(k_taps):
-        rows = torch.nonzero(hit[k]).flatten()
-        fidx[k, :len(rows)] = src[k, rows].int()
-        gidx[k, :len(rows)] = rows.int()
-    return fidx, gidx, hit.sum(1).int()
-
-
-def _list_launch(kind, n_in, maps, lists, status, count, stream, k3=False):
-    """Launch the list stage (a memset and the list kernel) on checked,
-    contiguous CUDA maps into the scratch at the given addresses: the dW
-    kernels' instantiation (counted by ``DW_LISTS``) or, ``k3``, K3's own
-    ("down" / "up", counted by ``K3_LISTS``)."""
-    b, n = maps[0].shape[-2:]
-    sizes = (b, n) if kind in ("sk", "k3map") else (b, n_in, n)
-    if k3:
-        lib, fname, counter = MAP_LIB, f"mrcc_conv_{kind}_lists", K3_LISTS
-    else:
-        lib = DW_SK_LIB if kind == "sk" else DW_MAP_LIB
-        fname, counter = f"mrcc_dw_{kind}_lists", DW_LISTS
-    lib.call(fname, *map(ptr, maps), lists, status, count, *sizes, stream)
-    counter.launches += 1
-
-
-def _launch_hit_lists(kind, n_in, maps, k3=False):
-    """Launch the list kernel alone on checked, contiguous CUDA maps:
-    ``(lists [2, K, B * n_rows] int32, count [K] int32)``, the entries past
-    ``count[k]`` unwritten; ``k3``: K3's instantiation ("down" / "up")."""
-    b, n = maps[0].shape[-2:]
-    lists, status, count = _list_buffers(_LIST_TAPS[kind], b * n,
-                                         maps[0].device)
-    _list_launch(kind, n_in, maps, ptr(lists), ptr(status), ptr(count),
-                 stream_ptr(maps[0]), k3)
-    return lists, count
-
-
-def dw_hit_lists(kind, n_in, *maps):
-    """The first stage of every dW kernel: per offset k, the hits of the
-    map in row order ``r = b * n_rows + i``.
-
-    Args:
-      kind: "sk" (maps ``key, kbits``), "down" (``child_idx, child_hit``),
-        "up" (``parent_idx, row_ok, octant``) or "k3map" (``nbr_idx,
-        nbr_hit``), as the dW wrappers take them.
-      n_in: rows of the gathered level (the fine level for "down", the
-        coarse one for "up", the level itself for "sk" and "k3map").
-    Returns ``(fidx, gidx, count)``: int32 [K, B * n_rows] feature rows
-    ``b * n_in + j`` and g rows ``r`` of the hits of offset k in
-    ``[:count[k]]``, -1 after; count int32 [K].
-    """
-    if kind not in _LIST_TAPS:
-        raise ValueError(f"dw_hit_lists: unknown kind {kind!r}")
-    if not _route(*maps):
-        return dw_hit_lists_plain(kind, n_in, *maps)
-    k_taps = _LIST_TAPS[kind]
-    dtypes = {"sk": (torch.int32, torch.int32),
-              "down": (torch.int32, torch.bool),
-              "up": (torch.int32, torch.bool, torch.int32),
-              "k3map": (torch.int32, torch.bool)}[kind]
-    if len(maps) != len(dtypes) or any(m.dtype != d
-                                       for m, d in zip(maps, dtypes)):
-        raise ValueError(f"dw_hit_lists: {kind} maps must be {dtypes}")
-    maps = [m.contiguous() for m in maps]
-    b, n = maps[0].shape[-2:]
-    if any(m.shape != maps[0].shape for m in maps) or maps[0].dim() != (
-            2 if kind in ("sk", "up") else 3) or (
-            maps[0].dim() == 3 and maps[0].shape[0] != k_taps):
-        raise ValueError(f"dw_hit_lists: {kind} map shapes "
-                         f"{[tuple(m.shape) for m in maps]}")
-    if kind in ("sk", "k3map") and n_in != n:
-        raise ValueError(f"dw_hit_lists: {kind} gathers its own level")
-    lists, count = _launch_hit_lists(kind, n_in, maps)
-    listed = (torch.arange(lists.shape[2], device=count.device)[None]
-              < count[:, None])
-    return (torch.where(listed, lists[0], -1),
-            torch.where(listed, lists[1], -1), count)
 
 
 # ------------------------------------------------ differentiable convs
@@ -966,6 +808,9 @@ def dw_hit_lists(kind, n_in, *maps):
 #   dW from the dW kernels.  Both rest on the child map pointing back at c
 #   at (oct(c), parent(c)) exactly where row_ok(c) = valid(c) & parent_ok(c),
 #   which build_hierarchy's scatter guarantees.
+# Each Function takes the hit lists of the maps it reads (None: each
+# reader lists its map), so that a forward conv, its data cotangent and its
+# dW read one listing of each map.
 
 def _masked(g, valid, dtype):
     return torch.where(valid[..., None], g, 0.0).to(dtype)
@@ -973,13 +818,15 @@ def _masked(g, valid, dtype):
 
 class SkConvFn(torch.autograd.Function):
     """:func:`gather_gemm_sk` with the self-keyed conv's VJP.
-    ``apply(feats, weights, key, kbits, valid, order=None)``: the data
-    cotangent runs over the same k3 order (the same hits)."""
+    ``apply(feats, weights, key, kbits, valid, order=None, lists=None)``:
+    the data cotangent runs over the same k3 order (the same hits), the dW
+    over ``lists``, the level's k3 ``HitLists``."""
 
     @staticmethod
-    def forward(ctx, feats, weights, key, kbits, valid, order=None):
+    def forward(ctx, feats, weights, key, kbits, valid, order=None,
+                lists=None):
         ctx.save_for_backward(feats, weights, key, kbits, valid)
-        ctx.order = order
+        ctx.order, ctx.lists = order, lists
         return gather_gemm_sk(feats, weights, key, kbits, order)
 
     @staticmethod
@@ -991,22 +838,23 @@ class SkConvFn(torch.autograd.Function):
             dfeats = gather_gemm_sk(g_m, weights.flip(0).transpose(1, 2),
                                     key, kbits, ctx.order)
         if ctx.needs_input_grad[1]:
-            dw = dw_sk(feats, g_m, key, kbits).to(weights.dtype)
-        return dfeats, dw, None, None, None, None
+            dw = dw_sk(feats, g_m, key, kbits, ctx.lists).to(weights.dtype)
+        return dfeats, dw, None, None, None, None, None
 
 
 class K3MapConvFn(torch.autograd.Function):
     """:func:`gather_gemm_k3_map` with the table conv's VJP (the k3 mode of
     ``pallas_conv_op``).  ``apply(feats, weights, nbr_idx, nbr_hit,
-    valid)``.  The data cotangent runs the same tables: they are symmetric
-    (``nbr(i, k) = j`` with a hit iff ``nbr(j, 26 - k) = i`` with a hit,
-    the ``kbits`` gate holding both ways), and so does the k3 order
-    (``apply(..., valid, order=None)``)."""
+    valid, order=None, lists=None)``.  The data cotangent runs the same
+    tables: they are symmetric (``nbr(i, k) = j`` with a hit iff
+    ``nbr(j, 26 - k) = i`` with a hit, the ``kbits`` gate holding both
+    ways), and so does the k3 order; the dW runs over ``lists``."""
 
     @staticmethod
-    def forward(ctx, feats, weights, nbr_idx, nbr_hit, valid, order=None):
+    def forward(ctx, feats, weights, nbr_idx, nbr_hit, valid, order=None,
+                lists=None):
         ctx.save_for_backward(feats, weights, nbr_idx, nbr_hit, valid)
-        ctx.order = order
+        ctx.order, ctx.lists = order, lists
         return gather_gemm_k3_map(feats, weights, nbr_idx, nbr_hit, order)
 
     @staticmethod
@@ -1018,58 +866,69 @@ class K3MapConvFn(torch.autograd.Function):
             dfeats = gather_gemm_k3_map(g_m, weights.flip(0).transpose(1, 2),
                                         nbr_idx, nbr_hit, ctx.order)
         if ctx.needs_input_grad[1]:
-            dw = dw_k3_map(feats, g_m, nbr_idx, nbr_hit).to(weights.dtype)
-        return dfeats, dw, None, None, None, None
+            dw = dw_k3_map(feats, g_m, nbr_idx, nbr_hit, ctx.lists).to(
+                weights.dtype)
+        return dfeats, dw, None, None, None, None, None
 
 
 class DownConvFn(torch.autograd.Function):
     """:func:`gather_gemm_down` with its VJP.  ``apply(feats, weights,
-    child_idx, child_hit, coarse_valid, parent_idx, row_ok, octant)``: the
-    coarse level's child map and validity, the fine level's parent map."""
+    child_idx, child_hit, coarse_valid, parent_idx, row_ok, octant,
+    child_lists=None, parent_lists=None)``: the coarse level's child map
+    and validity, the fine level's parent map, and their ``HitLists``."""
 
     @staticmethod
     def forward(ctx, feats, weights, child_idx, child_hit, coarse_valid,
-                parent_idx, row_ok, octant):
+                parent_idx, row_ok, octant, child_lists=None,
+                parent_lists=None):
         ctx.save_for_backward(feats, weights, child_idx, child_hit,
                               coarse_valid, parent_idx, row_ok, octant)
-        return gather_gemm_down(feats, weights, child_idx, child_hit)
+        ctx.lists = child_lists, parent_lists
+        return gather_gemm_down(feats, weights, child_idx, child_hit,
+                                child_lists)
 
     @staticmethod
     def backward(ctx, g):
         (feats, weights, child_idx, child_hit, coarse_valid, parent_idx,
          row_ok, octant) = ctx.saved_tensors
+        child_lists, parent_lists = ctx.lists
         g_m = _masked(g, coarse_valid, feats.dtype)
         dfeats = dw = None
         if ctx.needs_input_grad[0]:
             dfeats = gather_gemm_up(g_m, weights.transpose(1, 2), parent_idx,
-                                    row_ok, octant)
+                                    row_ok, octant, parent_lists)
         if ctx.needs_input_grad[1]:
-            dw = dw_down(feats, g_m, child_idx, child_hit).to(weights.dtype)
-        return dfeats, dw, None, None, None, None, None, None
+            dw = dw_down(feats, g_m, child_idx, child_hit, child_lists).to(
+                weights.dtype)
+        return (dfeats, dw) + (None,) * 8
 
 
 class UpConvFn(torch.autograd.Function):
     """:func:`gather_gemm_up` with its VJP.  ``apply(feats, weights,
-    parent_idx, row_ok, octant, fine_valid, child_idx, child_hit)``: the
-    fine level's parent map and validity, the coarse level's child map."""
+    parent_idx, row_ok, octant, fine_valid, child_idx, child_hit,
+    parent_lists=None, child_lists=None)``: the fine level's parent map and
+    validity, the coarse level's child map, and their ``HitLists``."""
 
     @staticmethod
     def forward(ctx, feats, weights, parent_idx, row_ok, octant, fine_valid,
-                child_idx, child_hit):
+                child_idx, child_hit, parent_lists=None, child_lists=None):
         ctx.save_for_backward(feats, weights, parent_idx, row_ok, octant,
                               fine_valid, child_idx, child_hit)
-        return gather_gemm_up(feats, weights, parent_idx, row_ok, octant)
+        ctx.lists = parent_lists, child_lists
+        return gather_gemm_up(feats, weights, parent_idx, row_ok, octant,
+                              parent_lists)
 
     @staticmethod
     def backward(ctx, g):
         (feats, weights, parent_idx, row_ok, octant, fine_valid, child_idx,
          child_hit) = ctx.saved_tensors
+        parent_lists, child_lists = ctx.lists
         g_m = _masked(g, fine_valid, feats.dtype)
         dfeats = dw = None
         if ctx.needs_input_grad[0]:
             dfeats = gather_gemm_down(g_m, weights.transpose(1, 2), child_idx,
-                                      child_hit)
+                                      child_hit, child_lists)
         if ctx.needs_input_grad[1]:
-            dw = dw_up(feats, g_m, parent_idx, row_ok, octant).to(
-                weights.dtype)
-        return dfeats, dw, None, None, None, None, None, None
+            dw = dw_up(feats, g_m, parent_idx, row_ok, octant,
+                       parent_lists).to(weights.dtype)
+        return (dfeats, dw) + (None,) * 8

@@ -35,7 +35,8 @@ layout the int8 tensor-core tiles read (``csrc/q8_mma.cuh``): q [B, N,
 cpad] and wq [K, Cout, cpad] int8, the channels of a row contiguous and
 padded with zeros to ``cpad`` (Cin rounded up to 16).  The k3 convs run one
 tile launch (a resolve launch before it where Cout > 128); down and up run
-K3's decomposition in int8: per-octant hit lists, the int8 list GEMM, then
+K3's decomposition in int8: the int8 list GEMM over the map's per-octant
+hit lists (``ops/hit_lists.py``; the last argument, or listed here), then
 the down conv's int32 child sum or the up conv's zero pass.  For CPU
 tensors the plain twins run (a float64 emulation of the int32 sums, exact
 below 2^53); :func:`quantize_operands_plain` is the quantisation's twin,
@@ -59,8 +60,9 @@ import torch.nn.functional as F
 from ..sparse.hierarchy import TABLE_BUDGET as _TABLE_BUDGET
 from ..tracing import LaunchCounter
 from .build import I, KernelLibrary, P, ptr, stream_ptr
-from .conv import (_K3_DELTAS, _gather, _k3_lists, _list_bytes, _route,
-                   _scratch, _sk_neighbours)
+from .conv import _gather, _k3_lists, _lists, _route
+from .hit_lists import K3_DELTAS as _K3_DELTAS
+from .hit_lists import _sk_neighbours
 
 _QUANTIZE = (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P)
 _TILE = (P, P, P, P, P, P, P, I, I, I, I, I, I, I, P)
@@ -71,8 +73,6 @@ SK_Q8_LIB = KernelLibrary("conv_sk_q8", {
 MAP_Q8_LIB = KernelLibrary("conv_map_q8", {
     "mrcc_quantize_q8_f32": _QUANTIZE,
     "mrcc_quantize_q8_bf16": _QUANTIZE,
-    "mrcc_conv_down_lists_q8": (P, P, P, P, P, I, I, I, P),
-    "mrcc_conv_up_lists_q8": (P, P, P, P, P, P, I, I, I, P),
     "mrcc_list_gemm_q8_f32": (P, P, P, P, P, P, P) + (I,) * 9 + (P,),
     "mrcc_list_gemm_q8_bf16": (P, P, P, P, P, P, P) + (I,) * 9 + (P,),
     "mrcc_child_sum_q8_f32": (P, P, P, P, P, I, I, I, I, I, P),
@@ -89,9 +89,9 @@ DOWN_Q8 = LaunchCounter("conv_down_q8")
 UP_Q8 = LaunchCounter("conv_up_q8")
 K3MAP_Q8 = LaunchCounter("conv_k3map_q8")
 # ... and their other stages: the quantisation pass's kernels (2, or 3 with
-# the dynamic absmax), the list kernel of down / up, the down child sum
+# the dynamic absmax), the down child sum (down / up read their map's lists,
+# ``ops/hit_lists.py``)
 Q8_QUANT = LaunchCounter("q8_quantize")
-Q8_LISTS = LaunchCounter("q8_lists")
 Q8_SUM = LaunchCounter("q8_child_sum")
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -442,13 +442,14 @@ def gather_gemm_down_q8_plain(feats, weights, child_idx, child_hit,
 
 
 def gather_gemm_down_q8(feats, weights, child_idx, child_hit,
-                        act_absmax=None):
+                        act_absmax=None, lists=None):
     """int8 k=2 s=2 down conv over the 8-child map (``conv.gather_gemm_down``).
 
     Args:
       feats: [B, N_fine, Cin] f32/bf16; weights: [8, Cin, Cout] f32.
       child_idx: int32 [8, B, N_coarse]; child_hit: bool [8, B, N_coarse].
       act_absmax: optional calibrated [Cin] f32.
+      lists: the child map's ``HitLists`` ("down") or None (listed here).
     Returns [B, N_coarse, Cout] in the feature dtype.
     """
     if not _route(feats, weights, child_idx, child_hit):
@@ -460,6 +461,8 @@ def gather_gemm_down_q8(feats, weights, child_idx, child_hit,
     n_out = child_idx.shape[2]
     if child_idx.shape != (8, b, n_out) or child_hit.shape != (8, b, n_out):
         raise ValueError("gather_gemm_down_q8: maps must be [8, B, N_coarse]")
+    lists = _lists("gather_gemm_down_q8", lists, "down", n_in,
+                   (child_idx, child_hit))
     child_idx, child_hit = child_idx.contiguous(), child_hit.contiguous()
     ops = quantize_operands("down", feats, weights, n_in, act_absmax)
     cout = weights.shape[-1]
@@ -467,20 +470,18 @@ def gather_gemm_down_q8(feats, weights, child_idx, child_hit,
     rows = b * n_out
     out = torch.empty((b, n_out, cout), dtype=feats.dtype,
                       device=feats.device)
-    # the lists, then y: each listed fine row's int32 product per group
-    _, (lists, status, count, y) = _scratch(feats.device, (
-        *_list_bytes(8, rows), 4 * ng * b * n_in * cout))
+    # y: each listed fine row's int32 product per group
+    y = torch.empty((ng, b * n_in, cout), dtype=torch.int32,
+                    device=feats.device)
     stream = stream_ptr(feats)
     sfx = _SUFFIX[feats.dtype]
-    MAP_Q8_LIB.call("mrcc_conv_down_lists_q8", ptr(child_idx),
-                    ptr(child_hit), lists, status, count, b, n_in, n_out,
-                    stream)
-    Q8_LISTS.launches += 1
+    fidx = lists.lists[0]
     MAP_Q8_LIB.call(f"mrcc_list_gemm_q8_{sfx}", ptr(ops.q), ptr(ops.wq),
-                    ptr(ops.m), lists, lists, count, y, 8, rows, b * n_in,
-                    cin, ops.cpad, cout, ops.gw, ng, 0, stream)
+                    ptr(ops.m), ptr(fidx), ptr(fidx), ptr(lists.count),
+                    ptr(y), 8, rows, b * n_in, cin, ops.cpad, cout, ops.gw,
+                    ng, 0, stream)
     DOWN_Q8.launches += 1
-    MAP_Q8_LIB.call(f"mrcc_child_sum_q8_{sfx}", y, ptr(ops.m),
+    MAP_Q8_LIB.call(f"mrcc_child_sum_q8_{sfx}", ptr(y), ptr(ops.m),
                     ptr(child_idx), ptr(child_hit), ptr(out), b, n_in, n_out,
                     cout, ng, stream)
     Q8_SUM.launches += 1
@@ -507,7 +508,7 @@ def gather_gemm_up_q8_plain(feats, weights, parent_idx, row_ok, octant,
 
 
 def gather_gemm_up_q8(feats, weights, parent_idx, row_ok, octant,
-                      act_absmax=None):
+                      act_absmax=None, lists=None):
     """int8 k=2 s=2 transpose conv (``conv.gather_gemm_up``): one parent
     gather per output row, multiplied by its octant's weights and
     dequantised with that octant's column scales.
@@ -516,6 +517,7 @@ def gather_gemm_up_q8(feats, weights, parent_idx, row_ok, octant,
       feats: [B, N_coarse, Cin] f32/bf16; weights: [8, Cin, Cout] f32.
       parent_idx, octant: int32 [B, N_fine]; row_ok: bool [B, N_fine].
       act_absmax: optional calibrated [Cin] f32.
+      lists: the parent map's ``HitLists`` ("up") or None (listed here).
     Returns [B, N_fine, Cout] in the feature dtype.
     """
     if not _route(feats, weights, parent_idx, row_ok, octant):
@@ -529,25 +531,22 @@ def gather_gemm_up_q8(feats, weights, parent_idx, row_ok, octant,
     if (parent_idx.shape != (b, n_out) or row_ok.shape != (b, n_out)
             or octant.shape != (b, n_out)):
         raise ValueError("gather_gemm_up_q8: maps must be [B, N_fine]")
-    parent_idx, row_ok = parent_idx.contiguous(), row_ok.contiguous()
-    octant = octant.contiguous()
+    lists = _lists("gather_gemm_up_q8", lists, "up", n_in,
+                   (parent_idx, row_ok, octant))
+    row_ok, octant = row_ok.contiguous(), octant.contiguous()
     ops = quantize_operands("up", feats, weights, n_in, act_absmax,
                             per_octant=True)
     cout = weights.shape[-1]
     rows = b * n_out
     out = torch.empty((b, n_out, cout), dtype=feats.dtype,
                       device=feats.device)
-    _, (lists, status, count) = _scratch(feats.device, _list_bytes(8, rows))
     stream = stream_ptr(feats)
     sfx = _SUFFIX[feats.dtype]
-    MAP_Q8_LIB.call("mrcc_conv_up_lists_q8", ptr(parent_idx), ptr(row_ok),
-                    ptr(octant), lists, status, count, b, n_in, n_out,
-                    stream)
-    Q8_LISTS.launches += 1
-    # src: the coarse parent rows (the lists' first half); dst: the fine rows
+    # src: the coarse parent rows; dst: the fine rows
+    fidx, gidx = lists.lists
     MAP_Q8_LIB.call(f"mrcc_list_gemm_q8_{sfx}", ptr(ops.q), ptr(ops.wq),
-                    ptr(ops.m), lists, lists + 4 * 8 * rows, count, ptr(out),
-                    8, rows, rows, cin, ops.cpad, cout, ops.gw,
+                    ptr(ops.m), ptr(fidx), ptr(gidx), ptr(lists.count),
+                    ptr(out), 8, rows, rows, cin, ops.cpad, cout, ops.gw,
                     len(ops.groups), 1, stream)
     UP_Q8.launches += 1
     MAP_Q8_LIB.call(f"mrcc_zero_rows_q8_{sfx}", ptr(row_ok), ptr(octant),

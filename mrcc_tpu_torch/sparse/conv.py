@@ -22,7 +22,10 @@ else the dynamic absmax, on the convs where the JAX engine runs int8
 (``hierarchy.q8_route``: the k3 convs of self-keyed levels always, table
 levels, down and up convs where its tiled maps exist and
 ``_pallas_route_tiled`` accepts the shapes); the others run in the
-features' dtype, as JAX's ``conv_kernel_map`` does.
+features' dtype, as JAX's ``conv_kernel_map`` does.  The convs that read
+a map through hit lists (the down and up convs, their data cotangents and
+every dW kernel) read the lists its level holds (``Level.lists``): on the
+card each map is listed once, at the first conv over it.
 """
 
 from __future__ import annotations
@@ -34,7 +37,30 @@ from ..ops.conv import (DownConvFn, K3MapConvFn, SkConvFn, UpConvFn,
                         gather_gemm_sk, gather_gemm_up)
 from ..ops.conv_q8 import (gather_gemm_down_q8, gather_gemm_k3_map_q8,
                            gather_gemm_sk_q8, gather_gemm_up_q8)
+from ..ops.hit_lists import HitLists
 from .hierarchy import k3_takes_q8, q8_route
+
+
+def _held(level, kind, n_in, *maps):
+    """The hit lists of one of ``level``'s maps (kinds as
+    ``ops.hit_lists``), held by the level: made at the first request,
+    listed at the first read.  None on the CPU, whose plain twins read no
+    lists."""
+    if not level.key.is_cuda:
+        return None
+    if kind not in level.lists:
+        level.lists[kind] = HitLists(kind, n_in, *maps)
+    return level.lists[kind]
+
+
+def _child_lists(fine_level, coarse_level):
+    return _held(coarse_level, "down", fine_level.key.shape[1],
+                 coarse_level.child_idx, coarse_level.child_hit)
+
+
+def _parent_lists(fine_level, coarse_level):
+    return _held(fine_level, "up", coarse_level.key.shape[1],
+                 fine_level.parent_idx, fine_level.row_ok, fine_level.octant)
 
 
 def _with_bias(out, bias, valid):
@@ -62,15 +88,18 @@ def conv_k3(feats, weights, level, bias=None, q8=False, act_absmax=None):
         return _with_bias(out, bias, level.valid)
     w = weights.to(feats.dtype)
     order = level.k3_order
+    n = level.key.shape[1]
     if tables:
         maps = (level.nbr_idx, level.nbr_hit)
-        out = (K3MapConvFn.apply(feats, w, *maps, level.valid, order)
+        out = (K3MapConvFn.apply(feats, w, *maps, level.valid, order,
+                                 _held(level, "k3map", n, *maps))
                if _recorded(feats, w)
                else gather_gemm_k3_map(feats, w, *maps, order))
         return _with_bias(out, bias, level.valid)
     if _recorded(feats, w):
         out = SkConvFn.apply(feats, w, level.key, level.kbits, level.valid,
-                             order)
+                             order, _held(level, "sk", n, level.key,
+                                          level.kbits))
     else:
         out = gather_gemm_sk(feats, w, level.key, level.kbits, order)
     return _with_bias(out, bias, level.valid)
@@ -81,17 +110,19 @@ def conv_down(feats, weights, fine_level, coarse_level, bias=None,
     """k=2 s=2 conv: fine level -> coarse level over the 8-child map (K3;
     B7 with ``q8`` where :func:`~.hierarchy.q8_route` accepts it)."""
     maps = (coarse_level.child_idx, coarse_level.child_hit)
+    lists = _child_lists(fine_level, coarse_level)
     if q8 and q8_route("down", feats.shape[1], coarse_level.valid.shape[1],
                        feats.element_size()):
-        out = gather_gemm_down_q8(feats, weights, *maps, act_absmax)
+        out = gather_gemm_down_q8(feats, weights, *maps, act_absmax, lists)
         return _with_bias(out, bias, coarse_level.valid)
     w = weights.to(feats.dtype)
     if _recorded(feats, w):
         out = DownConvFn.apply(feats, w, *maps, coarse_level.valid,
                                fine_level.parent_idx, fine_level.row_ok,
-                               fine_level.octant)
+                               fine_level.octant, lists,
+                               _parent_lists(fine_level, coarse_level))
     else:
-        out = gather_gemm_down(feats, w, *maps)
+        out = gather_gemm_down(feats, w, *maps, lists)
     return _with_bias(out, bias, coarse_level.valid)
 
 
@@ -102,16 +133,18 @@ def conv_transpose_up(feats, weights, coarse_level, fine_level, bias=None,
     ``out[c] = feats[parent(c)] @ W[octant(c)]`` for valid children
     whose parent made the coarse capacity."""
     maps = (fine_level.parent_idx, fine_level.row_ok, fine_level.octant)
+    lists = _parent_lists(fine_level, coarse_level)
     if q8 and q8_route("up", fine_level.valid.shape[1], feats.shape[1],
                        feats.element_size()):
-        out = gather_gemm_up_q8(feats, weights, *maps, act_absmax)
+        out = gather_gemm_up_q8(feats, weights, *maps, act_absmax, lists)
         return _with_bias(out, bias, fine_level.valid)
     w = weights.to(feats.dtype)
     if _recorded(feats, w):
         out = UpConvFn.apply(feats, w, *maps, fine_level.valid,
-                             coarse_level.child_idx, coarse_level.child_hit)
+                             coarse_level.child_idx, coarse_level.child_hit,
+                             lists, _child_lists(fine_level, coarse_level))
     else:
-        out = gather_gemm_up(feats, w, *maps)
+        out = gather_gemm_up(feats, w, *maps, lists)
     return _with_bias(out, bias, fine_level.valid)
 
 

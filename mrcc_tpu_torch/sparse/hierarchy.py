@@ -98,6 +98,12 @@ class Level:
       levels that take the table route, else None.
     k3_order: the level's k3 order (``ops.k3_order.K3Order``) where
       ``build_hierarchy`` built it (levels on the card), else None.
+    lists: the hit lists (``ops.hit_lists.HitLists``) of the level's maps
+      by kind: its k3 map ("sk" or "k3map"), its parent map ("up") and, on
+      the coarser level of a pair, its child map ("down").  On the card
+      ``sparse/conv.py`` adds each at the first conv over its map; every
+      other conv over the map reads it, for the level's life.  A level
+      made by ``dataclasses.replace`` starts with none.
     """
 
     off: torch.Tensor
@@ -114,6 +120,8 @@ class Level:
     nbr_idx: Optional[torch.Tensor] = None
     nbr_hit: Optional[torch.Tensor] = None
     k3_order: Optional[K3Order] = None
+    lists: dict = dataclasses.field(default_factory=dict, init=False,
+                                    repr=False, compare=False)
 
 
 def uses_k3_tables(n: int, conv_impl: str = "pallas",

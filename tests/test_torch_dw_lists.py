@@ -1,5 +1,6 @@
-"""The dW kernels' per-offset hit lists (``ops.conv.dw_hit_lists``) on the
-CPU: the plain twin, which the wrapper runs for CPU tensors.
+"""The per-offset hit lists of a map (``ops.hit_lists.HitLists``), which
+K3's down and up convs, their int8 counterparts and the dW kernels read,
+on the CPU: the plain twin, which ``HitLists`` runs for CPU tensors.
 
 - The lists hold every hit of the map in row order ``r = b * n_rows + i``
   and nothing else: no miss, no row whose offset bit is off (the
@@ -15,6 +16,8 @@ CPU: the plain twin, which the wrapper runs for CPU tensors.
 - The self-keyed search and the k3 tables of one level give the same
   lists (the dW kernels then give the same bits on both k3 routes).
 - A level of padding rows gives empty lists and a zero dW.
+- The lists' k3 deltas are the sparse core's, and a level on the CPU holds
+  no lists.
 
 Clouds: ``tests/test_torch_conv.py``'s border (keys that alias across the
 packed fields), overflow (parents past the coarse capacity) and scattered
@@ -34,8 +37,10 @@ from mrcc_tpu.sparse import build_hierarchy as jax_build_hierarchy
 from mrcc_tpu.sparse import conv as JC
 from mrcc_tpu.sparse import voxelize as jax_voxelize
 from mrcc_tpu.sparse.impl import sparse_impl
-from mrcc_tpu_torch.ops import conv
+from mrcc_tpu_torch.ops import conv, hit_lists
 from mrcc_tpu_torch.sparse import build_hierarchy, neighbor_tables
+from mrcc_tpu_torch.sparse import conv as sparse_conv
+from mrcc_tpu_torch.sparse.hierarchy import K3_DELTAS
 from mrcc_tpu_torch.sparse.types import SparseVoxels
 from test_torch_conv import CASES, Q, _points, _t
 
@@ -98,7 +103,7 @@ def _source_hits(kind, maps):
     if kind == "sk":
         key, kbits = maps
         hit, idx = [], []
-        for k, d in enumerate(conv._K3_DELTAS):
+        for k, d in enumerate(K3_DELTAS):
             q = key + d
             j = torch.searchsorted(key, q).clamp_max(key.shape[1] - 1)
             hit.append((((kbits >> k) & 1) != 0) & (key.gather(1, j) == q))
@@ -116,8 +121,8 @@ def _source_hits(kind, maps):
 def test_lists_hold_the_hits_in_row_order(case, kind):
     maps, src_lv, dst_lv, _ = _setup(kind, case)
     n_in = src_lv.key.shape[1]
-    fidx, gidx, count = conv.dw_hit_lists(kind, n_in, *maps)
-    taps, b, n = (conv._LIST_TAPS[kind],) + tuple(dst_lv.key.shape)
+    fidx, gidx, count = hit_lists.HitLists(kind, n_in, *maps).entries()
+    taps, b, n = (hit_lists.TAPS[kind],) + tuple(dst_lv.key.shape)
     assert fidx.shape == gidx.shape == (taps, b * n)
     assert count.dtype == fidx.dtype == torch.int32
     hit, j = _source_hits(kind, maps)
@@ -151,7 +156,7 @@ def test_lists_hold_the_hits_in_row_order(case, kind):
 def test_einsum_over_lists_matches_jax_dw(case, kind):
     maps, src_lv, dst_lv, jfn = _setup(kind, case)
     cin, cout, rng = case["cin"], case["cout"], case["rng"]
-    taps = conv._LIST_TAPS[kind]
+    taps = hit_lists.TAPS[kind]
     f = np.where(np.asarray(src_lv.valid)[..., None],
                  rng.normal(size=src_lv.valid.shape + (cin,)), 0.0
                  ).astype(np.float32)
@@ -160,7 +165,8 @@ def test_einsum_over_lists_matches_jax_dw(case, kind):
     with sparse_impl("xla"):
         want = np.asarray(jax.jit(jax.grad(
             lambda w: jnp.sum(jfn(jnp.asarray(f), w) * ct)))(w0))
-    fidx, gidx, count = conv.dw_hit_lists(kind, src_lv.key.shape[1], *maps)
+    fidx, gidx, count = hit_lists.HitLists(kind, src_lv.key.shape[1],
+                                           *maps).entries()
     ff = _t(f).reshape(-1, cin)
     gg = torch.where(dst_lv.valid[..., None], _t(ct), 0.0).reshape(-1, cout)
     got = torch.stack([
@@ -174,8 +180,8 @@ def test_einsum_over_lists_matches_jax_dw(case, kind):
 def test_self_keyed_and_table_lists_are_equal(case):
     lv = case["lv"][0]
     n = lv.key.shape[1]
-    sk = conv.dw_hit_lists("sk", n, lv.key, lv.kbits)
-    tables = conv.dw_hit_lists("k3map", n, *neighbor_tables(lv))
+    sk = hit_lists.HitLists("sk", n, lv.key, lv.kbits).entries()
+    tables = hit_lists.HitLists("k3map", n, *neighbor_tables(lv)).entries()
     for a, b in zip(sk, tables):
         assert torch.equal(a, b)
 
@@ -184,8 +190,51 @@ def test_padding_level_gives_empty_lists(case):
     lv = dataclasses.replace(case["lv"][2], kbits=torch.zeros_like(
         case["lv"][2].kbits))
     n = lv.key.shape[1]
-    fidx, gidx, count = conv.dw_hit_lists("sk", n, lv.key, lv.kbits)
+    fidx, gidx, count = hit_lists.HitLists("sk", n, lv.key,
+                                           lv.kbits).entries()
     assert int(count.abs().sum()) == 0
     assert bool((fidx == -1).all() and (gidx == -1).all())
     f = torch.ones(lv.key.shape + (4,))
     assert not bool(conv.dw_sk(f, f, lv.key, lv.kbits).any())
+
+
+def test_k3_deltas_are_the_sparse_cores():
+    """``ops.hit_lists`` computes the k3 deltas as the card does, without
+    importing the sparse core: the same tuple as ``sparse.hierarchy``."""
+    assert hit_lists.K3_DELTAS == K3_DELTAS
+    assert conv._K3_DELTAS == K3_DELTAS
+
+
+def test_cpu_levels_hold_no_lists(case):
+    """The plain twins read no lists, so a CPU step lists nothing: the
+    level accessors give None and the levels stay empty."""
+    lv = case["lv"]
+    assert sparse_conv._child_lists(lv[0], lv[1]) is None
+    assert sparse_conv._parent_lists(lv[0], lv[1]) is None
+    assert all(not level.lists for level in lv)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_lists_reject_another_map(case, kind):
+    """``HitLists`` refuses an unknown kind, maps of the wrong dtype or
+    count, and a k3 map whose gathered rows are not its own; ``check``
+    refuses lists of another map's kind or shape."""
+    maps, src_lv, dst_lv, _ = _setup(kind, case)
+    n_in = src_lv.key.shape[1]
+    with pytest.raises(ValueError):
+        hit_lists.HitLists("k5", n_in, *maps)
+    with pytest.raises(ValueError):
+        hit_lists.HitLists(kind, n_in, *maps[:-1])
+    with pytest.raises(ValueError):
+        hit_lists.HitLists(kind, n_in, maps[0].float(), *maps[1:])
+    if kind in ("sk", "k3map"):
+        with pytest.raises(ValueError):
+            hit_lists.HitLists(kind, n_in + 1, *maps)
+    lists = hit_lists.HitLists(kind, n_in, *maps)
+    rows = dst_lv.key.shape
+    lists.check("t", (kind,), n_in, rows)
+    for kinds, n, r in (((("down",) if kind != "down" else ("up",)), n_in,
+                         rows), ((kind,), n_in + 1, rows),
+                        ((kind,), n_in, (rows[0], rows[1] + 1))):
+        with pytest.raises(ValueError):
+            lists.check("t", kinds, n, r)

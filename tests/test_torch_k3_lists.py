@@ -1,7 +1,7 @@
 """K3's down and up convs as a list GEMM over per-octant hit lists, on the
 CPU: the plain twins of each stage (``ops.conv.list_gemm_plain``,
-``child_sum_plain``, the lists of ``dw_hit_lists_plain``), which the
-wrappers run for CPU tensors.
+``child_sum_plain``, the lists of ``ops.hit_lists.hit_lists_plain``), which
+the wrappers run for CPU tensors.
 
 - The down lists over the coarse level's child map and the up lists over
   the fine level's parent map name the same (fine row, coarse row,
@@ -33,7 +33,7 @@ from mrcc_tpu.sparse import build_hierarchy as jax_build_hierarchy
 from mrcc_tpu.sparse import conv as JC
 from mrcc_tpu.sparse import voxelize as jax_voxelize
 from mrcc_tpu.sparse.impl import sparse_impl
-from mrcc_tpu_torch.ops import conv
+from mrcc_tpu_torch.ops import conv, hit_lists
 from mrcc_tpu_torch.sparse import build_hierarchy
 from mrcc_tpu_torch.sparse.types import SparseVoxels
 from test_torch_conv import CASES, Q, _points, _t
@@ -79,8 +79,8 @@ def _down(feats, weights, coarse, dtype):
     """The down conv as the card runs it: the child map's lists, each fine
     row's product with its octant's slice (f32), the child sum."""
     b, n_in, _ = feats.shape
-    fidx, _, count = conv.dw_hit_lists_plain("down", n_in, coarse.child_idx,
-                                             coarse.child_hit)
+    fidx, _, count = hit_lists.hit_lists_plain(
+        "down", n_in, coarse.child_idx, coarse.child_hit)
     y = conv.list_gemm_plain(feats, weights, fidx, fidx, count, b * n_in)
     return conv.child_sum_plain(y.reshape(b, n_in, -1), coarse.child_idx,
                                 coarse.child_hit, dtype)
@@ -90,7 +90,7 @@ def _up(feats, weights, fine, row_ok, dtype):
     """The up conv as the card runs it: the parent map's lists, the list
     GEMM from the parents' rows into the fine rows."""
     b, n_out = fine.parent_idx.shape
-    fidx, gidx, count = conv.dw_hit_lists_plain(
+    fidx, gidx, count = hit_lists.hit_lists_plain(
         "up", feats.shape[1], fine.parent_idx, row_ok, fine.octant)
     out = conv.list_gemm_plain(feats, weights, fidx, gidx, count, b * n_out)
     return out.reshape(b, n_out, -1).to(dtype)
@@ -113,10 +113,10 @@ def test_down_and_up_lists_name_the_same_triples(case, l):
     fine, coarse = case["lv"][l], case["lv"][l + 1]
     b, nf = fine.key.shape
     nc = coarse.key.shape[1]
-    down = conv.dw_hit_lists_plain("down", nf, coarse.child_idx,
-                                   coarse.child_hit)
-    up = conv.dw_hit_lists_plain("up", nc, fine.parent_idx, fine.row_ok,
-                                 fine.octant)
+    down = hit_lists.hit_lists_plain("down", nf, coarse.child_idx,
+                                     coarse.child_hit)
+    up = hit_lists.hit_lists_plain("up", nc, fine.parent_idx, fine.row_ok,
+                                   fine.octant)
     triples = {}
     for name, (src, dst, count), fine_side in (("down", down, 0),
                                                ("up", up, 1)):
@@ -194,8 +194,8 @@ def test_stage_wrappers_take_the_plain_twins_on_the_cpu(case):
     b, nf = fine.key.shape
     f = _t(_feats(fine, 5, rng))
     w = _t(rng.normal(size=(8, 5, 6)).astype(np.float32))
-    fidx, _, count = conv.dw_hit_lists("down", nf, coarse.child_idx,
-                                       coarse.child_hit)
+    fidx, _, count = hit_lists.HitLists("down", nf, coarse.child_idx,
+                                         coarse.child_hit).entries()
     y = conv.list_gemm(f, w, fidx, fidx, count, b * nf)
     assert torch.equal(y, conv.list_gemm_plain(f, w, fidx, fidx, count,
                                                b * nf))

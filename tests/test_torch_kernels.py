@@ -26,10 +26,13 @@ tolerances above; the nearest-neighbour kernel's d2 is within 1e-5 of its
 twin and its indices equal except at near-ties (the two smallest d2 of a
 row within 1e-6 of |a|^2, the scale of the f32 rounding of
 |a|^2 - 2ab + |b|^2).  The k3-table dW kernel holds the dW tolerances and
-``K3MapConvFn`` the backward one.  The dW kernels' hit lists
-(``dw_hit_lists``) equal their plain twin integer for integer (border
+``K3MapConvFn`` the backward one.  The hit lists of every map kind
+(``ops.hit_lists``) equal their plain twin integer for integer (border
 keys, overflowed parents, a level of padding rows), and the self-keyed
-and table dW give the same bits on one level.  One vote step (self-keyed)
+and table dW give the same bits on one level.  A segmentation train step
+launches the list kernel once a map of its hierarchy, and every reader
+over a level's held lists gives the bits of the same call listing its map
+itself.  One vote step (self-keyed)
 and one metric-learning step (every level on tables) hold the card
 against the exact step (the CPU's in float64) at the train-step gates
 (loss 1e-5, gradients 1e-4, the update 1e-3, BN statistics 1e-5).  The
@@ -54,7 +57,8 @@ import pytest
 import torch
 
 from mrcc_tpu_torch.data.synthetic import build_batch
-from mrcc_tpu_torch.ops import conv, conv_q8, k3_order, nn, norm, rank, sort
+from mrcc_tpu_torch.ops import (conv, conv_q8, hit_lists, k3_order, nn, norm,
+                                rank, sort)
 from mrcc_tpu_torch.sparse import (KEY_PAD, build_hierarchy, neighbor_tables,
                                    voxelize)
 from mrcc_tpu_torch.sparse.hierarchy import K3_DELTAS
@@ -221,7 +225,7 @@ def test_conv_sk_all_padding(cuda, ragged_level):
 
 
 def _counts():
-    return tuple(c.launches for c in (conv.DOWN, conv.UP, conv.K3_LISTS,
+    return tuple(c.launches for c in (conv.DOWN, conv.UP, hit_lists.LISTS,
                                       conv.K3_SUM))
 
 
@@ -265,10 +269,10 @@ def test_conv_down_up(cuda, levels, l, cin, cout):
 
 @pytest.mark.parametrize("l", [0, 2])
 def test_k3_stages(cuda, levels, l):
-    """K3's list stage (its own instantiation of the list kernel), the list
-    GEMM and the child sum, each against its plain twin: lists exact, the
-    GEMM 1e-5 (f32) / 2e-2 (bf16), the child sum exact (the same f32 adds
-    in the same order)."""
+    """K3's stages: the lists of its maps (one launch of the list kernel),
+    the list GEMM and the child sum, each against its plain twin: lists
+    exact, the GEMM 1e-5 (f32) / 2e-2 (bf16), the child sum exact (the same
+    f32 adds in the same order)."""
     fine, coarse = levels[l], levels[l + 1]
     b, nf = fine.key.shape
     nc = coarse.key.shape[1]
@@ -277,11 +281,11 @@ def test_k3_stages(cuda, levels, l):
             ("up", nc, (fine.parent_idx, fine.valid & fine.parent_ok,
                         fine.octant))):
         maps = [m.contiguous() for m in maps]
-        before = (conv.K3_LISTS.launches, conv.DW_LISTS.launches)
-        lists, count = conv._launch_hit_lists(kind, n_in, maps, k3=True)
-        assert (conv.K3_LISTS.launches, conv.DW_LISTS.launches) == (
-            before[0] + 1, before[1])
-        fidx, gidx, want = conv.dw_hit_lists_plain(kind, n_in, *maps)
+        before = hit_lists.LISTS.launches
+        held = hit_lists.HitLists(kind, n_in, *maps)
+        lists, count = held.lists, held.count
+        assert hit_lists.LISTS.launches == before + 1
+        fidx, gidx, want = hit_lists.hit_lists_plain(kind, n_in, *maps)
         assert torch.equal(count, want)
         for k, c in enumerate(want.tolist()):
             assert torch.equal(lists[0, k, :c], fidx[k, :c])
@@ -474,13 +478,14 @@ def test_dw_hit_lists_exact(cuda, levels, case, kind):
     n_in, maps = _list_maps(lv_all, kind, padding=case == "padding")
     if case == "overflow" and kind == "up":
         assert not bool(maps[1][lv_all[0].valid].all())
-    before = conv.DW_LISTS.launches
-    got = conv.dw_hit_lists(kind, n_in, *maps)
-    assert conv.DW_LISTS.launches == before + 1
-    want = conv.dw_hit_lists_plain(kind, n_in, *maps)
+    before = hit_lists.LISTS.launches
+    got = hit_lists.HitLists(kind, n_in, *maps).entries()
+    assert hit_lists.LISTS.launches == before + 1
+    want = hit_lists.hit_lists_plain(kind, n_in, *maps)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a, b)
-    assert torch.equal(conv.dw_hit_lists(kind, n_in, *maps)[0], got[0])
+    assert torch.equal(hit_lists.HitLists(kind, n_in, *maps).entries()[0],
+                       got[0])
     if case == "padding":
         assert not bool(got[2].any())
         fine, coarse = lv_all[0], lv_all[1]
@@ -493,6 +498,97 @@ def test_dw_hit_lists_exact(cuda, levels, case, kind):
             assert dw.shape == (got[0].shape[0], 40, 72) and not dw.any()
     else:
         assert bool(got[2].any())
+
+
+@pytest.mark.parametrize("self_keyed", [True, False])
+def test_train_step_lists_each_map_once(cuda, self_keyed):
+    """One segmentation train step (minkunet14A, depth 4, B = 2, every
+    level self-keyed or every level on tables) launches the list kernel
+    once a map of its hierarchy: the k3 map of each of its 5 levels and
+    the child and parent maps of each of its 4 level pairs, 13 in all,
+    whoever reads a map first; its K3 down / up and dW calls launch as
+    many times as before."""
+    from mrcc_tpu_torch.data.dataset import AliveV2Dataset, DataConfig
+    from mrcc_tpu_torch.data.synthetic import generate_sample
+    from mrcc_tpu_torch.models import RobotNetSegmentation
+    from mrcc_tpu_torch.sparse.nn import init_parameters
+    from mrcc_tpu_torch.train import TrainConfig, make_segmentation_train_step
+
+    data = AliveV2Dataset(
+        samples=[generate_sample(seed=31 + i, n_ee=1024, n_arm=1024,
+                                 n_bg=2048) for i in range(2)],
+        cfg=DataConfig(max_points=4096))
+    batch = data.collate([data[0], data[1]])
+    model = init_parameters(RobotNetSegmentation(backbone="minkunet14A"), 8)
+    step, _ = make_segmentation_train_step(
+        model, DataConfig(max_points=4096),
+        TrainConfig(k3_self_keyed=self_keyed), 2048, device=cuda)
+    counters = (hit_lists.LISTS, conv.DOWN, conv.UP, conv.DW_SK,
+                conv.DW_K3MAP, conv.DW_DOWN, conv.DW_UP)
+    before = [c.launches for c in counters]
+    step(batch, 1e-4)
+    torch.cuda.synchronize()
+    lists, down, up, dw_sk, dw_k3map, dw_down, dw_up = (
+        c.launches - b for c, b in zip(counters, before))
+    assert lists == 5 + 4 * 2
+    # forward and data cotangent of each down and up conv of 4 pairs
+    assert (down, up, dw_down, dw_up) == (8, 8, 4, 4)
+    assert (dw_sk == 0) != self_keyed and dw_sk + dw_k3map > 5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l", [0, 2])
+def test_readers_on_held_lists(cuda, l, dtype):
+    """Every reader of a map's lists over the lists a level holds
+    (``sparse.conv``: listed at the first read, once a map) gives the bits
+    of the same call listing the map itself: K3 down and up, their int8
+    counterparts, the four dW wrappers (the k3 dW kernels on either k3
+    kind's lists)."""
+    from mrcc_tpu_torch.sparse import conv as C
+
+    pts, rgb, mask = build_batch(2, 4096, seed=5)
+    vox, _ = voxelize(torch.as_tensor(pts, device=cuda),
+                      torch.as_tensor(rgb, device=cuda),
+                      torch.as_tensor(mask, device=cuda), 1 / 100.0, 3072)
+    lvs = build_hierarchy(vox, 4, capacities=(2048, 1024, 512, 256))
+    fine, coarse = lvs[l], lvs[l + 1]
+    nf, nc = fine.key.shape[1], coarse.key.shape[1]
+    tables = neighbor_tables(fine)
+    before = hit_lists.LISTS.launches
+    held = {"down": C._child_lists(fine, coarse),
+            "up": C._parent_lists(fine, coarse),
+            "sk": C._held(fine, "sk", nf, fine.key, fine.kbits)}
+    assert C._child_lists(fine, coarse) is held["down"]
+    assert hit_lists.LISTS.launches == before  # listed at the first read
+    child = (coarse.child_idx, coarse.child_hit)
+    parent = (fine.parent_idx, fine.row_ok, fine.octant)
+    f_fine, f_coarse = _feats(fine, 40, dtype), _feats(coarse, 72, dtype)
+    w_down = torch.randn((8, 40, 72), device=cuda) / 40
+    w_up = torch.randn((8, 72, 40), device=cuda) / 72
+    g_fine, g_coarse = _feats(fine, 24, dtype), _feats(coarse, 24, dtype)
+    calls = (
+        (conv.gather_gemm_down, (f_fine, w_down.to(dtype), *child), "down"),
+        (conv.gather_gemm_up, (f_coarse, w_up.to(dtype), *parent), "up"),
+        (conv_q8.gather_gemm_down_q8, (f_fine, w_down, *child, None), "down"),
+        (conv_q8.gather_gemm_up_q8, (f_coarse, w_up, *parent, None), "up"),
+        (conv.dw_down, (f_fine, g_coarse, *child), "down"),
+        (conv.dw_up, (f_coarse, g_fine, *parent), "up"),
+        (conv.dw_sk, (f_fine, g_fine, fine.key, fine.kbits), "sk"),
+        (conv.dw_k3_map, (f_fine, g_fine, *tables), "sk"))
+    for fn, args, kind in calls:
+        got = fn(*args, held[kind])
+        own = hit_lists.LISTS.launches
+        want = fn(*args)
+        assert hit_lists.LISTS.launches == own + 1
+        assert got.dtype == want.dtype and torch.equal(got, want), fn
+    # three maps listed once each over the eight held calls
+    assert hit_lists.LISTS.launches == before + 3 + len(calls)
+    k3map = hit_lists.HitLists("k3map", nf, *tables)
+    assert torch.equal(conv.dw_sk(f_fine, g_fine, fine.key, fine.kbits,
+                                  k3map),
+                       conv.dw_sk(f_fine, g_fine, fine.key, fine.kbits))
+    with pytest.raises(ValueError):
+        conv.dw_down(f_fine, g_coarse, *child, held["up"])
 
 
 @pytest.fixture(scope="module")
@@ -627,7 +723,7 @@ def _ulps(got, want):
 
 
 _Q8_KINDS = (conv_q8.SK_Q8, conv_q8.K3MAP_Q8, conv_q8.DOWN_Q8, conv_q8.UP_Q8,
-             conv_q8.Q8_QUANT, conv_q8.Q8_LISTS, conv_q8.Q8_SUM)
+             conv_q8.Q8_QUANT, hit_lists.LISTS, conv_q8.Q8_SUM)
 _Q8_MODE = {"conv_sk_q8": "k3", "conv_k3map_q8": "k3_table",
             "conv_down_q8": "down", "conv_up_q8": "up"}
 
@@ -650,7 +746,7 @@ def _check_q8(fn, plain, counter, unquantised, f, w, maps):
     got, launched = _q8_launches(fn, f, w, *maps)
     expect = {counter.name: 1, "q8_quantize": 3}
     if mode in ("down", "up"):
-        expect["q8_lists"] = 1
+        expect["hit_lists"] = 1
     if mode == "down":
         expect["q8_child_sum"] = 1
     assert launched == expect

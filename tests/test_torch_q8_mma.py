@@ -35,7 +35,7 @@ from mrcc_tpu.ops import conv_pallas as CP
 from mrcc_tpu.sparse import build_hierarchy as jax_build_hierarchy
 from mrcc_tpu.sparse import voxelize as jax_voxelize
 from mrcc_tpu.sparse.hierarchy import _up_tiled_maps
-from mrcc_tpu_torch.ops import conv
+from mrcc_tpu_torch.ops import conv, hit_lists
 from mrcc_tpu_torch.ops import conv_q8 as Q
 from mrcc_tpu_torch.sparse import build_hierarchy
 from mrcc_tpu_torch.sparse.types import SparseVoxels
@@ -158,8 +158,8 @@ def _down(feats, w, coarse, act_absmax=None):
     int32 products of the listed fine rows, the int32 child sum."""
     b, n_in, _ = feats.shape
     ops = Q.quantize_operands_plain("down", feats, w, n_in, act_absmax)
-    fidx, _, count = conv.dw_hit_lists_plain("down", n_in, coarse.child_idx,
-                                             coarse.child_hit)
+    fidx, _, count = hit_lists.hit_lists_plain(
+        "down", n_in, coarse.child_idx, coarse.child_hit)
     y = Q.list_gemm_q8_plain(ops, fidx, fidx, count, b * n_in)
     return Q.child_sum_q8_plain(y.reshape(len(ops.groups), b, n_in, -1),
                                 ops.m, coarse.child_idx, coarse.child_hit,
@@ -174,7 +174,7 @@ def _up(feats, w, fine, row_ok, act_absmax=None):
     n_in = feats.shape[1]
     ops = Q.quantize_operands_plain("up", feats, w, n_in, act_absmax,
                                     per_octant=True)
-    fidx, gidx, count = conv.dw_hit_lists_plain(
+    fidx, gidx, count = hit_lists.hit_lists_plain(
         "up", n_in, fine.parent_idx, row_ok, fine.octant)
     y = Q.list_gemm_q8_plain(ops, fidx, gidx, count, b * n_out)
     y = y.reshape(len(ops.groups), b, n_out, -1)

@@ -27,8 +27,8 @@ from mrcc_tpu_torch import tracing
 from mrcc_tpu_torch.data.dataset import DataConfig, PoseDataset
 from mrcc_tpu_torch.data.synthetic import generate_sample
 from mrcc_tpu_torch.models import RobotNet, RobotNetSegmentation
-from mrcc_tpu_torch.ops import (build, conv, conv_q8, k3_order, nn, norm,
-                                rank, sort)
+from mrcc_tpu_torch.ops import (build, conv, conv_q8, hit_lists, k3_order, nn,
+                                norm, rank, sort)
 from mrcc_tpu_torch.sparse.nn import init_parameters
 from mrcc_tpu_torch.train import (LossConfig, TrainConfig,
                                   make_pose_train_step,
@@ -37,7 +37,7 @@ from mrcc_tpu_torch.train.trainer import TRAIN_BATCHES, PoseTrainStep
 
 B, P, CAP = 2, 1600, 1024
 STAGES = ("prepare", "forward", "backward", "update")
-OPS = (conv, conv_q8, k3_order, nn, norm, rank, sort)
+OPS = (conv, conv_q8, hit_lists, k3_order, nn, norm, rank, sort)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -183,7 +183,7 @@ def test_every_launch_counter_of_ops_is_registered_once():
     found = [v for m in OPS for v in vars(m).values()
              if isinstance(v, tracing.LaunchCounter)]
     names = [c.name for c in found]
-    assert len(found) == 28 and len(set(names)) == len(names)
+    assert len(found) == 26 and len(set(names)) == len(names)
     launches = tracing.counts(tracing.LaunchCounter)
     assert set(names) == set(launches)
     assert all(tracing._COUNTERS[c.name] is c for c in found)
